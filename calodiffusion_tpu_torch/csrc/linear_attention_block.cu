@@ -35,97 +35,20 @@
 // context product, ctx, the scaled q softmax, the attention output before
 // W_o, the post-GN output before the residual add).
 //
-// C entry: calo_attention_block_forward; returns cudaGetLastError().
+// C entry: calo_attention_block_forward, for the one (dtype, C) variant
+// of the build (attention_common.cuh); returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "attention_common.cuh"
 
 namespace {
 
-constexpr int D = 32;          // dim_head
+using namespace calo;
+
 constexpr int THREADS = 256;   // one position per thread per tile
 constexpr int TILE = THREADS;
 constexpr int LD = TILE + 1;   // padded row stride of the (D, TILE) tiles
 constexpr int WARPS = THREADS / 32;
 static_assert(THREADS == 8 * D, "ctx accumulation maps 8 threads per row");
-
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as XLA's cast
-}
-
-// v rounded to the compute dtype, held in f32 (the Pallas `.astype(cdt)`)
-template <typename T> __device__ __forceinline__ float rnd(float v) {
-  return to_f<T>(from_f<T>(v));
-}
-
-// 16 bytes of a row <-> floats: 8 bf16 (bit operations, little-endian
-// halves) or 4 f32 values
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* r) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    r[2 * i] = __uint_as_float(w[i] << 16);
-    r[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
-__device__ __forceinline__ void load16(const float* p, float* r) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  r[0] = v.x; r[1] = v.y; r[2] = v.z; r[3] = v.w;
-}
-
-__device__ __forceinline__ void store16(__nv_bfloat16* p, const float* r) {
-  unsigned w[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    w[i] = static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16(r[2 * i]))) |
-           (static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16(r[2 * i + 1]))) << 16);
-  }
-  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-__device__ __forceinline__ void store16(float* p, const float* r) {
-  *reinterpret_cast<float4*>(p) = make_float4(r[0], r[1], r[2], r[3]);
-}
-
-// one row of C elements, 16-byte vector accesses (the wrapper checks alignment)
-template <typename T, int C>
-__device__ __forceinline__ void load_row(const T* __restrict__ p, float (&r)[C]) {
-  constexpr int PER = 16 / sizeof(T);
-#pragma unroll
-  for (int i = 0; i < C / PER; ++i) load16(p + i * PER, r + i * PER);
-}
-
-template <typename T, int C>
-__device__ __forceinline__ void store_row(T* __restrict__ p, const float (&r)[C]) {
-  constexpr int PER = 16 / sizeof(T);
-#pragma unroll
-  for (int i = 0; i < C / PER; ++i) store16(p + i * PER, r + i * PER);
-}
-
-// sum over the block; every thread gets the total
-__device__ float block_sum(float v, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();  // red may still be read by a previous call
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float t = lane < WARPS ? red[lane] : 0.f;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
-  return t;
-}
 
 template <int C>
 constexpr int smem_floats() {
@@ -192,7 +115,7 @@ attention_block_kernel(const T* __restrict__ x, const float* __restrict__ gn_pre
 #pragma unroll
     for (int c = 0; c < C; ++c) acc += r[c];
   }
-  const float mu = block_sum(acc, s_red) / denom;
+  const float mu = block_sum<THREADS>(acc, s_red) / denom;
   acc = 0.f;
   for (int n = tid; n < N; n += THREADS) {
     float r[C];
@@ -203,7 +126,7 @@ attention_block_kernel(const T* __restrict__ x, const float* __restrict__ gn_pre
       acc += d * d;
     }
   }
-  const float inv = rsqrtf(block_sum(acc, s_red) / denom + eps);
+  const float inv = rsqrtf(block_sum<THREADS>(acc, s_red) / denom + eps);
   if (tid < C) {
     const float sc = gn_pre_scale[tid] * inv;
     s_pre_sc[tid] = sc;
@@ -368,7 +291,7 @@ attention_block_kernel(const T* __restrict__ x, const float* __restrict__ gn_pre
     }
     store_row<float, C>(yb + static_cast<size_t>(n) * C, y);
   }
-  const float mu_y = block_sum(acc, s_red) / denom;
+  const float mu_y = block_sum<THREADS>(acc, s_red) / denom;
 
   // ---- pass B2: post-GN variance (centered) ------------------------------
   acc = 0.f;
@@ -381,7 +304,7 @@ attention_block_kernel(const T* __restrict__ x, const float* __restrict__ gn_pre
       acc += d * d;
     }
   }
-  const float inv_y = rsqrtf(block_sum(acc, s_red) / denom + eps);
+  const float inv_y = rsqrtf(block_sum<THREADS>(acc, s_red) / denom + eps);
   if (tid < C) {
     const float sc = gn_post_scale[tid] * inv_y;
     s_post_sc[tid] = sc;
@@ -427,18 +350,8 @@ extern "C" int calo_attention_block_forward(const void* x, const void* gn_pre_sc
                                             const void* gn_post_bias, void* y_scr,
                                             void* out, int B, int N, int C, int is_bf16,
                                             float eps, void* stream) {
-  if (B < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-#define CALO_LAUNCH(T, CC)                                                              \
-  return launch<T, CC>(x, gn_pre_scale, gn_pre_bias, w_qkv, w_out, b_out, gn_post_scale, \
-                       gn_post_bias, y_scr, out, B, N, eps, s)
-  if (is_bf16) {
-    if (C == 32) CALO_LAUNCH(__nv_bfloat16, 32);
-    if (C == 64) CALO_LAUNCH(__nv_bfloat16, 64);
-  } else {
-    if (C == 32) CALO_LAUNCH(float, 32);
-    if (C == 64) CALO_LAUNCH(float, 64);
-  }
-#undef CALO_LAUNCH
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (B < 1 || N < 1 || !is_variant(is_bf16, C)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<VariantT, CALO_C>(x, gn_pre_scale, gn_pre_bias, w_qkv, w_out, b_out,
+                                  gn_post_scale, gn_post_bias, y_scr, out, B, N, eps,
+                                  static_cast<cudaStream_t>(stream));
 }

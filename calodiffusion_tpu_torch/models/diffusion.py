@@ -6,7 +6,7 @@ calodiffusion.py).  Showers enter and leave as ``(B, 1, Z, A, R)``, as in
 the JAX package; the network inside is NCDHW.
 
 Not ported yet: geometry embeds (``SHOWER_EMBED``), HGCal, the phi image,
-the cold-diffusion prior, int8 sampling and the training losses.
+the cold-diffusion prior and int8 sampling.
 """
 
 from __future__ import annotations
@@ -129,6 +129,13 @@ class CaloDiffusion:
     def load_state_dict(self, state_dict: dict) -> None:
         self.net.unet.load_state_dict(state_dict)
 
+    def parameters(self):
+        """The trainable tensors (the U-Net's f32 parameters), for an optimizer."""
+        return self.net.unet.parameters()
+
+    def named_parameters(self):
+        return self.net.unet.named_parameters()
+
     # -- diffusion math ------------------------------------------------------
     def do_time_embed(self, sigma):
         """sigma -> scalar time feature (reference calodiffusion.py:144-152)."""
@@ -140,12 +147,34 @@ class CaloDiffusion:
 
     def denoise(self, x, E=None, sigma=None, layers=None):
         """x0 estimate from the network prediction with the objective's
-        skip/out scalings (reference calodiffusion.py:154-169); hybrid_weight
-        is the one ported objective."""
+        in/skip/out scalings (reference calodiffusion.py:154-169)."""
         t_emb = self.do_time_embed(sigma.reshape(-1))
         scales = self.loss_function.get_scaling(sigma)
         pred = self.net(x * scales["c_in"], E, t_emb, layers)
-        return scales["c_skip"] * x + scales["c_out"] * pred
+
+        name = self.training_objective
+        if "noise_pred" in name:
+            return x - sigma * pred
+        if "mean_pred" in name:
+            return pred
+        if "hybrid" in name or "minsnr" in name:
+            return scales["c_skip"] * x + scales["c_out"] * pred
+        raise ValueError(f"??? Training obj {name}")
+
+    def denoise_fn(self):
+        def fn(x, E=None, sigma=None, layers=None):
+            return self.denoise(x, E=E, sigma=sigma, layers=layers)
+
+        return fn
+
+    def compute_loss(self, data, energy, generator: Optional[torch.Generator] = None,
+                     noise=None, layers=None, time=None, rnd_normal=None):
+        """The training loss of one batch (reference calodiffusion.py
+        compute_loss); randomness not injected is drawn from ``generator``."""
+        return self.loss_function(
+            self.denoise_fn(), data, energy, generator,
+            noise=noise, time=time, layers=layers, rnd_normal=rnd_normal,
+        )
 
     # -- sampling ------------------------------------------------------------
     def make_sampler(self, sampler_name: Optional[str] = None):

@@ -1,18 +1,27 @@
-"""Fused attention block ``x + GN1(LinearAttention(GN1(x)))``.
+"""Fused attention block ``x + GN1(LinearAttention(GN1(x)))``, forward and
+backward.
 
-``fused_attention_block`` replaces the Pallas kernel
-``calodiffusion_tpu/ops/pallas_linear_attention.py::_block_kernel`` (entry
-``fused_attention_block``, same signature and ``(B, N, C)`` layout) with the
-hand-written CUDA kernel ``csrc/linear_attention_block.cu``.
+``fused_attention_block`` replaces the Pallas kernels of
+``calodiffusion_tpu/ops/pallas_linear_attention.py`` (entry
+``fused_attention_block``, same signature and ``(B, N, C)`` layout) with two
+hand-written CUDA kernels:
 
-On a CUDA tensor the wrapper launches that kernel or raises; on a CPU tensor
+- K1, the forward (``_block_kernel``): ``csrc/linear_attention_block.cu``;
+- K2, the backward (``_block_bwd_kernel``): ``csrc/linear_attention_block_bwd.cu``,
+  through ``attention_block_backward``.
+
+On a CUDA tensor the entry is a ``torch.autograd.Function`` whose forward
+launches K1 and whose backward launches K2, or they raise; on a CPU tensor
 it runs ``attention_block_reference``, the plain PyTorch version of the same
-function that the tests and ``chip_smoke.py`` hold the kernel against.
+function, and autograd differentiates that.  The tests and ``chip_smoke.py``
+hold K1 against ``attention_block_reference`` and K2 against
+``attention_block_backward_reference`` (autograd of the plain version).
 
-Bound on the card: device-memory bytes.  The function reads x once and
-writes the output once (2 * B * N * C elements); its matrix products are
-about 6 * 1024 FLOPs per position, far below the tensor cores' rate per
-byte.  See the source for the kernel's design.
+Bound on the card: device-memory bytes.  The forward reads x once and
+writes the output once (2 * B * N * C elements), the backward reads x and
+g once and writes dx once (3 * B * N * C); their matrix products are a few
+thousand FLOPs per position, far below the tensor cores' rate per byte.
+See the sources for the kernels' designs.
 """
 
 from __future__ import annotations
@@ -23,21 +32,53 @@ import functools
 import torch
 
 DIM_HEAD = 32
-_KERNEL = "linear_attention_block"
+FORWARD_KERNEL = "linear_attention_block"
+BACKWARD_KERNEL = "linear_attention_block_bwd"
 _SUPPORTED_C = (32, 64)
+_PTR = ctypes.c_void_p
+_PTRS = ctypes.POINTER(ctypes.c_void_p)
+# C entry and argument types of each kernel's library
+_ENTRIES = {
+    FORWARD_KERNEL: ("calo_attention_block_forward",
+                     [_PTR] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float, _PTR]),
+    BACKWARD_KERNEL: ("calo_attention_block_backward",
+                      [_PTR] * 8 + [_PTRS, _PTR, _PTRS] + [ctypes.c_int] * 4
+                      + [ctypes.c_float, _PTR]),
+}
+
+
+def bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
+    """Declare the argument and result types of ``lib``'s entry for kernel ``name``."""
+    entry, argtypes = _ENTRIES[name]
+    fn = getattr(lib, entry)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def variant(dtype, C: int) -> tuple[str, str]:
+    """The macros of the kernels' build for compute dtype ``dtype`` and C
+    channels: each library holds one (dtype, C) instantiation."""
+    return (f"CALO_BF16={int(dtype == torch.bfloat16)}", f"CALO_C={C}")
+
+
+# every (kernel, variant) a caller may launch
+BUILDS = tuple((name, variant(dtype, C)) for name in (FORWARD_KERNEL, BACKWARD_KERNEL)
+               for dtype in (torch.bfloat16, torch.float32) for C in _SUPPORTED_C)
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
+def _library(name: str, dtype, C: int) -> ctypes.CDLL:
     from calodiffusion_tpu_torch.ops import cuda_build
 
-    lib = cuda_build.load(_KERNEL)
-    fn = lib.calo_attention_block_forward
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    return lib
+    return bind(cuda_build.load(name, variant(dtype, C)), name)
+
+
+def build_all() -> None:
+    """Build every variant of both kernels at once (one nvcc each)."""
+    from calodiffusion_tpu_torch.ops import cuda_build
+
+    cuda_build.build_all(BUILDS)
 
 
 def _check(name, t, shape, dtype, device):
@@ -51,29 +92,19 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def fused_attention_block(x, gn_pre_scale, gn_pre_bias, w_qkv, w_out, b_out,
-                          gn_post_scale, gn_post_bias, dim_head: int = DIM_HEAD,
-                          eps: float = 1e-5):
-    """x + GN1(LinearAttention(GN1(x))).  x: (B, N, C) bf16 or f32;
-    w_qkv: (C, 3*32) and w_out: (32, C) in x's dtype; GroupNorm affines and
-    b_out: (C,) f32.  heads = 1, dim_head = 32."""
-    if x.device.type == "cpu":
-        return attention_block_reference(
-            x, gn_pre_scale, gn_pre_bias, w_qkv, w_out, b_out,
-            gn_post_scale, gn_post_bias, dim_head, eps,
-        )
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_attention_block: unsupported device {x.device}")
+def _check_block(x, gn_pre_scale, gn_pre_bias, w_qkv, w_out, b_out, gn_post_scale,
+                 gn_post_bias, dim_head):
+    """Shapes, dtypes and layout the kernels take; returns (B, N, C)."""
     if dim_head != DIM_HEAD:
-        raise ValueError(f"the kernel takes dim_head {DIM_HEAD}, got {dim_head}")
+        raise ValueError(f"the kernels take dim_head {DIM_HEAD}, got {dim_head}")
     if x.dim() != 3:
         raise ValueError(f"x must be (B, N, C), got shape {tuple(x.shape)}")
     B, N, C = x.shape
     if C not in _SUPPORTED_C or N < 1 or B < 1:
-        raise ValueError(f"the kernel takes C in {_SUPPORTED_C} and B, N >= 1, "
+        raise ValueError(f"the kernels take C in {_SUPPORTED_C} and B, N >= 1, "
                          f"got {tuple(x.shape)}")
     if x.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"the kernel takes bf16 or f32, got {x.dtype}")
+        raise TypeError(f"the kernels take bf16 or f32, got {x.dtype}")
     dev = x.device
     _check("x", x, (B, N, C), x.dtype, dev)
     _check("w_qkv", w_qkv, (C, 3 * DIM_HEAD), x.dtype, dev)
@@ -84,29 +115,154 @@ def fused_attention_block(x, gn_pre_scale, gn_pre_bias, w_qkv, w_out, b_out,
         _check(name, t, (C,), torch.float32, dev)
     if x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned (vector loads)")
+    return B, N, C
 
-    lib = _library()
-    y_scr = torch.empty((B, N, C), dtype=torch.float32, device=dev)
-    out = torch.empty_like(x)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.calo_attention_block_forward(
-            x.data_ptr(), gn_pre_scale.data_ptr(), gn_pre_bias.data_ptr(),
-            w_qkv.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
-            gn_post_scale.data_ptr(), gn_post_bias.data_ptr(),
-            y_scr.data_ptr(), out.data_ptr(), B, N, C,
-            int(x.dtype == torch.bfloat16), float(eps), stream,
-        )
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else 0
+
+
+def _raise_on(rc, name, x):
     if rc != 0:
-        raise RuntimeError(
-            f"{_KERNEL} kernel launch failed with CUDA error {rc} "
-            f"(B, N, C = {B}, {N}, {C}; {x.dtype})"
-        )
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc} "
+                           f"(B, N, C = {tuple(x.shape)}; {x.dtype})")
+
+
+def launch_forward(lib, x, gn_pre_scale, gn_pre_bias, w_qkv, w_out, b_out,
+                   gn_post_scale, gn_post_bias, eps: float):
+    """Allocate K1's output and scratch and call ``lib``'s forward entry on
+    checked inputs; returns the block's output."""
+    B, N, C = x.shape
+    y_scr = torch.empty((B, N, C), dtype=torch.float32, device=x.device)
+    out = torch.empty_like(x)
+    rc = lib.calo_attention_block_forward(
+        x.data_ptr(), gn_pre_scale.data_ptr(), gn_pre_bias.data_ptr(),
+        w_qkv.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
+        gn_post_scale.data_ptr(), gn_post_bias.data_ptr(),
+        y_scr.data_ptr(), out.data_ptr(), B, N, C,
+        int(x.dtype == torch.bfloat16), float(eps), _stream(x.device),
+    )
+    _raise_on(rc, FORWARD_KERNEL, x)
+    return out
+
+
+def launch_backward(lib, x, gn_pre_scale, gn_pre_bias, w_qkv, w_out, b_out,
+                    gn_post_scale, g, eps: float):
+    """Allocate K2's outputs and scratch and call ``lib``'s backward entry on
+    checked inputs; sums the per-sample weight gradients over the batch, as
+    the Pallas wrapper does (pallas_linear_attention.py:741-752), and
+    returns (dx, d gn_pre_scale, d gn_pre_bias, d w_qkv, d w_out, d b_out,
+    d gn_post_scale, d gn_post_bias) in their inputs' dtypes."""
+    B, N, C = x.shape
+    D = DIM_HEAD
+    dev, f32 = x.device, torch.float32
+    scratch = [torch.empty(shape, dtype=f32, device=dev)
+               for shape in ((B, N, C), (B, N, C), (B, N, D), (B, N, D), (B, N, D))]
+    dx = torch.empty_like(x)
+    dg1, db1, dbo, dg2, db2 = (torch.empty((B, C), dtype=f32, device=dev) for _ in range(5))
+    dwq, dwk, dwv = (torch.empty((B, C, D), dtype=f32, device=dev) for _ in range(3))
+    dwo = torch.empty((B, D, C), dtype=f32, device=dev)
+    grads = (dg1, db1, dwq, dwk, dwv, dwo, dbo, dg2, db2)
+    scratch_ptrs = (ctypes.c_void_p * 5)(*(t.data_ptr() for t in scratch))
+    grad_ptrs = (ctypes.c_void_p * 9)(*(t.data_ptr() for t in grads))
+    rc = lib.calo_attention_block_backward(
+        x.data_ptr(), g.data_ptr(), gn_pre_scale.data_ptr(), gn_pre_bias.data_ptr(),
+        w_qkv.data_ptr(), w_out.data_ptr(), b_out.data_ptr(), gn_post_scale.data_ptr(),
+        scratch_ptrs, dx.data_ptr(), grad_ptrs, B, N, C,
+        int(x.dtype == torch.bfloat16), float(eps), _stream(dev),
+    )
+    _raise_on(rc, BACKWARD_KERNEL, x)
+    d_w_qkv = torch.cat([dwq.sum(0), dwk.sum(0), dwv.sum(0)], dim=1).to(w_qkv.dtype)
+    return (dx, dg1.sum(0), db1.sum(0), d_w_qkv, dwo.sum(0).to(w_out.dtype),
+            dbo.sum(0), dg2.sum(0), db2.sum(0))
+
+
+def attention_block_forward(x, gn_pre_scale, gn_pre_bias, w_qkv, w_out, b_out,
+                            gn_post_scale, gn_post_bias, dim_head: int = DIM_HEAD,
+                            eps: float = 1e-5):
+    """K1's wrapper: launches the forward kernel on CUDA tensors, counted
+    in ``fused_attention_block.launches``; the result carries no gradient."""
+    if x.device.type != "cuda":
+        raise ValueError(f"the forward kernel runs on CUDA tensors, got {x.device}")
+    _check_block(x, gn_pre_scale, gn_pre_bias, w_qkv, w_out, b_out, gn_post_scale,
+                 gn_post_bias, dim_head)
+    with torch.cuda.device(x.device):
+        out = launch_forward(_library(FORWARD_KERNEL, x.dtype, x.shape[2]), x,
+                             gn_pre_scale, gn_pre_bias,
+                             w_qkv, w_out, b_out, gn_post_scale, gn_post_bias, eps)
     fused_attention_block.launches += 1
     return out
 
 
-fused_attention_block.launches = 0  # kernel launches since the last reset
+def attention_block_backward(x, gn_pre_scale, gn_pre_bias, w_qkv, w_out, b_out,
+                             gn_post_scale, gn_post_bias, g, dim_head: int = DIM_HEAD,
+                             eps: float = 1e-5):
+    """K2's wrapper: the gradients of ``x + GN1(LinAttn(GN1(x)))`` with
+    respect to its eight inputs, given ``g`` = dL/d out in x's dtype and
+    layout.  On CUDA tensors it launches the backward kernel or raises
+    (launches counted in ``attention_block_backward.launches``); on CPU
+    tensors it runs ``attention_block_backward_reference``."""
+    if x.device.type == "cpu":
+        return attention_block_backward_reference(
+            x, gn_pre_scale, gn_pre_bias, w_qkv, w_out, b_out, gn_post_scale,
+            gn_post_bias, g, dim_head, eps,
+        )
+    if x.device.type != "cuda":
+        raise ValueError(f"attention_block_backward: unsupported device {x.device}")
+    _check_block(x, gn_pre_scale, gn_pre_bias, w_qkv, w_out, b_out, gn_post_scale,
+                 gn_post_bias, dim_head)
+    _check("g", g, x.shape, x.dtype, x.device)
+    if g.data_ptr() % 16:
+        raise ValueError("g must be 16-byte aligned (vector loads)")
+    with torch.cuda.device(x.device):
+        grads = launch_backward(_library(BACKWARD_KERNEL, x.dtype, x.shape[2]), x,
+                                gn_pre_scale, gn_pre_bias,
+                                w_qkv, w_out, b_out, gn_post_scale, g, eps)
+    attention_block_backward.launches += 1
+    return grads
+
+
+attention_block_backward.launches = 0  # kernel launches since the last reset
+
+
+class _FusedAttentionBlock(torch.autograd.Function):
+    """K1 forward, K2 backward."""
+
+    @staticmethod
+    def forward(ctx, x, gn_pre_scale, gn_pre_bias, w_qkv, w_out, b_out,
+                gn_post_scale, gn_post_bias, dim_head, eps):
+        ctx.dim_head, ctx.eps = dim_head, eps
+        ctx.save_for_backward(x, gn_pre_scale, gn_pre_bias, w_qkv, w_out, b_out,
+                              gn_post_scale, gn_post_bias)
+        return attention_block_forward(x, gn_pre_scale, gn_pre_bias, w_qkv, w_out,
+                                       b_out, gn_post_scale, gn_post_bias, dim_head, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x = ctx.saved_tensors[0]
+        g = g.to(x.dtype).contiguous()
+        if g.data_ptr() % 16:  # a view into a larger buffer: realign
+            g = g.clone()
+        grads = attention_block_backward(*ctx.saved_tensors, g, ctx.dim_head, ctx.eps)
+        return (*grads, None, None)
+
+
+def fused_attention_block(x, gn_pre_scale, gn_pre_bias, w_qkv, w_out, b_out,
+                          gn_post_scale, gn_post_bias, dim_head: int = DIM_HEAD,
+                          eps: float = 1e-5):
+    """x + GN1(LinearAttention(GN1(x))).  x: (B, N, C) bf16 or f32;
+    w_qkv: (C, 3*32) and w_out: (32, C) in x's dtype; GroupNorm affines and
+    b_out: (C,) f32.  heads = 1, dim_head = 32.  Differentiable: on the card
+    the forward is K1 and the backward K2."""
+    args = (x, gn_pre_scale, gn_pre_bias, w_qkv, w_out, b_out, gn_post_scale, gn_post_bias)
+    if x.device.type == "cpu":
+        return attention_block_reference(*args, dim_head, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_attention_block: unsupported device {x.device}")
+    return _FusedAttentionBlock.apply(*args, dim_head, eps)
+
+
+fused_attention_block.launches = 0  # forward kernel launches since the last reset
 
 
 # ---------------------------------------------------------------------------
@@ -147,3 +303,15 @@ def attention_block_reference(x, gn_pre_scale, gn_pre_bias, w_qkv, w_out,
     y = linear_attention_reference(xn, w_qkv, w_out, b_out, dim_head)
     y = group_norm1_reference(y, gn_post_scale, gn_post_bias, eps)
     return x + y
+
+
+def attention_block_backward_reference(x, gn_pre_scale, gn_pre_bias, w_qkv, w_out,
+                                       b_out, gn_post_scale, gn_post_bias, g,
+                                       dim_head: int = DIM_HEAD, eps: float = 1e-5):
+    """Plain backward: autograd of ``attention_block_reference`` at the
+    given inputs with output gradient ``g``; the eight input gradients."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_(True) for t in (
+            x, gn_pre_scale, gn_pre_bias, w_qkv, w_out, b_out, gn_post_scale, gn_post_bias)]
+        out = attention_block_reference(*inputs, dim_head, eps)
+        return torch.autograd.grad(out, inputs, g)

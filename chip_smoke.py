@@ -1,24 +1,35 @@
 #!/usr/bin/env python3
 """Smoke run of calodiffusion_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py [--batches 2] [--steps 400] [--seed 0]
+    python3 chip_smoke.py [--batches 2] [--steps 400] [--train-steps 20] [--seed 0]
 
 Phases, each printing its own lines; any failed check exits non-zero and
 prints no result:
 
 1. card    the card's name and power limit (nvidia-smi), torch and CUDA versions
-2. build   every kernel of the main path, built with nvcc from this checkout
+2. build   every kernel of both paths, each (dtype, C) variant with its own
+           nvcc, all at once, from this checkout; their register/spill lines
 3. kernels each kernel against its plain PyTorch version on the card at the
-           shapes of the main path (dataset 2, batch 128), in bf16 and f32,
-           with its time, the plain version's time and the card's bound
+           shapes of the paths (dataset 2, batch 128), in bf16 and f32, with
+           its time, the plain version's time and the card's bound:
+           K1 (forward) against attention_block_reference, K2 (backward)
+           against attention_block_backward_reference
 4. main    dataset-2 shower generation at the full width of
            configs/config_dataset2.json (bf16, 400-step DDIM, batch 128)
            through CaloDiffusion.generate, from seeded random weights; the
            showers must be finite, >= 0 and of shape (batches*128, 6480), and
-           every kernel must have been launched by it (counts reset just
+           K1 must have been launched 7 times per denoise (counts reset just
            before).  The same weights in f32 must agree on the card and on
            the CPU (plain versions) for one denoise call.
-5. result  {"kernels": [...]} and, last, {"ok": true, "device": {...}}
+5. train   dataset-2 training at the same full width (bf16, batch 128) through
+           TrainDiffusion.train: --train-steps Adam steps on one repeated
+           seeded batch and one val batch, checkpoints written; every loss
+           finite, K1 and K2 launched 7 times per step (counts reset just
+           before); the batch's loss with fixed noise and sigma falls 5 %
+           over the steps; one f32 step's loss and every parameter gradient
+           agree on the card and on the CPU from the same weights, batch,
+           noise and sigma draws.
+6. result  {"kernels": [...]} and, last, {"ok": true, "device": {...}}
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -42,13 +54,14 @@ CONFIG = ROOT / "configs" / "config_dataset2.json"
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # tensor-core bf16; f32 CUDA cores
 
-# (C, N) of the 7 PreNormResidual(LinearAttention) blocks of one ds2 denoise
+# (C, N) of the 7 PreNormResidual(LinearAttention) blocks of one ds2 U-Net
 # call, in call order: down levels, middle, up levels
 DS2_ATTENTION_BLOCKS = [(32, 6480), (64, 736), (32, 96), (32, 96), (64, 96), (32, 736),
                         (32, 6480)]
 BATCH = 128
+D = 32  # dim_head
 
-# Kernel vs plain version, elementwise |kernel - plain| <= atol + rtol * |plain|:
+# K1 vs plain version, elementwise |kernel - plain| <= atol + rtol * |plain|:
 # - f32 (TF32 off on both sides): only the order of f32 sums differs, over
 #   up to N*C = 207k terms in the GroupNorm statistics: 1e-4 absolute.
 # - bf16: the kernel keeps the q/k projections and the softmax numerators in
@@ -57,6 +70,41 @@ BATCH = 128
 #   (1/64 each below 2), and the residual sum rounds to bf16 at the output's
 #   magnitude: 0.0625 plus 2 ulps of the output (2 * 2^-7 relative).
 TOL = {torch.bfloat16: (0.0625, 2.0**-6), torch.float32: (1e-4, 0.0)}
+
+# K2 vs plain backward, each of the 8 gradients in max-norm relative error
+# max|kernel - plain| / max|plain|:
+# - f32: both sides compute in f32 and differ in the order of their sums,
+#   over up to N*C = 207k terms a sample (the GroupNorm-backward sums) and
+#   B*N = 830k positions (the weight gradients), which the GroupNorm
+#   backward's cancellations amplify; the JAX package holds its Pallas
+#   backward to the XLA VJP at 3e-3 (tests/test_pallas_linear_attention.py).
+#   1e-4 here: 40x the largest seen on the card and under CPU emulation.
+# - bf16: the kernel rounds to bf16 only where the Pallas kernel casts and
+#   accumulates in f32; the plain version's autograd rounds every product's
+#   output and every intermediate gradient to bf16 (2^-8 relative each) along
+#   a chain of ~6 products and two GroupNorm backwards: 5e-2, about 3x the
+#   largest seen on the card (dx at N = 6480).
+K2_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-4}
+
+# One f32 train step, card (K1, K2, cuDNN; TF32 off) against CPU (plain
+# versions, oneDNN), same weights and inputs.  The f32 forward agrees within
+# the 2e-4 weight-transfer bound of docs/DESIGN.md:32; the loss is a weighted
+# mean of squared residuals, and each gradient chains ~30 layers of f32 sums
+# taken in other orders.  Loss: 1e-3 relative.  Gradients: max|card - cpu| /
+# (max|cpu| + 1e-3 * G), G the largest gradient entry of the model, so that a
+# tensor whose gradient is near zero (a conv bias ahead of a GroupNorm)
+# compares at the model's scale: 5e-3.
+STEP_LOSS_RTOL = 1e-3
+STEP_GRAD_TOL = 5e-3
+
+REPLACES = {
+    "fused_attention_block": "calodiffusion_tpu/ops/pallas_linear_attention.py:240",
+    "attention_block_backward": "calodiffusion_tpu/ops/pallas_linear_attention.py:407",
+}
+SOURCES = {
+    "fused_attention_block": "calodiffusion_tpu_torch/csrc/linear_attention_block.cu",
+    "attention_block_backward": "calodiffusion_tpu_torch/csrc/linear_attention_block_bwd.cu",
+}
 
 
 def fail(msg: str) -> None:
@@ -107,18 +155,39 @@ def block_inputs(B, N, C, dtype, seed):
     return args
 
 
-def attention_bound(B, N, C, dtype):
-    """(bound ms, bound_by) of x + GN(LinAttn(GN(x))): x read once, out
-    written once, weights read once; the matrix products' operations."""
-    elt = torch.finfo(dtype).bits // 8
-    nbytes = 2 * B * N * C * elt + (C * 96 + 32 * C) * elt + 5 * C * 4
-    flops = 2 * B * N * (96 * C + 32 * 32 + 32 * 32 + 32 * C)
+def bound_ms(nbytes, flops, dtype):
+    """(bound ms, bound_by): the larger of bytes over the HBM rate and the
+    products' operations over the peak for the dtype."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def attention_bound(B, N, C, dtype):
+    """x + GN(LinAttn(GN(x))): x read once, out written once, weights read
+    once; the matrix products' operations."""
+    elt = torch.finfo(dtype).bits // 8
+    nbytes = 2 * B * N * C * elt + (C * 96 + 32 * C) * elt + 5 * C * 4
+    flops = 2 * B * N * (96 * C + 32 * 32 + 32 * 32 + 32 * C)
+    return bound_ms(nbytes, flops, dtype)
+
+
+def backward_bound(B, N, C, dtype):
+    """Its backward: x and g read once, dx written once, the weights read
+    once and their gradients written once; the products of the Pallas
+    kernel's body (pallas_linear_attention.py:457-650): 12 of (C x D) and 8
+    of (D x D) per position."""
+    elt = torch.finfo(dtype).bits // 8
+    nbytes = 3 * B * N * C * elt + 2 * ((C * 96 + 32 * C) * elt + 5 * C * 4)
+    flops = 2 * B * N * (12 * C * D + 8 * D * D)
+    return bound_ms(nbytes, flops, dtype)
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
 def check_attention_kernel(attn):
-    """Kernel vs plain version at every ds2 (C, N), B=128, bf16 and f32."""
+    """K1 vs plain version at every ds2 (C, N), B=128, bf16 and f32."""
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
         for C, N in sorted(set(DS2_ATTENTION_BLOCKS)):
@@ -136,11 +205,9 @@ def check_attention_kernel(attn):
             p_ms = time_ms(lambda: attn.attention_block_reference(*args))
             b_ms, b_by = attention_bound(BATCH, N, C, dtype)
             cases.append(dict(
-                name="fused_attention_block", replaces=REPLACES,
-                shape=[BATCH, N, C], dtype=str(dtype).removeprefix("torch."),
+                name="fused_attention_block", shape=[BATCH, N, C], dtype=dtype_name(dtype),
                 max_abs_err=err, tol={"atol": atol, "rtol": rtol}, kernel_ms=k_ms, plain_ms=p_ms,
-                bound_ms=b_ms, bound_by=b_by,
-                launches_per_denoise=DS2_ATTENTION_BLOCKS.count((C, N)),
+                bound_ms=b_ms, bound_by=b_by, launches_per_call=DS2_ATTENTION_BLOCKS.count((C, N)),
             ))
             print(f"kernel fused_attention_block B={BATCH} N={N} C={C} {cases[-1]['dtype']}: "
                   f"max_abs_err {err:.3g} (tol {atol} + {rtol} * |plain|), kernel {k_ms:.4f} ms, "
@@ -148,12 +215,53 @@ def check_attention_kernel(attn):
     return cases
 
 
-REPLACES = "calodiffusion_tpu/ops/pallas_linear_attention.py:240"
+GRAD_NAMES = ("dx", "d_gn_pre_scale", "d_gn_pre_bias", "d_w_qkv", "d_w_out", "d_b_out",
+              "d_gn_post_scale", "d_gn_post_bias")
 
 
-def per_denoise(cases, key, dtype="bfloat16"):
-    """Sum of a per-launch number over the 7 attention blocks of one denoise."""
-    return sum(c[key] * c["launches_per_denoise"] for c in cases if c["dtype"] == dtype)
+def check_backward_kernel(attn):
+    """K2 vs plain backward at every ds2 (C, N), B=128, bf16 and f32."""
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for C, N in sorted(set(DS2_ATTENTION_BLOCKS)):
+            args = block_inputs(BATCH, N, C, dtype, seed=C + N + 1)
+            g = torch.randn(BATCH, N, C, generator=torch.Generator().manual_seed(N - C))
+            g = g.cuda().to(dtype)
+            got = attn.attention_block_backward(*args, g)
+            torch.cuda.synchronize()
+            want = attn.attention_block_backward_reference(*args, g)
+            rel = {}
+            for name, a, b in zip(GRAD_NAMES, got, want):
+                if a.dtype != b.dtype or a.shape != b.shape:
+                    fail(f"attention_block_backward {name}: {a.dtype} {tuple(a.shape)}, "
+                         f"plain {b.dtype} {tuple(b.shape)}")
+                a, b = a.double(), b.double()
+                rel[name] = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+            worst = max(rel, key=rel.get)
+            if not all(np.isfinite(v) for v in rel.values()) or rel[worst] > K2_TOL[dtype]:
+                fail(f"attention_block_backward (C={C}, N={N}, {dtype}): {worst} differs from "
+                     f"the plain backward by {rel[worst]:.3g} (max-norm relative) > "
+                     f"{K2_TOL[dtype]}")
+            abs_dx = (got[0].float() - want[0].float()).abs().max().item()
+            k_ms = time_ms(lambda: attn.attention_block_backward(*args, g))
+            p_ms = time_ms(lambda: attn.attention_block_backward_reference(*args, g))
+            b_ms, b_by = backward_bound(BATCH, N, C, dtype)
+            cases.append(dict(
+                name="attention_block_backward", shape=[BATCH, N, C], dtype=dtype_name(dtype),
+                max_abs_err=abs_dx, max_norm_rel_err=rel, tol_max_norm_rel=K2_TOL[dtype],
+                kernel_ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                launches_per_call=DS2_ATTENTION_BLOCKS.count((C, N)),
+            ))
+            print(f"kernel attention_block_backward B={BATCH} N={N} C={C} {cases[-1]['dtype']}: "
+                  f"max-norm rel err {rel[worst]:.3g} ({worst}; tol {K2_TOL[dtype]}), dx "
+                  f"max_abs_err {abs_dx:.3g}, kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                  f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+    return cases
+
+
+def per_call(cases, key, dtype="bfloat16"):
+    """Sum of a per-launch number over the 7 attention blocks of one U-Net call."""
+    return sum(c[key] * c["launches_per_call"] for c in cases if c["dtype"] == dtype)
 
 
 def synthetic_loader(batches, n_layers, seed):
@@ -163,6 +271,15 @@ def synthetic_loader(batches, n_layers, seed):
     for _ in range(batches):
         yield (rng.uniform(0.0, 1.0, (BATCH, 1)).astype(np.float32),
                rng.standard_normal((BATCH, n_layers)).astype(np.float32), None)
+
+
+def synthetic_batch(batch, n_layers, seed):
+    """(E, layers, showers) as the training loader yields them: showers in
+    the preprocessed (B, 1, 45, 16, 9) layout, roughly unit scale."""
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(0.0, 1.0, (batch, 1)).astype(np.float32),
+            rng.standard_normal((batch, n_layers)).astype(np.float32),
+            rng.standard_normal((batch, 1, 45, 16, 9)).astype(np.float32))
 
 
 def check_card_vs_cpu(cfg, state_dict, seed):
@@ -191,10 +308,141 @@ def check_card_vs_cpu(cfg, state_dict, seed):
     return err
 
 
+def check_train_step_card_vs_cpu(cfg, state_dict, seed, attn):
+    """One f32 train step's loss and parameter gradients, card against CPU."""
+    from calodiffusion_tpu_torch.models.diffusion import CaloDiffusion
+
+    cfg = dict(cfg, PRECISION="f32")
+    E, layers, data = synthetic_batch(2, cfg["SHAPE_FINAL"][2] + 1, seed)
+    rng = np.random.default_rng(seed + 1)
+    noise = rng.standard_normal(data.shape).astype(np.float32)
+    rnd = rng.standard_normal(2).astype(np.float32)
+    results = []
+    for dev in ("cuda", "cpu"):
+        m = CaloDiffusion(cfg, device=dev)
+        m.load_state_dict(state_dict)
+        k2 = attn.attention_block_backward.launches
+        loss = m.compute_loss(*(torch.from_numpy(a).to(dev) for a in (data, E)),
+                              noise=torch.from_numpy(noise).to(dev),
+                              layers=torch.from_numpy(layers).to(dev),
+                              rnd_normal=torch.from_numpy(rnd).to(dev))
+        loss.backward()
+        launched = attn.attention_block_backward.launches - k2
+        if launched != (len(DS2_ATTENTION_BLOCKS) if dev == "cuda" else 0):
+            fail(f"f32 train step on {dev} launched K2 {launched} times")
+        results.append((loss.item(), {k: p.grad.detach().cpu().double()
+                                      for k, p in m.named_parameters()}))
+    (l_card, g_card), (l_cpu, g_cpu) = results
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    if not np.isfinite(l_card) or loss_rel > STEP_LOSS_RTOL:
+        fail(f"f32 train-step loss card {l_card} vs CPU {l_cpu}: {loss_rel:.3g} relative "
+             f"> {STEP_LOSS_RTOL}")
+    G = max(g.abs().max().item() for g in g_cpu.values())
+    errs = {k: ((g_card[k] - g).abs().max() / (g.abs().max() + 1e-3 * G)).item()
+            for k, g in g_cpu.items()}
+    worst = max(errs, key=errs.get)
+    if not all(np.isfinite(v) for v in errs.values()) or errs[worst] > STEP_GRAD_TOL:
+        fail(f"f32 train-step gradient {worst} card vs CPU: {errs[worst]:.3g} > {STEP_GRAD_TOL}")
+    print(f"train: f32 step card vs CPU: loss {l_card:.6g} vs {l_cpu:.6g} ({loss_rel:.3g} "
+          f"relative, tol {STEP_LOSS_RTOL}); {len(errs)} parameter gradients, worst "
+          f"{worst} {errs[worst]:.3g}, init_conv.weight {errs['init_conv.weight']:.3g} "
+          f"(tol {STEP_GRAD_TOL})", flush=True)
+    return dict(loss_rel=loss_rel, worst_grad=worst, worst_grad_err=errs[worst],
+                init_conv_weight_err=errs["init_conv.weight"])
+
+
+def run_training(cfg, args, attn, card):
+    """TrainDiffusion.train on the card at full ds2 width: one epoch of
+    --train-steps steps on one repeated batch, one val batch."""
+    from calodiffusion_tpu_torch.train.trainer import TrainDiffusion
+    from calodiffusion_tpu_torch.utils.config import default_flags
+
+    n_layers = cfg["SHAPE_FINAL"][2] + 1
+    batch = synthetic_batch(BATCH, n_layers, args.seed + 2)
+    val = [synthetic_batch(BATCH, n_layers, args.seed + 3)]
+    steps = []
+
+    # the loss of the train batch with fixed noise and every sample at the
+    # log-normal's median sigma, e^-1.2 (no one tiny-sigma sample carries
+    # the l2 mean): it must fall over the steps, which draw their own
+    E, lay, data = (torch.from_numpy(a).cuda() for a in batch)
+    rng = np.random.default_rng(args.seed + 4)
+    noise = torch.from_numpy(rng.standard_normal(data.shape).astype(np.float32)).cuda()
+
+    @torch.no_grad()
+    def fixed_loss(model):
+        return model.compute_loss(data, E, noise=noise, layers=lay,
+                                  rnd_normal=torch.zeros(BATCH, device="cuda")).item()
+
+    class Recorded(TrainDiffusion):
+        """Records each step's loss, wall time and kernel launches."""
+
+        def train_step(self, data, E, layers):
+            k1, k2 = attn.fused_attention_block.launches, attn.attention_block_backward.launches
+            t0 = time.perf_counter()
+            loss = super().train_step(data, E, layers)
+            torch.cuda.synchronize()
+            steps.append(dict(loss=loss.item(), s=time.perf_counter() - t0,
+                              k1=attn.fused_attention_block.launches - k1,
+                              k2=attn.attention_block_backward.launches - k2))
+            return loss
+
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        tcfg = dict(cfg, MAXEPOCH=1, BATCH=BATCH)
+        trainer = Recorded(default_flags(checkpoint_folder=ckpt_dir, seed=args.seed), tcfg,
+                           loader_train=[batch] * args.train_steps, loader_val=val)
+        trainer.init_model()
+        fixed_before = fixed_loss(trainer.model)
+        torch.cuda.synchronize()
+        attn.fused_attention_block.launches = 0
+        attn.attention_block_backward.launches = 0
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1, k2 = attn.fused_attention_block.launches, attn.attention_block_backward.launches
+        saved = sorted(p.name for p in Path(trainer.checkpoint_folder).iterdir())
+
+    n = len(DS2_ATTENTION_BLOCKS)
+    if len(steps) != args.train_steps:
+        fail(f"train ran {len(steps)} steps, expected {args.train_steps}")
+    if not all(np.isfinite(s["loss"]) for s in steps):
+        fail(f"train losses not finite: {[s['loss'] for s in steps]}")
+    bad = [i for i, s in enumerate(steps) if (s["k1"], s["k2"]) != (n, n)]
+    if bad:
+        fail(f"train step {bad[0]} launched K1 {steps[bad[0]]['k1']} and K2 "
+             f"{steps[bad[0]]['k2']} times, expected {n} each")
+    # every step's 7 + the val batch's forward (7, no backward)
+    if (k1, k2) != (n * (args.train_steps + len(val)), n * args.train_steps):
+        fail(f"train path launched K1 {k1} and K2 {k2} times")
+    for name in ("checkpoint.ckpt", "best_val.ckpt", "final.ckpt", "config.json"):
+        if name not in saved:
+            fail(f"train wrote {saved}, no {name}")
+    fixed_after = fixed_loss(trainer.model)
+    if not (np.isfinite([fixed_before, fixed_after]).all()
+            and fixed_after < 0.95 * fixed_before):
+        fail(f"the fixed-batch loss does not fall 5 % over the steps: {fixed_before} -> "
+             f"{fixed_after}")
+    cold = steps[0]["s"]
+    steady = statistics.mean(s["s"] for s in steps[1:])
+    rate = BATCH / steady
+    print(f"train: {args.train_steps} steps of {BATCH} ds2 showers, bf16, full width: "
+          f"first (cold) step {cold:.3f} s, steady {1e3 * steady:.2f} ms/step, "
+          f"{rate:.1f} train samples/s on {card}; TrainDiffusion.train {wall:.2f} s; "
+          f"K1 launches {k1}, K2 launches {k2} ({n} each per step); losses "
+          f"{steps[0]['loss']:.4g} .. {steps[-1]['loss']:.4g}; fixed-batch loss "
+          f"{fixed_before:.4g} -> {fixed_after:.4g}", flush=True)
+
+    return dict(steps=steps, cold_step_s=cold, steady_step_s=steady, samples_per_s=rate,
+                k1=k1, k2=k2, fixed_batch_loss=(fixed_before, fixed_after),
+                state_dict={k: v.detach().cpu() for k, v in trainer.model.state_dict().items()})
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batches", type=int, default=2)
     ap.add_argument("--steps", type=int, default=400)
+    ap.add_argument("--train-steps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -218,21 +466,22 @@ def main() -> None:
 
     # 2. build
     t0 = time.perf_counter()
-    attn._library()
-    build_s = time.perf_counter() - t0
-    log = cuda_build.library_path("linear_attention_block").with_suffix(".log")
-    print(f"build: linear_attention_block.cu in {build_s:.1f} s", flush=True)
-    if log.exists():
+    attn.build_all()
+    print(f"build: {len(attn.BUILDS)} kernel variants in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for name, defines in attn.BUILDS:
+        log = cuda_build.library_path(name, defines).with_suffix(".log")
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
-                print(f"build: {line.strip()}", flush=True)
+                print(f"build: {name}.cu {' '.join(defines)}: {line.strip()}", flush=True)
 
     # 3. kernels
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cases = check_attention_kernel(attn)
+    k1_cases = check_attention_kernel(attn)
+    k2_cases = check_backward_kernel(attn)
 
-    # 4. main path
+    # 4. main path: generation
     cfg = load_config(str(CONFIG))
     model = CaloDiffusion(cfg, generator=torch.Generator().manual_seed(args.seed))
     n_layers = cfg["SHAPE_FINAL"][2] + 1
@@ -240,38 +489,54 @@ def main() -> None:
     gen = torch.Generator(device=model.device).manual_seed(args.seed)
     torch.cuda.synchronize()
     attn.fused_attention_block.launches = 0
+    attn.attention_block_backward.launches = 0
     t0 = time.perf_counter()
     showers, energies = model.generate(loader, args.steps, generator=gen)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = attn.fused_attention_block.launches
+    gen_launches = (attn.fused_attention_block.launches, attn.attention_block_backward.launches)
     n = args.batches * BATCH
     if showers.shape != (n, 6480) or energies.shape != (n, 1):
         fail(f"showers {showers.shape}, energies {energies.shape}; expected ({n}, 6480), ({n}, 1)")
     if not np.isfinite(showers).all() or (showers < 0).any():
         fail("showers are not finite and >= 0")
     want = len(DS2_ATTENTION_BLOCKS) * args.steps * args.batches
-    if launches != want:
-        fail(f"fused_attention_block launched {launches} times on the main path, expected {want}")
+    if gen_launches != (want, 0):
+        fail(f"generation launched K1 {gen_launches[0]} times (expected {want}) and K2 "
+             f"{gen_launches[1]} (expected 0)")
     print(f"main: {n} ds2 showers, {args.steps}-step DDim, bf16, batch {BATCH}: {wall:.2f} s, "
-          f"{n / wall:.3f} showers/s on {card}; fused_attention_block launches {launches}",
-          flush=True)
+          f"{n / wall:.3f} showers/s on {card}; fused_attention_block launches "
+          f"{gen_launches[0]}", flush=True)
     check_card_vs_cpu(cfg, model.state_dict(), args.seed + 1)
 
-    # 5. result
-    bf16 = [c for c in cases if c["dtype"] == "bfloat16"]
-    kernels = [dict(
-        name="fused_attention_block", route="cuda",
-        source="calodiffusion_tpu_torch/csrc/linear_attention_block.cu",
-        replaces=REPLACES, launches=launches,
-        max_abs_err=max(c["max_abs_err"] for c in bf16),
-        # times of the 7 launches of one ds2 denoise call, B=128, bf16
-        ms=per_denoise(cases, "kernel_ms"), plain_ms=per_denoise(cases, "plain_ms"),
-        bound_ms=per_denoise(cases, "bound_ms"),
-        bound_by="bytes" if all(c["bound_by"] == "bytes" for c in bf16) else "operations",
-        library_ms=None, launches_per_denoise=len(DS2_ATTENTION_BLOCKS),
-        launches_per_batch=len(DS2_ATTENTION_BLOCKS) * args.steps, cases=cases,
-    )]
+    # 5. train path
+    train = run_training(cfg, args, attn, card)
+    step_check = check_train_step_card_vs_cpu(cfg, train.pop("state_dict"), args.seed + 5, attn)
+
+    # 6. result
+    launches = {"fused_attention_block": (gen_launches[0], train["k1"]),
+                "attention_block_backward": (gen_launches[1], train["k2"])}
+    kernels = []
+    for name, cases in (("fused_attention_block", k1_cases),
+                        ("attention_block_backward", k2_cases)):
+        bf16 = [c for c in cases if c["dtype"] == "bfloat16"]
+        kernels.append(dict(
+            name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
+            # launches on this slice's path, TrainDiffusion.train
+            launches=launches[name][1],
+            launches_by_path={"generate": launches[name][0], "train": launches[name][1]},
+            max_abs_err=max(c["max_abs_err"] for c in bf16),
+            # times of the 7 launches of one ds2 U-Net call, B=128, bf16
+            ms=per_call(cases, "kernel_ms"), plain_ms=per_call(cases, "plain_ms"),
+            bound_ms=per_call(cases, "bound_ms"),
+            bound_by="bytes" if all(c["bound_by"] == "bytes" for c in bf16) else "operations",
+            library_ms=None, launches_per_call=len(DS2_ATTENTION_BLOCKS),
+            launches_per_train_step=len(DS2_ATTENTION_BLOCKS), cases=cases,
+        ))
+    print(json.dumps({"train": {k: v for k, v in train.items() if k != "steps"},
+                      "train_step_losses": [s["loss"] for s in train["steps"]],
+                      "train_step_s": [s["s"] for s in train["steps"]],
+                      "card_vs_cpu_step": step_check, "card": card}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

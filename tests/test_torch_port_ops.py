@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from calodiffusion_tpu.ops import conv as jconv
@@ -147,3 +148,81 @@ def test_wrapper_refuses_other_devices():
     args = [a.to("meta") for a in _torch_args(_block_inputs(1, 8, 32), torch.float32)]
     with pytest.raises(ValueError, match="unsupported device"):
         tattn.fused_attention_block(*args)
+
+
+# ---------------------------------------------------------------------------
+# The backward: autograd of the plain version against the Pallas backward
+# kernel (interpret mode), and the autograd wiring of the kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _cotangent(B, N, C, seed):
+    return np.random.default_rng(seed).standard_normal((B, N, C)).astype(np.float32)
+
+
+@pytest.mark.parametrize("B,N,C", [(2, 700, 32), (1, 300, 64), (3, 1, 32)])
+def test_attention_block_backward_plain_matches_jax_pallas(B, N, C):
+    """All eight input gradients of the plain backward against jax.vjp of the
+    JAX fused_attention_block with its Pallas backward kernel (K2) in
+    interpret mode, f32, at the JAX package's own bound: 3e-3 in max-norm
+    relative error (tests/test_pallas_linear_attention.py:115-137), set by
+    the f32 roundoff both carry through the GroupNorm-backward cancellations."""
+    args = _block_inputs(B, N, C, seed=N + C)
+    g = _cotangent(B, N, C, seed=N)
+    _, vjp = jax.vjp(lambda *a: jattn.fused_attention_block(*a, interpret=True),
+                     *_jax_args(args, jnp.float32))
+    want = vjp(jnp.asarray(g))
+    got = tattn.attention_block_backward_reference(*_torch_args(args, torch.float32),
+                                                   torch.from_numpy(g))
+    assert len(got) == len(want) == 8
+    for i, (a, w) in enumerate(zip(got, want)):
+        a, w = a.numpy(), np.asarray(w)
+        assert a.shape == w.shape
+        err = np.abs(a - w).max() / (np.abs(w).max() + 1e-30)
+        assert err < 3e-3, f"gradient {i}: max-norm relative error {err:.2e}"
+
+
+def test_wrapper_on_cpu_is_differentiable():
+    """On CPU tensors the block is the plain version, which autograd
+    differentiates; the backward wrapper runs the plain backward."""
+    args = [a.requires_grad_(True) for a in _torch_args(_block_inputs(2, 96, 32, seed=3),
+                                                        torch.float32)]
+    out = tattn.fused_attention_block(*args)
+    assert out.grad_fn is not None
+    g = torch.from_numpy(_cotangent(2, 96, 32, seed=4))
+    before = tattn.attention_block_backward.launches
+    want = tattn.attention_block_backward(*[a.detach() for a in args], g)
+    assert tattn.attention_block_backward.launches == before
+    got = torch.autograd.grad(out, args, g)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=0, atol=0)
+
+
+def test_autograd_function_runs_the_kernels_and_returns_every_gradient(monkeypatch):
+    """The autograd.Function that carries the block on the card: its forward
+    calls K1's wrapper, its backward K2's, with g made contiguous, and it
+    hands each gradient to its input.  The wrappers are replaced by the plain
+    versions here, which have the kernels' signatures (no card)."""
+    calls = []
+
+    def forward(*a):
+        calls.append("K1")
+        return tattn.attention_block_reference(*a)
+
+    def backward(*a):
+        calls.append("K2")
+        assert a[8].is_contiguous()
+        return tattn.attention_block_backward_reference(*a)
+
+    monkeypatch.setattr(tattn, "attention_block_forward", forward)
+    monkeypatch.setattr(tattn, "attention_block_backward", backward)
+    args = [a.requires_grad_(True) for a in _torch_args(_block_inputs(2, 64, 32, seed=5),
+                                                        torch.float32)]
+    out = tattn._FusedAttentionBlock.apply(*args, 32, 1e-5)
+    assert out.grad_fn is not None and calls == ["K1"]
+    g = torch.from_numpy(_cotangent(2, 32, 64, seed=6)).transpose(1, 2)  # not contiguous
+    got = torch.autograd.grad(out, args, g)
+    assert calls == ["K1", "K2"]
+    want = tattn.attention_block_backward_reference(*[a.detach() for a in args],
+                                                    g.contiguous())
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=0, atol=0)
