@@ -2,7 +2,8 @@
 
 Port of ``calodiffusion_tpu/models/nn_modules.py`` (reference:
 calodiffusion/models/models.py - CondUnet :523-777, ResnetBlock/Block
-:147-200, LinearAttention :281-318, Upsample/Downsample :335-370).
+:147-200, Attention :246-278, LinearAttention :281-318, Upsample/Downsample
+:335-370).
 
 Activations are NCDHW ``(B, C, Z, A, R)``.  Parameters are f32; ``dtype``
 is the compute dtype every layer casts its input and weights to, while
@@ -33,7 +34,12 @@ from calodiffusion_tpu_torch.ops.conv import (
     triple,
     uniform_,
 )
-from calodiffusion_tpu_torch.ops.linear_attention import DIM_HEAD, fused_attention_block
+from calodiffusion_tpu_torch.ops.attention import blockwise_attention
+from calodiffusion_tpu_torch.ops.linear_attention import (
+    DIM_HEAD,
+    fused_attention_block,
+    fused_linear_attention,
+)
 
 
 class Conv3d(nn.Module):
@@ -196,19 +202,110 @@ class ResnetBlock(nn.Module):
 
 
 class LinearAttention(nn.Module):
-    """Parameters of the O(N) linear attention (reference :281-318): the
-    qkv and output 1x1 convs and the output GroupNorm(1).  Its math runs
-    inside the fused block of `PreNormResidual`."""
+    """O(N) linear attention (reference :281-318; JAX nn_modules.py:471-603):
+    the qkv and output 1x1 convs and the output GroupNorm(1).
 
-    def __init__(self, dim, cylindrical=False, dtype=torch.float32, generator=None):
+    heads = 1 runs ``fused_linear_attention`` (K3 on the card, its plain
+    version on the CPU) and then the output GroupNorm; heads > 1 the generic
+    einsum formulation in plain PyTorch, as the JAX package computes it in
+    XLA.  ``prenorm=(scale, bias)`` applies GroupNorm(1) with those
+    parameters first, and ``residual=True`` then adds the input back: the
+    entry of `PreNormResidual`.  With both and heads = 1 the whole block is
+    one ``fused_attention_block`` (K1 forward and K2 backward on the
+    card)."""
+
+    def __init__(self, dim, heads=1, dim_head=DIM_HEAD, cylindrical=False,
+                 dtype=torch.float32, generator=None):
         super().__init__()
-        self.to_qkv = Conv3d(dim, 3 * DIM_HEAD, 1, cylindrical=cylindrical, bias=False,
+        self.heads, self.dim_head, self.dtype = heads, dim_head, dtype
+        hidden = heads * dim_head
+        self.to_qkv = Conv3d(dim, 3 * hidden, 1, cylindrical=cylindrical, bias=False,
                              dtype=dtype, generator=generator)
         self.to_out = nn.Sequential(
-            Conv3d(DIM_HEAD, dim, 1, cylindrical=cylindrical, dtype=dtype,
+            Conv3d(hidden, dim, 1, cylindrical=cylindrical, dtype=dtype,
                    generator=generator),
             GroupNorm(1, dim),
         )
+
+    def _matrices(self, c):
+        """The 1x1 convs as (C, 3*hidden) and (hidden, C) matrices in the
+        compute dtype, and the output bias in f32."""
+        hidden = self.heads * self.dim_head
+        w_qkv = self.to_qkv.weight.reshape(3 * hidden, c).t().to(self.dtype).contiguous()
+        w_out = self.to_out[0].weight.reshape(c, hidden).t().to(self.dtype).contiguous()
+        return w_qkv, w_out, self.to_out[0].bias.float()
+
+    def forward(self, x, prenorm=None, residual=False):
+        b, c, *spatial = x.shape
+        w_qkv, w_out, b_out = self._matrices(c)
+        if prenorm is not None and residual and self.heads == 1:
+            post_gn = self.to_out[1]
+            out = fused_attention_block(
+                _to_bnc(x.to(self.dtype)), prenorm[0], prenorm[1], w_qkv, w_out, b_out,
+                post_gn.weight, post_gn.bias, dim_head=self.dim_head,
+            )
+            return _to_ncdhw(out, spatial)
+        skip = x
+        if prenorm is not None:
+            x = group_norm1(x, *prenorm)
+        xf = _to_bnc(x.to(self.dtype))
+        if self.heads == 1:
+            out = fused_linear_attention(xf, w_qkv, w_out, b_out, self.dim_head)
+        else:  # generic multi-head path (JAX nn_modules.py:579-598)
+            n, h, d = xf.shape[1], self.heads, self.dim_head
+            q, k, v = (t.reshape(b, n, h, d) for t in (xf @ w_qkv).split(h * d, dim=-1))
+            q = torch.softmax(q.float(), dim=-1).to(v.dtype)
+            k = torch.softmax(k.float(), dim=1).to(v.dtype)
+            q = q * (d ** -0.5)
+            context = torch.einsum("bnhd,bnhe->bhde", k, v)
+            out = torch.einsum("bhde,bnhd->bnhe", context, q).reshape(b, n, h * d)
+            out = out @ w_out + b_out.to(out.dtype)
+        out = self.to_out[1](_to_ncdhw(out, spatial))
+        if prenorm is not None and residual:
+            out = skip + out
+        return out
+
+
+def _to_bnc(x):
+    """NCDHW (B, C, Z, A, R) -> contiguous (B, N, C)."""
+    return x.permute(0, 2, 3, 4, 1).reshape(x.shape[0], -1, x.shape[1]).contiguous()
+
+
+def _to_ncdhw(t, spatial):
+    """(B, N, C) -> NCDHW (B, C, *spatial), a view."""
+    return t.reshape(t.shape[0], *spatial, t.shape[2]).permute(0, 4, 1, 2, 3)
+
+
+def group_norm1(x, scale, bias, eps=1e-5):
+    """GroupNorm(num_groups=1) with explicit parameters: f32 statistics over
+    all non-batch axes, cast back to x's dtype (JAX ``_group_norm1``)."""
+    return F.group_norm(x.float(), 1, scale, bias, eps).to(x.dtype)
+
+
+class Attention(nn.Module):
+    """Full softmax attention over the flattened voxel grid (reference
+    :246-278; JAX nn_modules.py:368-401): a 1x1 qkv conv without bias,
+    ``blockwise_attention`` over (B, heads, N, dim_head), a 1x1 output conv.
+    Channel index of q, k, v = h * dim_head + d.  On the card the attention
+    is K4 at every N, forward only."""
+
+    def __init__(self, dim, heads=4, dim_head=DIM_HEAD, cylindrical=False,
+                 dtype=torch.float32, generator=None):
+        super().__init__()
+        self.heads, self.dim_head = heads, dim_head
+        hidden = heads * dim_head
+        self.to_qkv = Conv3d(dim, 3 * hidden, 1, cylindrical=cylindrical, bias=False,
+                             dtype=dtype, generator=generator)
+        self.to_out = Conv3d(hidden, dim, 1, cylindrical=cylindrical, dtype=dtype,
+                             generator=generator)
+
+    def forward(self, x):
+        b, _, *spatial = x.shape
+        h, d = self.heads, self.dim_head
+        q, k, v = (t.reshape(b, h, d, -1).transpose(2, 3).contiguous()
+                   for t in self.to_qkv(x).chunk(3, dim=1))  # (B, H, N, D)
+        out = blockwise_attention(q, k, v)
+        return self.to_out(out.transpose(2, 3).reshape(b, h * d, *spatial))
 
 
 class PreNorm(nn.Module):
@@ -219,29 +316,20 @@ class PreNorm(nn.Module):
 
 
 class PreNormResidual(nn.Module):
-    """x + LinearAttention(GroupNorm(x)) (reference Residual(PreNorm(...))
-    :111-117, :321-329), computed by `fused_attention_block`: the CUDA kernel
-    on the card, its plain version on the CPU."""
+    """x + fn(GroupNorm1(x)) (reference Residual(PreNorm(...)) :111-117,
+    :321-329; JAX nn_modules.py:606-633).  When fn is a heads-1
+    `LinearAttention`, the whole block is one `fused_attention_block`: the
+    K1/K2 kernels on the card, their plain versions on the CPU."""
 
-    def __init__(self, dim, cylindrical=False, dtype=torch.float32, generator=None):
+    def __init__(self, dim, fn):
         super().__init__()
-        self.dtype = dtype
-        self.fn = PreNorm(dim, LinearAttention(dim, cylindrical, dtype, generator))
+        self.fn = PreNorm(dim, fn)
 
     def forward(self, x):
-        b, c, *spatial = x.shape
-        attn = self.fn.fn
-        post_gn = attn.to_out[1]
-        # NCDHW -> (B, N, C): a view when x is channels-last
-        xf = x.to(self.dtype).permute(0, 2, 3, 4, 1).reshape(b, -1, c)
-        w_qkv = attn.to_qkv.weight.reshape(3 * DIM_HEAD, c).t()
-        w_out = attn.to_out[0].weight.reshape(c, DIM_HEAD).t()
-        out = fused_attention_block(
-            xf.contiguous(), self.fn.norm.weight, self.fn.norm.bias,
-            w_qkv.to(self.dtype).contiguous(), w_out.to(self.dtype).contiguous(),
-            attn.to_out[0].bias.float(), post_gn.weight, post_gn.bias,
-        )
-        return out.reshape(b, *spatial, c).permute(0, 4, 1, 2, 3)
+        norm, fn = self.fn.norm, self.fn.fn
+        if isinstance(fn, LinearAttention) and fn.heads == 1:
+            return fn(x, prenorm=(norm.weight, norm.bias), residual=True)
+        return x + fn(norm(x))
 
 
 def downsample_module(dim, cylindrical, compress_Z, dtype, generator):
@@ -279,6 +367,9 @@ class CondUnet(nn.Module):
         def resnet(i, o, cond=cond_dim):
             return ResnetBlock(i, o, cond, resnet_block_groups, **kw)
 
+        def attn_block(dim):
+            return PreNormResidual(dim, LinearAttention(dim, **kw))
+
         self.init_conv = Conv3d(channels, ls[0], 3, padding=1, **kw)
         self.time_mlp = cond_mlp(1, half // 2, half, half, time_embed, True, dtype, generator)
         self.cond_mlp = cond_mlp(
@@ -293,11 +384,11 @@ class CondUnet(nn.Module):
                 level.append(downsample_module(dim_out, cylindrical, compress_Z, dtype, generator))
             self.downs.append(nn.ModuleList(level))
             if block_attn:
-                self.downs_attn.append(PreNormResidual(dim_out, **kw))
+                self.downs_attn.append(attn_block(dim_out))
 
         mid = ls[-1]
         self.mid_block1 = resnet(mid, mid)
-        self.mid_attn = PreNormResidual(mid, **kw) if mid_attn else None
+        self.mid_attn = attn_block(mid) if mid_attn else None
         self.mid_block2 = resnet(mid, mid)
 
         extras = self.compute_extra_upsamples(data_shape, self.num_resolutions, compress_Z)
@@ -309,7 +400,7 @@ class CondUnet(nn.Module):
                                              dtype, generator))
             self.ups.append(nn.ModuleList(level))
             if block_attn:
-                self.ups_attn.append(PreNormResidual(dim_in, **kw))
+                self.ups_attn.append(attn_block(dim_in))
 
         self.final_conv = nn.Sequential(
             resnet(ls[0], ls[0], cond=None), Conv3d(ls[0], out_dim, 1, **kw)

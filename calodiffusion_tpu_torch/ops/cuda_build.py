@@ -7,6 +7,12 @@ the shared headers of ``csrc/`` and the flags, so an edited source builds
 anew and an unchanged one loads at once.  The compiler's
 register/shared-memory report (``-Xptxas -v``) is kept beside the library
 as ``<name>.log``.  ``build_all`` runs one ``nvcc`` per source, all at once.
+
+Below the build, the helpers every kernel wrapper shares: binding a C
+entry, checking its tensors, the stream and device of a launch, raising on
+a returned CUDA error, the libraries of a kernel built once per dtype
+(``DtypeKernel``) and the autograd.Function of a forward-only kernel
+(``forward_only``).
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ import subprocess
 import tempfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -92,3 +100,96 @@ def build_all(jobs) -> list[Path]:
     jobs = list(jobs)
     with ThreadPoolExecutor(max_workers=max(1, len(jobs))) as pool:
         return list(pool.map(lambda job: build(*job), jobs))
+
+
+# ---------------------------------------------------------------------------
+# Calling a kernel's C entry from its wrapper
+# ---------------------------------------------------------------------------
+
+def bind(lib: ctypes.CDLL, entry: str, argtypes) -> ctypes.CDLL:
+    """Declare the argument types of ``lib``'s C entry ``entry`` (each
+    returns a CUDA error code)."""
+    fn = getattr(lib, entry)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def check_tensor(name, t, shape, dtype, device) -> None:
+    """Raise unless ``t`` lies on ``device`` with this shape and dtype,
+    contiguous."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def stream_of(dev) -> int:
+    """The handle of PyTorch's current stream on ``dev`` (0 off the card)."""
+    return torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else 0
+
+
+def on_device(t):
+    """``t``'s card as the current device for a launch; a no-op for a tensor
+    off the card (the kernels' CPU emulation in the tests)."""
+    return torch.cuda.device(t.device if t.device.type == "cuda" else -1)
+
+
+def raise_on(rc: int, kernel: str, t) -> None:
+    """Raise if a C entry returned a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed with CUDA error {rc} "
+                           f"(shape {tuple(t.shape)}; {t.dtype})")
+
+
+def dtype_variant(dtype) -> tuple[str]:
+    """The macro of a build for one dtype: ``CALO_BF16=1`` bf16, ``0`` f32."""
+    return (f"CALO_BF16={int(dtype == torch.bfloat16)}",)
+
+
+class DtypeKernel:
+    """A kernel of ``csrc/<name>.cu`` with one C entry, built once per
+    dtype (bf16, f32): each library holds one instantiation."""
+
+    def __init__(self, name: str, entry: str, argtypes):
+        self.name, self.entry, self.argtypes = name, entry, argtypes
+        # every (kernel, variant) a caller may launch
+        self.builds = tuple((name, dtype_variant(dt)) for dt in (torch.bfloat16, torch.float32))
+        self._libraries = {}
+
+    def bind(self, lib: ctypes.CDLL) -> ctypes.CDLL:
+        """Declare the argument and result types of ``lib``'s entry."""
+        return bind(lib, self.entry, self.argtypes)
+
+    def library(self, t) -> ctypes.CDLL:
+        """The library for ``t``'s dtype, built at first use; ``t`` must
+        lie on the card."""
+        if t.device.type != "cuda":
+            raise ValueError(f"the {self.name} kernel runs on CUDA tensors, got {t.device}")
+        if t.dtype not in self._libraries:
+            self._libraries[t.dtype] = self.bind(load(self.name, dtype_variant(t.dtype)))
+        return self._libraries[t.dtype]
+
+
+def forward_only(forward, kernel: str, jax_source: str, instead: str):
+    """A torch.autograd.Function whose forward is ``forward`` (a kernel's
+    counted wrapper) and whose backward raises: the kernel has no backward,
+    as its JAX counterpart in ``jax_source`` defines no VJP, and the port
+    does not quietly differentiate the plain version in its place."""
+    message = (f"{kernel} is forward only, as the JAX package's ({jax_source} defines no "
+               f"VJP); differentiate {instead} instead")
+
+    class ForwardOnly(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, *args):
+            return forward(*args)
+
+        @staticmethod
+        def backward(ctx, *grads):
+            raise NotImplementedError(message)
+
+    return ForwardOnly

@@ -1,27 +1,33 @@
-"""Fused attention block ``x + GN1(LinearAttention(GN1(x)))``, forward and
-backward.
+"""Linear attention on the card: the fused attention block
+``x + GN1(LinearAttention(GN1(x)))``, forward and backward, and
+LinearAttention alone.
 
-``fused_attention_block`` replaces the Pallas kernels of
-``calodiffusion_tpu/ops/pallas_linear_attention.py`` (entry
-``fused_attention_block``, same signature and ``(B, N, C)`` layout) with two
-hand-written CUDA kernels:
+Three hand-written CUDA kernels replace the Pallas kernels of
+``calodiffusion_tpu/ops/pallas_linear_attention.py`` (same entries,
+signatures and ``(B, N, C)`` layout):
 
-- K1, the forward (``_block_kernel``): ``csrc/linear_attention_block.cu``;
-- K2, the backward (``_block_bwd_kernel``): ``csrc/linear_attention_block_bwd.cu``,
-  through ``attention_block_backward``.
+- K1, the block's forward (``_block_kernel``): ``csrc/linear_attention_block.cu``,
+  through ``fused_attention_block``;
+- K2, the block's backward (``_block_bwd_kernel``):
+  ``csrc/linear_attention_block_bwd.cu``, through ``attention_block_backward``;
+- K3, LinearAttention alone (``_kernel``): ``csrc/linear_attention.cu``,
+  through ``fused_linear_attention``.
 
-On a CUDA tensor the entry is a ``torch.autograd.Function`` whose forward
-launches K1 and whose backward launches K2, or they raise; on a CPU tensor
-it runs ``attention_block_reference``, the plain PyTorch version of the same
-function, and autograd differentiates that.  The tests and ``chip_smoke.py``
-hold K1 against ``attention_block_reference`` and K2 against
-``attention_block_backward_reference`` (autograd of the plain version).
+On a CUDA tensor each entry is a ``torch.autograd.Function``: the block's
+forward launches K1 and its backward K2; LinearAttention's forward launches
+K3 and its backward is autograd of ``linear_attention_reference``
+recomputed from the saved inputs, as the JAX custom VJP is
+(``_fused_bwd``).  A kernel that cannot launch raises.  On a CPU tensor an
+entry runs its plain PyTorch version, and autograd differentiates that.
+The tests and ``chip_smoke.py`` hold K1 against ``attention_block_reference``,
+K2 against ``attention_block_backward_reference`` (autograd of the plain
+version) and K3 against ``linear_attention_reference``.
 
-Bound on the card: device-memory bytes.  The forward reads x once and
-writes the output once (2 * B * N * C elements), the backward reads x and
-g once and writes dx once (3 * B * N * C); their matrix products are a few
-thousand FLOPs per position, far below the tensor cores' rate per byte.
-See the sources for the kernels' designs.
+Bound on the card: device-memory bytes.  The block's forward and K3 read x
+once and write their output once (2 * B * N * C elements), the backward
+reads x and g once and writes dx once (3 * B * N * C); their matrix
+products are a few thousand FLOPs per position, far below the tensor
+cores' rate per byte.  See the sources for the kernels' designs.
 """
 
 from __future__ import annotations
@@ -31,9 +37,12 @@ import functools
 
 import torch
 
+from calodiffusion_tpu_torch.ops import cuda_build
+
 DIM_HEAD = 32
 FORWARD_KERNEL = "linear_attention_block"
 BACKWARD_KERNEL = "linear_attention_block_bwd"
+LINEAR_KERNEL = "linear_attention"
 _SUPPORTED_C = (32, 64)
 _PTR = ctypes.c_void_p
 _PTRS = ctypes.POINTER(ctypes.c_void_p)
@@ -44,57 +53,46 @@ _ENTRIES = {
     BACKWARD_KERNEL: ("calo_attention_block_backward",
                       [_PTR] * 8 + [_PTRS, _PTR, _PTRS] + [ctypes.c_int] * 4
                       + [ctypes.c_float, _PTR]),
+    LINEAR_KERNEL: ("calo_linear_attention_forward", [_PTR] * 5 + [ctypes.c_int] * 4 + [_PTR]),
 }
 
 
 def bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
     """Declare the argument and result types of ``lib``'s entry for kernel ``name``."""
-    entry, argtypes = _ENTRIES[name]
-    fn = getattr(lib, entry)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return lib
+    return cuda_build.bind(lib, *_ENTRIES[name])
 
 
 def variant(dtype, C: int) -> tuple[str, str]:
     """The macros of the kernels' build for compute dtype ``dtype`` and C
     channels: each library holds one (dtype, C) instantiation."""
-    return (f"CALO_BF16={int(dtype == torch.bfloat16)}", f"CALO_C={C}")
+    return (*cuda_build.dtype_variant(dtype), f"CALO_C={C}")
 
 
 # every (kernel, variant) a caller may launch
-BUILDS = tuple((name, variant(dtype, C)) for name in (FORWARD_KERNEL, BACKWARD_KERNEL)
+BUILDS = tuple((name, variant(dtype, C))
+               for name in (FORWARD_KERNEL, BACKWARD_KERNEL, LINEAR_KERNEL)
                for dtype in (torch.bfloat16, torch.float32) for C in _SUPPORTED_C)
 
 
 @functools.cache
 def _library(name: str, dtype, C: int) -> ctypes.CDLL:
-    from calodiffusion_tpu_torch.ops import cuda_build
-
     return bind(cuda_build.load(name, variant(dtype, C)), name)
 
 
-def build_all() -> None:
-    """Build every variant of both kernels at once (one nvcc each)."""
-    from calodiffusion_tpu_torch.ops import cuda_build
+def _kernel_library(name: str, x) -> ctypes.CDLL:
+    """The library of kernel ``name`` for x's (dtype, C); x must be on the card."""
+    if x.device.type != "cuda":
+        raise ValueError(f"the {name} kernel runs on CUDA tensors, got {x.device}")
+    return _library(name, x.dtype, x.shape[-1])
 
+
+def build_all() -> None:
+    """Build every variant of the three kernels at once (one nvcc each)."""
     cuda_build.build_all(BUILDS)
 
 
-def _check(name, t, shape, dtype, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, x on {device}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _check_block(x, gn_pre_scale, gn_pre_bias, w_qkv, w_out, b_out, gn_post_scale,
-                 gn_post_bias, dim_head):
-    """Shapes, dtypes and layout the kernels take; returns (B, N, C)."""
+def _check_x(x, w_qkv, w_out, b_out, dim_head):
+    """x, the projections and b_out as the kernels take them; returns (B, N, C)."""
     if dim_head != DIM_HEAD:
         raise ValueError(f"the kernels take dim_head {DIM_HEAD}, got {dim_head}")
     if x.dim() != 3:
@@ -106,26 +104,23 @@ def _check_block(x, gn_pre_scale, gn_pre_bias, w_qkv, w_out, b_out, gn_post_scal
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"the kernels take bf16 or f32, got {x.dtype}")
     dev = x.device
-    _check("x", x, (B, N, C), x.dtype, dev)
-    _check("w_qkv", w_qkv, (C, 3 * DIM_HEAD), x.dtype, dev)
-    _check("w_out", w_out, (DIM_HEAD, C), x.dtype, dev)
-    for name, t in (("gn_pre_scale", gn_pre_scale), ("gn_pre_bias", gn_pre_bias),
-                    ("b_out", b_out), ("gn_post_scale", gn_post_scale),
-                    ("gn_post_bias", gn_post_bias)):
-        _check(name, t, (C,), torch.float32, dev)
+    cuda_build.check_tensor("x", x, (B, N, C), x.dtype, dev)
+    cuda_build.check_tensor("w_qkv", w_qkv, (C, 3 * DIM_HEAD), x.dtype, dev)
+    cuda_build.check_tensor("w_out", w_out, (DIM_HEAD, C), x.dtype, dev)
+    cuda_build.check_tensor("b_out", b_out, (C,), torch.float32, dev)
     if x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned (vector loads)")
     return B, N, C
 
 
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else 0
-
-
-def _raise_on(rc, name, x):
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc} "
-                           f"(B, N, C = {tuple(x.shape)}; {x.dtype})")
+def _check_block(x, gn_pre_scale, gn_pre_bias, w_qkv, w_out, b_out, gn_post_scale,
+                 gn_post_bias, dim_head):
+    """Shapes, dtypes and layout the block kernels take; returns (B, N, C)."""
+    B, N, C = _check_x(x, w_qkv, w_out, b_out, dim_head)
+    for name, t in (("gn_pre_scale", gn_pre_scale), ("gn_pre_bias", gn_pre_bias),
+                    ("gn_post_scale", gn_post_scale), ("gn_post_bias", gn_post_bias)):
+        cuda_build.check_tensor(name, t, (C,), torch.float32, x.device)
+    return B, N, C
 
 
 def launch_forward(lib, x, gn_pre_scale, gn_pre_bias, w_qkv, w_out, b_out,
@@ -140,9 +135,9 @@ def launch_forward(lib, x, gn_pre_scale, gn_pre_bias, w_qkv, w_out, b_out,
         w_qkv.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
         gn_post_scale.data_ptr(), gn_post_bias.data_ptr(),
         y_scr.data_ptr(), out.data_ptr(), B, N, C,
-        int(x.dtype == torch.bfloat16), float(eps), _stream(x.device),
+        int(x.dtype == torch.bfloat16), float(eps), cuda_build.stream_of(x.device),
     )
-    _raise_on(rc, FORWARD_KERNEL, x)
+    cuda_build.raise_on(rc, FORWARD_KERNEL, x)
     return out
 
 
@@ -169,9 +164,9 @@ def launch_backward(lib, x, gn_pre_scale, gn_pre_bias, w_qkv, w_out, b_out,
         x.data_ptr(), g.data_ptr(), gn_pre_scale.data_ptr(), gn_pre_bias.data_ptr(),
         w_qkv.data_ptr(), w_out.data_ptr(), b_out.data_ptr(), gn_post_scale.data_ptr(),
         scratch_ptrs, dx.data_ptr(), grad_ptrs, B, N, C,
-        int(x.dtype == torch.bfloat16), float(eps), _stream(dev),
+        int(x.dtype == torch.bfloat16), float(eps), cuda_build.stream_of(dev),
     )
-    _raise_on(rc, BACKWARD_KERNEL, x)
+    cuda_build.raise_on(rc, BACKWARD_KERNEL, x)
     d_w_qkv = torch.cat([dwq.sum(0), dwk.sum(0), dwv.sum(0)], dim=1).to(w_qkv.dtype)
     return (dx, dg1.sum(0), db1.sum(0), d_w_qkv, dwo.sum(0).to(w_out.dtype),
             dbo.sum(0), dg2.sum(0), db2.sum(0))
@@ -182,13 +177,11 @@ def attention_block_forward(x, gn_pre_scale, gn_pre_bias, w_qkv, w_out, b_out,
                             eps: float = 1e-5):
     """K1's wrapper: launches the forward kernel on CUDA tensors, counted
     in ``fused_attention_block.launches``; the result carries no gradient."""
-    if x.device.type != "cuda":
-        raise ValueError(f"the forward kernel runs on CUDA tensors, got {x.device}")
     _check_block(x, gn_pre_scale, gn_pre_bias, w_qkv, w_out, b_out, gn_post_scale,
                  gn_post_bias, dim_head)
-    with torch.cuda.device(x.device):
-        out = launch_forward(_library(FORWARD_KERNEL, x.dtype, x.shape[2]), x,
-                             gn_pre_scale, gn_pre_bias,
+    lib = _kernel_library(FORWARD_KERNEL, x)
+    with cuda_build.on_device(x):
+        out = launch_forward(lib, x, gn_pre_scale, gn_pre_bias,
                              w_qkv, w_out, b_out, gn_post_scale, gn_post_bias, eps)
     fused_attention_block.launches += 1
     return out
@@ -211,12 +204,12 @@ def attention_block_backward(x, gn_pre_scale, gn_pre_bias, w_qkv, w_out, b_out,
         raise ValueError(f"attention_block_backward: unsupported device {x.device}")
     _check_block(x, gn_pre_scale, gn_pre_bias, w_qkv, w_out, b_out, gn_post_scale,
                  gn_post_bias, dim_head)
-    _check("g", g, x.shape, x.dtype, x.device)
+    cuda_build.check_tensor("g", g, x.shape, x.dtype, x.device)
     if g.data_ptr() % 16:
         raise ValueError("g must be 16-byte aligned (vector loads)")
-    with torch.cuda.device(x.device):
-        grads = launch_backward(_library(BACKWARD_KERNEL, x.dtype, x.shape[2]), x,
-                                gn_pre_scale, gn_pre_bias,
+    lib = _kernel_library(BACKWARD_KERNEL, x)
+    with cuda_build.on_device(x):
+        grads = launch_backward(lib, x, gn_pre_scale, gn_pre_bias,
                                 w_qkv, w_out, b_out, gn_post_scale, g, eps)
     attention_block_backward.launches += 1
     return grads
@@ -265,6 +258,63 @@ def fused_attention_block(x, gn_pre_scale, gn_pre_bias, w_qkv, w_out, b_out,
 fused_attention_block.launches = 0  # forward kernel launches since the last reset
 
 
+def launch_linear(lib, x, w_qkv, w_out, b_out):
+    """Allocate K3's output and call ``lib``'s entry on checked inputs."""
+    B, N, C = x.shape
+    out = torch.empty_like(x)
+    rc = lib.calo_linear_attention_forward(
+        x.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(), b_out.data_ptr(), out.data_ptr(),
+        B, N, C, int(x.dtype == torch.bfloat16), cuda_build.stream_of(x.device),
+    )
+    cuda_build.raise_on(rc, LINEAR_KERNEL, x)
+    return out
+
+
+def linear_attention_forward(x, w_qkv, w_out, b_out, dim_head: int = DIM_HEAD):
+    """K3's wrapper: launches the kernel on CUDA tensors, counted in
+    ``fused_linear_attention.launches``; the result carries no gradient."""
+    _check_x(x, w_qkv, w_out, b_out, dim_head)
+    lib = _kernel_library(LINEAR_KERNEL, x)
+    with cuda_build.on_device(x):
+        out = launch_linear(lib, x, w_qkv, w_out, b_out)
+    fused_linear_attention.launches += 1
+    return out
+
+
+class _FusedLinearAttention(torch.autograd.Function):
+    """K3 forward; backward = autograd of the plain version, recomputed from
+    the saved inputs (the JAX custom VJP, pallas_linear_attention.py:186-196)."""
+
+    @staticmethod
+    def forward(ctx, x, w_qkv, w_out, b_out, dim_head):
+        ctx.dim_head = dim_head
+        ctx.save_for_backward(x, w_qkv, w_out, b_out)
+        return linear_attention_forward(x, w_qkv, w_out, b_out, dim_head)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+            out = linear_attention_reference(*inputs, ctx.dim_head)
+            grads = torch.autograd.grad(out, inputs, g)
+        return (*grads, None)
+
+
+def fused_linear_attention(x, w_qkv, w_out, b_out, dim_head: int = DIM_HEAD):
+    """LinearAttention (heads = 1) with its 1x1 convs as matrices.  x:
+    (B, N, C) bf16 or f32; w_qkv: (C, 3*32) and w_out: (32, C) in x's dtype;
+    b_out: (C,) f32.  Returns (B, N, C) in x's dtype.  Differentiable: on the
+    card the forward is K3, the backward autograd of the plain version."""
+    if x.device.type == "cpu":
+        return linear_attention_reference(x, w_qkv, w_out, b_out, dim_head)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_linear_attention: unsupported device {x.device}")
+    return _FusedLinearAttention.apply(x, w_qkv, w_out, b_out, dim_head)
+
+
+fused_linear_attention.launches = 0  # kernel launches since the last reset
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch version: the same casts as the JAX package's
 # attention_block_reference (pallas_linear_attention.py:776-795)
@@ -282,7 +332,8 @@ def group_norm1_reference(x, scale, bias, eps: float = 1e-5):
 
 def linear_attention_reference(x, w_qkv, w_out, b_out, dim_head: int = DIM_HEAD):
     """LinearAttention (heads = 1) of (B, N, C) x with its 1x1 convs as
-    matrices: w_qkv (C, 3*D), w_out (D, C), b_out (C,)."""
+    matrices: w_qkv (C, 3*D), w_out (D, C), b_out (C,); K3's plain version
+    (pallas_linear_attention.py:211-223)."""
     D = dim_head
     qkv = torch.einsum("bnc,ck->bnk", x, w_qkv.to(x.dtype))
     q, k, v = qkv.split(D, dim=-1)

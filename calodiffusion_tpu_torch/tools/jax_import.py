@@ -14,6 +14,8 @@ Flax names submodules by per-type counters in call order
 (``ResnetBlock_N``, ``LinearAttention_N``, ``PreNormResidual_N``,
 ``Conv3d_N``, ``Conv3dTranspose_N``), so the walk below follows the
 U-Net's call order exactly as ``torch_import.import_condunet`` does.
+``module_params_to_state_dict`` does the same for a standalone attention
+module (``Attention``, ``LinearAttention``, ``PreNormResidual``).
 """
 
 from __future__ import annotations
@@ -70,21 +72,52 @@ class _Writer:
         for j, idx in enumerate(idxs):
             self.linear(path + [f"Dense_{j}"], f"{base}.{idx}")
 
+    # the attention modules: ``prefix`` is "" or ends in "."
+    def linear_attention(self, path, prefix):
+        self.conv(path + ["Conv3d_0"], f"{prefix}to_qkv")
+        self.conv(path + ["Conv3d_1"], f"{prefix}to_out.0")
+        self.groupnorm(path + ["GroupNorm_0"], f"{prefix}to_out.1")
+
+    def softmax_attention(self, path, prefix):
+        self.conv(path + ["Conv3d_0"], f"{prefix}to_qkv")
+        self.conv(path + ["Conv3d_1"], f"{prefix}to_out")
+
     def attention(self, unet, k, base):
         self.groupnorm(unet + [f"PreNormResidual_{k}", "GroupNorm_0"], f"{base}.fn.norm")
-        attn = unet + [f"LinearAttention_{k}"]
-        self.conv(attn + ["Conv3d_0"], f"{base}.fn.fn.to_qkv")
-        self.conv(attn + ["Conv3d_1"], f"{base}.fn.fn.to_out.0")
-        self.groupnorm(attn + ["GroupNorm_0"], f"{base}.fn.fn.to_out.1")
+        self.linear_attention(unet + [f"LinearAttention_{k}"], f"{base}.fn.fn.")
+
+
+def _subtree(params):
+    return params["params"] if "params" in params else params
+
+
+def module_params_to_state_dict(params, module: str) -> dict[str, torch.Tensor]:
+    """Flax params of a standalone ``Attention``, ``LinearAttention`` or
+    ``PreNormResidual`` (wrapping either) of ``calodiffusion_tpu`` -> the
+    port module's state_dict.  ``module`` names the module as the port
+    builds it: "Attention", "LinearAttention", "PreNormResidual(Attention)"
+    or "PreNormResidual(LinearAttention)".  JAX ``Conv3d_0``/``Conv3d_1``/
+    ``GroupNorm_0`` become ``to_qkv``/``to_out.0``/``to_out.1`` of a
+    LinearAttention and ``to_qkv``/``to_out`` of an Attention; a
+    PreNormResidual's ``GroupNorm_0`` and ``fn`` become ``fn.norm`` and
+    ``fn.fn``."""
+    w = _Writer(_subtree(params))
+    path, prefix, fn = [], "", module
+    if module.startswith("PreNormResidual(") and module.endswith(")"):
+        w.groupnorm(["GroupNorm_0"], "fn.norm")
+        path, prefix, fn = ["fn"], "fn.fn.", module[len("PreNormResidual("):-1]
+    writers = {"Attention": w.softmax_attention, "LinearAttention": w.linear_attention}
+    if fn not in writers:
+        raise ValueError(f"unknown module {module!r}")
+    writers[fn](path, prefix)
+    return w.sd
 
 
 def params_to_state_dict(params, config) -> dict[str, torch.Tensor]:
     """Flax CondUnet params of ``calodiffusion_tpu`` -> the port's CondUnet
     state_dict (f32 CPU tensors).  ``params`` may be the whole tree
     (``{"params": {"CondUnet_0": ...}}``) or the CondUnet subtree."""
-    tree = params
-    if "params" in tree:
-        tree = tree["params"]
+    tree = _subtree(params)
     if "CondUnet_0" in tree:
         tree = tree["CondUnet_0"]
     w = _Writer(tree)

@@ -6,30 +6,44 @@
 Phases, each printing its own lines; any failed check exits non-zero and
 prints no result:
 
-1. card    the card's name and power limit (nvidia-smi), torch and CUDA versions
-2. build   every kernel of both paths, each (dtype, C) variant with its own
-           nvcc, all at once, from this checkout; their register/spill lines
-3. kernels each kernel against its plain PyTorch version on the card at the
-           shapes of the paths (dataset 2, batch 128), in bf16 and f32, with
-           its time, the plain version's time and the card's bound:
-           K1 (forward) against attention_block_reference, K2 (backward)
-           against attention_block_backward_reference
-4. main    dataset-2 shower generation at the full width of
-           configs/config_dataset2.json (bf16, 400-step DDIM, batch 128)
-           through CaloDiffusion.generate, from seeded random weights; the
-           showers must be finite, >= 0 and of shape (batches*128, 6480), and
-           K1 must have been launched 7 times per denoise (counts reset just
-           before).  The same weights in f32 must agree on the card and on
-           the CPU (plain versions) for one denoise call.
-5. train   dataset-2 training at the same full width (bf16, batch 128) through
-           TrainDiffusion.train: --train-steps Adam steps on one repeated
-           seeded batch and one val batch, checkpoints written; every loss
-           finite, K1 and K2 launched 7 times per step (counts reset just
-           before); the batch's loss with fixed noise and sigma falls 5 %
-           over the steps; one f32 step's loss and every parameter gradient
-           agree on the card and on the CPU from the same weights, batch,
-           noise and sigma draws.
-6. result  {"kernels": [...]} and, last, {"ok": true, "device": {...}}
+1. card     the card's name and power limit (nvidia-smi), torch and CUDA versions
+2. build    every kernel of every path (K1-K5), each variant with its own
+            nvcc, all at once, from this checkout; their register/spill lines
+3. kernels  K1 and K2 against their plain PyTorch versions on the card at the
+            shapes of the ds2 paths (batch 128), in bf16 and f32, with their
+            times, the plain versions' times and the card's bound:
+            K1 (forward) against attention_block_reference, K2 (backward)
+            against attention_block_backward_reference
+4. main     dataset-2 shower generation at the full width of
+            configs/config_dataset2.json (bf16, 400-step DDIM, batch 128)
+            through CaloDiffusion.generate, from seeded random weights; the
+            showers must be finite, >= 0 and of shape (batches*128, 6480), and
+            K1 must have been launched 7 times per denoise (counts reset just
+            before).  The same weights in f32 must agree on the card and on
+            the CPU (plain versions) for one denoise call.
+5. train    dataset-2 training at the same full width (bf16, batch 128) through
+            TrainDiffusion.train: --train-steps Adam steps on one repeated
+            seeded batch and one val batch, checkpoints written; every loss
+            finite, K1 and K2 launched 7 times per step (counts reset just
+            before); the batch's loss with fixed noise and sigma falls 5 %
+            over the steps; one f32 step's loss and every parameter gradient
+            agree on the card and on the CPU from the same weights, batch,
+            noise and sigma draws.
+6. variants the entries that run the other three kernels, in bf16 and f32:
+            K3 (LinearAttention alone) against linear_attention_reference at
+            every ds2 (C, N), B = 128, and at dataset 3's full grid (B = 64,
+            N = 45*50*18 = 40,500, C = 32); K4 (blockwise softmax attention)
+            against dense_attention at (B*H = 8, N = 4096), N = 736,
+            and N = 40,500 with B*H = 4 and 16, beside SDPA's time; K5
+            (GroupNorm + SiLU) against gn_silu_reference at ds2 levels 0 and
+            2 and ds3 level 0.  Then, counts reset just before: a
+            LinearAttention(32) forward and backward on the ds3 grid (K3 once;
+            output and f32 gradients against the plain module's; the bf16
+            gradients must be finite and are printed, not held to a limit), an
+            Attention(32, heads=4) forward on (4, 32, 45, 50, 18) (K4 once;
+            against the plain module) and groupnorm_silu at the three shapes
+            (K5 three times).
+7. result   {"kernels": [...]} and, last, {"ok": true, "device": {...}}
 """
 
 from __future__ import annotations
@@ -46,13 +60,24 @@ from pathlib import Path
 import numpy as np
 import torch
 
+try:
+    from calodiffusion_tpu_torch.ops.tolerances import K1_TOL, K2_TOL, K3_TOL, K4_TOL, K5_TOL
+except ImportError as e:  # the script alone, outside a checkout of the repository
+    sys.exit(f"chip_smoke FAILED: calodiffusion_tpu_torch is not importable here: {e}")
+
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "config_dataset2.json"
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): the card's least time
-# for a piece of work is the larger of bytes / HBM rate and operations / rate
+# for a piece of work is the largest of bytes / HBM rate, operations / rate
+# and exponentials / rate
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # tensor-core bf16; f32 CUDA cores
+# Exponentials: 16 a clock on each of the 132 SMs (the special-function
+# units' ex2; CUDA C++ Programming Guide, arithmetic-instruction throughput
+# table, compute capability 9.0) at the 1980 MHz boost clock that nvidia-smi
+# read on the card under load
+EXP_PER_S = 132 * 16 * 1.98e9
 
 # (C, N) of the 7 PreNormResidual(LinearAttention) blocks of one ds2 U-Net
 # call, in call order: down levels, middle, up levels
@@ -61,30 +86,8 @@ DS2_ATTENTION_BLOCKS = [(32, 6480), (64, 736), (32, 96), (32, 96), (64, 96), (32
 BATCH = 128
 D = 32  # dim_head
 
-# K1 vs plain version, elementwise |kernel - plain| <= atol + rtol * |plain|:
-# - f32 (TF32 off on both sides): only the order of f32 sums differs, over
-#   up to N*C = 207k terms in the GroupNorm statistics: 1e-4 absolute.
-# - bf16: the kernel keeps the q/k projections and the softmax numerators in
-#   f32 (as the Pallas kernel does) where the plain version rounds them to
-#   bf16 first, so the unit-scale post-GN term may differ by a few bf16 ulps
-#   (1/64 each below 2), and the residual sum rounds to bf16 at the output's
-#   magnitude: 0.0625 plus 2 ulps of the output (2 * 2^-7 relative).
-TOL = {torch.bfloat16: (0.0625, 2.0**-6), torch.float32: (1e-4, 0.0)}
-
-# K2 vs plain backward, each of the 8 gradients in max-norm relative error
-# max|kernel - plain| / max|plain|:
-# - f32: both sides compute in f32 and differ in the order of their sums,
-#   over up to N*C = 207k terms a sample (the GroupNorm-backward sums) and
-#   B*N = 830k positions (the weight gradients), which the GroupNorm
-#   backward's cancellations amplify; the JAX package holds its Pallas
-#   backward to the XLA VJP at 3e-3 (tests/test_pallas_linear_attention.py).
-#   1e-4 here: 40x the largest seen on the card and under CPU emulation.
-# - bf16: the kernel rounds to bf16 only where the Pallas kernel casts and
-#   accumulates in f32; the plain version's autograd rounds every product's
-#   output and every intermediate gradient to bf16 (2^-8 relative each) along
-#   a chain of ~6 products and two GroupNorm backwards: 5e-2, about 3x the
-#   largest seen on the card (dx at N = 6480).
-K2_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-4}
+# The kernels' tolerances against their plain versions, K1_TOL .. K5_TOL,
+# and their reasons: calodiffusion_tpu_torch/ops/tolerances.py.
 
 # One f32 train step, card (K1, K2, cuDNN; TF32 off) against CPU (plain
 # versions, oneDNN), same weights and inputs.  The f32 forward agrees within
@@ -97,13 +100,54 @@ K2_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-4}
 STEP_LOSS_RTOL = 1e-3
 STEP_GRAD_TOL = 5e-3
 
+# Attention(32, heads=4) on the card (K4) against the plain module, same
+# form.  f32: K4's bound.  bf16: K4's and the plain version's outputs may
+# sit one bf16 ulp apart here and there, and the module's bf16 output conv
+# sums 128 of them and rounds again; outputs are under 0.5 in magnitude, so
+# allow four ulps at that scale: 4e-3 + 2^-7 relative.
+ATTENTION_MODULE_TOL = {torch.bfloat16: (4e-3, 2.0**-7), torch.float32: (1e-4, 0.0)}
+# LinearAttention(32)'s f32 gradients on the ds3 grid, its forward through
+# K3, against the plain f32 module's, in max-norm relative error.  Both
+# backward through autograd of the plain version, so they differ only
+# through K3's forward output, which the post-GroupNorm backward reads; at
+# the module's default init the post-GroupNorm divides by y's small spread,
+# and K3 sums ctx in another order than the CPU and cuBLAS: 3.0e-4 on the
+# CPU (scripts/torch_linear_attention_conditioning.py, batch 2, K3 under the
+# g++ emulation), 3.7e-4 on the card over 64 samples: 1e-3.
+# The bf16 gradients are not held to a limit.  The attention's part of y
+# spreads 0.006 over positions, below one bf16 ulp of y, so the plain bf16
+# module's own gradients lie 0.7-1.6 from float64, whatever the forward;
+# scaling to_qkv's weight by 4 widens the spread to 0.3-0.5 and still leaves
+# them 0.02-0.24 off over six seeds (the same script, --qkv-gain 4), while
+# K3's bf16 forward is held elementwise above.  They must be finite.
+K3_GRAD_TOL_F32 = 1e-3
+
+# dataset 3's full-resolution grid (configs/config_dataset3.json: SHAPE_FINAL
+# 45 x 50 x 18, LAYER_SIZE_UNET[0] = 32)
+DS3_GRID = (45, 50, 18)
+DS3_N = 45 * 50 * 18
+DS3_BATCH = 64
+# K4's shapes (B, H, N): scripts/pallas_tpu_check.py:42-55, N = 736 (ds2
+# level 1, below the JAX entry's dense limit of 2048, where the port runs K4
+# too), and the Attention(32, heads=4) call of the variants path at batch 4
+K4_SHAPES = [(1, 8, 4096), (2, 4, 736), (1, 4, DS3_N), (4, 4, DS3_N)]
+ATTENTION_BATCH = 4
+# K5's shapes (channels-last), groups 8: ds2 level 0 and 2, ds3 level 0
+K5_SHAPES = [(BATCH, 45, 16, 9, 32), (BATCH, 23, 8, 4, 64), (DS3_BATCH, *DS3_GRID, 32)]
+
 REPLACES = {
     "fused_attention_block": "calodiffusion_tpu/ops/pallas_linear_attention.py:240",
     "attention_block_backward": "calodiffusion_tpu/ops/pallas_linear_attention.py:407",
+    "fused_linear_attention": "calodiffusion_tpu/ops/pallas_linear_attention.py:94",
+    "blockwise_attention": "calodiffusion_tpu/ops/pallas_attention.py:35",
+    "groupnorm_silu": "calodiffusion_tpu/ops/pallas_groupnorm.py:27",
 }
 SOURCES = {
     "fused_attention_block": "calodiffusion_tpu_torch/csrc/linear_attention_block.cu",
     "attention_block_backward": "calodiffusion_tpu_torch/csrc/linear_attention_block_bwd.cu",
+    "fused_linear_attention": "calodiffusion_tpu_torch/csrc/linear_attention.cu",
+    "blockwise_attention": "calodiffusion_tpu_torch/csrc/blockwise_attention.cu",
+    "groupnorm_silu": "calodiffusion_tpu_torch/csrc/groupnorm_silu.cu",
 }
 
 
@@ -155,11 +199,16 @@ def block_inputs(B, N, C, dtype, seed):
     return args
 
 
-def bound_ms(nbytes, flops, dtype):
-    """(bound ms, bound_by): the larger of bytes over the HBM rate and the
-    products' operations over the peak for the dtype."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+def bound_ms(nbytes, flops, dtype, exps=0, flop_rate=None):
+    """(bound ms, bound_by, term): the largest of bytes over the HBM rate,
+    FLOPs over the peak for the dtype (or ``flop_rate``) and exponentials
+    over the special-function units' rate; bound_by is "bytes" or
+    "operations", term names the largest ("bytes", "flops" or "exp")."""
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S,
+             "flops": flops / (flop_rate or PEAK_FLOPS[dtype]),
+             "exp": exps / EXP_PER_S}
+    term = max(terms, key=terms.get)
+    return 1e3 * terms[term], "bytes" if term == "bytes" else "operations", term
 
 
 def attention_bound(B, N, C, dtype):
@@ -195,15 +244,12 @@ def check_attention_kernel(attn):
             got = attn.fused_attention_block(*args)
             torch.cuda.synchronize()
             want = attn.attention_block_reference(*args)
-            atol, rtol = TOL[dtype]
-            diff = (got.float() - want.float()).abs()
-            err = diff.max().item()
-            if not np.isfinite(err) or (diff > atol + rtol * want.float().abs()).any():
-                fail(f"fused_attention_block (C={C}, N={N}, {dtype}) differs from its "
-                     f"plain version by up to {err:.3g}, beyond {atol} + {rtol} * |plain|")
+            atol, rtol = K1_TOL[dtype]
+            err = elementwise_err("fused_attention_block", got, want, K1_TOL[dtype],
+                                  f"C={C}, N={N}, {dtype}")
             k_ms = time_ms(lambda: attn.fused_attention_block(*args))
             p_ms = time_ms(lambda: attn.attention_block_reference(*args))
-            b_ms, b_by = attention_bound(BATCH, N, C, dtype)
+            b_ms, b_by, _ = attention_bound(BATCH, N, C, dtype)
             cases.append(dict(
                 name="fused_attention_block", shape=[BATCH, N, C], dtype=dtype_name(dtype),
                 max_abs_err=err, tol={"atol": atol, "rtol": rtol}, kernel_ms=k_ms, plain_ms=p_ms,
@@ -235,8 +281,7 @@ def check_backward_kernel(attn):
                 if a.dtype != b.dtype or a.shape != b.shape:
                     fail(f"attention_block_backward {name}: {a.dtype} {tuple(a.shape)}, "
                          f"plain {b.dtype} {tuple(b.shape)}")
-                a, b = a.double(), b.double()
-                rel[name] = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                rel[name] = max_norm_rel(a, b)
             worst = max(rel, key=rel.get)
             if not all(np.isfinite(v) for v in rel.values()) or rel[worst] > K2_TOL[dtype]:
                 fail(f"attention_block_backward (C={C}, N={N}, {dtype}): {worst} differs from "
@@ -245,7 +290,7 @@ def check_backward_kernel(attn):
             abs_dx = (got[0].float() - want[0].float()).abs().max().item()
             k_ms = time_ms(lambda: attn.attention_block_backward(*args, g))
             p_ms = time_ms(lambda: attn.attention_block_backward_reference(*args, g))
-            b_ms, b_by = backward_bound(BATCH, N, C, dtype)
+            b_ms, b_by, _ = backward_bound(BATCH, N, C, dtype)
             cases.append(dict(
                 name="attention_block_backward", shape=[BATCH, N, C], dtype=dtype_name(dtype),
                 max_abs_err=abs_dx, max_norm_rel_err=rel, tol_max_norm_rel=K2_TOL[dtype],
@@ -438,6 +483,251 @@ def run_training(cfg, args, attn, card):
                 state_dict={k: v.detach().cpu() for k, v in trainer.model.state_dict().items()})
 
 
+# ---------------------------------------------------------------------------
+# 6. variants: K3, K4, K5 and the entries that run them
+# ---------------------------------------------------------------------------
+
+def elementwise_err(name, got, want, tol, what):
+    """Max |got - want|; fails beyond atol + rtol * |want| or if not finite."""
+    atol, rtol = tol
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    if not np.isfinite(err) or (diff > atol + rtol * want.float().abs()).any():
+        fail(f"{name} ({what}) differs from its plain version by up to {err:.3g}, beyond "
+             f"{atol} + {rtol} * |plain|")
+    return err
+
+
+def case_line(name, shape, dtype, err, tol, k_ms, p_ms, bound, extra=""):
+    b_ms, b_by, term = bound
+    print(f"kernel {name} {shape} {dtype_name(dtype)}: max_abs_err {err:.3g} (tol {tol[0]} + "
+          f"{tol[1]} * |plain|), kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({term}){extra}", flush=True)
+    return dict(name=name, shape=list(shape), dtype=dtype_name(dtype), max_abs_err=err,
+                tol={"atol": tol[0], "rtol": tol[1]}, kernel_ms=k_ms, plain_ms=p_ms,
+                bound_ms=b_ms, bound_by=b_by, bound_term=term)
+
+
+def linear_inputs(B, N, C, dtype, seed):
+    """x, w_qkv, w_out, b_out of one LinearAttention on the card."""
+    g = torch.Generator().manual_seed(seed)
+    x, wqkv, wout, bout = (torch.randn(B, N, C, generator=g), 0.2 * torch.randn(C, 96, generator=g),
+                           0.2 * torch.randn(32, C, generator=g), 0.1 * torch.randn(C, generator=g))
+    return [x.cuda().to(dtype), wqkv.cuda().to(dtype), wout.cuda().to(dtype), bout.cuda()]
+
+
+def linear_bound(B, N, C, dtype):
+    """LinearAttention alone: x read and y written once, the weights read
+    once; the four products; 64 exponentials a position (two softmaxes)."""
+    elt = torch.finfo(dtype).bits // 8
+    nbytes = 2 * B * N * C * elt + (C * 96 + 32 * C) * elt + C * 4
+    flops = 2 * B * N * (96 * C + 32 * 32 + 32 * 32 + 32 * C)
+    return bound_ms(nbytes, flops, dtype, exps=64 * B * N)
+
+
+def check_linear_kernel(la):
+    """K3 vs plain version at every ds2 (C, N), B = 128, and ds3 level 0."""
+    cases = []
+    shapes = [(BATCH, N, C) for C, N in sorted(set(DS2_ATTENTION_BLOCKS))]
+    shapes.append((DS3_BATCH, DS3_N, 32))
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, N, C in shapes:
+            args = linear_inputs(B, N, C, dtype, seed=B + N + C)
+            got = la.linear_attention_forward(*args)
+            torch.cuda.synchronize()
+            want = la.linear_attention_reference(*args)
+            err = elementwise_err("fused_linear_attention", got, want, K3_TOL[dtype],
+                                  f"B={B} N={N} C={C} {dtype}")
+            k_ms = time_ms(lambda: la.linear_attention_forward(*args))
+            p_ms = time_ms(lambda: la.linear_attention_reference(*args))
+            cases.append(case_line("fused_linear_attention", (B, N, C), dtype, err,
+                                   K3_TOL[dtype], k_ms, p_ms, linear_bound(B, N, C, dtype)))
+    return cases
+
+
+def blockwise_bound(B, H, N, dtype):
+    """Softmax attention: q, k, v read and out written once; 4 D FLOPs and
+    one exponential a score (pallas_attention.py:51-62)."""
+    elt = torch.finfo(dtype).bits // 8
+    return bound_ms(4 * B * H * N * D * elt, 4 * D * B * H * N * N, dtype, exps=B * H * N * N)
+
+
+def dense_rows(B, H, N):
+    """Query rows a chunk of the plain version takes: about 2 GB of f32
+    scores at a time."""
+    return max(1, (1 << 29) // (B * H * N))
+
+
+def check_blockwise_kernel(att):
+    """K4 vs plain version, through the entry, with SDPA timed beside it."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, H, N in K4_SHAPES:
+            g = torch.Generator().manual_seed(B + H + N)
+            q, k, v = (torch.randn(B, H, N, D, generator=g).cuda().to(dtype) for _ in range(3))
+            before = att.blockwise_attention.launches
+            got = att.blockwise_attention(q, k, v)
+            torch.cuda.synchronize()
+            if att.blockwise_attention.launches != before + 1:
+                fail(f"blockwise_attention (N={N}) did not launch K4 once")
+            rows = dense_rows(B, H, N)
+            want = att.dense_attention(q, k, v, q_rows=rows)
+            err = elementwise_err("blockwise_attention", got, want, K4_TOL[dtype],
+                                  f"B={B} H={H} N={N} {dtype}")
+            big = N > 8192
+            reps = dict(warmup=1, reps=5) if big else {}
+            k_ms = time_ms(lambda: att.blockwise_attention_forward(q, k, v), **reps)
+            p_ms = time_ms(lambda: att.dense_attention(q, k, v, q_rows=rows), **reps)
+            l_ms = time_ms(lambda: sdpa(q, k, v), **reps)
+            cases.append(case_line("blockwise_attention", (B, H, N, D), dtype, err,
+                                   K4_TOL[dtype], k_ms, p_ms, blockwise_bound(B, H, N, dtype),
+                                   extra=f", SDPA {l_ms:.4f} ms"))
+            cases[-1].update(library_ms=l_ms)
+    return cases
+
+
+def gn_inputs(shape, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    C = shape[-1]
+    return (torch.randn(*shape, generator=g).add_(0.5).cuda().to(dtype),
+            (1.0 + 0.1 * torch.randn(C, generator=g)).cuda(),
+            (0.1 * torch.randn(C, generator=g)).cuda())
+
+
+def gn_bound(shape, dtype):
+    """GroupNorm + SiLU: x read and out written once; ~10 FLOPs on the CUDA
+    cores and one exponential an element."""
+    elt = torch.finfo(dtype).bits // 8
+    n = int(np.prod(shape))
+    return bound_ms(2 * n * elt + 2 * shape[-1] * 4, 10 * n, dtype, exps=n,
+                    flop_rate=PEAK_FLOPS[torch.float32])
+
+
+def check_groupnorm_kernel(gn):
+    """K5 vs plain version at ds2 levels 0 and 2 and ds3 level 0, groups 8."""
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in K5_SHAPES:
+            x, sc, bi = gn_inputs(shape, dtype, seed=sum(shape))
+            got = gn.groupnorm_silu_forward(x, sc, bi, 8)
+            torch.cuda.synchronize()
+            want = gn.gn_silu_reference(x, sc, bi, 8)
+            err = elementwise_err("groupnorm_silu", got, want, K5_TOL[dtype],
+                                  f"{shape} {dtype}")
+            k_ms = time_ms(lambda: gn.groupnorm_silu_forward(x, sc, bi, 8))
+            p_ms = time_ms(lambda: gn.gn_silu_reference(x, sc, bi, 8))
+            cases.append(case_line("groupnorm_silu", shape, dtype, err, K5_TOL[dtype], k_ms,
+                                   p_ms, gn_bound(shape, dtype)))
+    return cases
+
+
+def max_norm_rel(a, b):
+    """max |a - b| / max |b|, in float64."""
+    a, b = a.double(), b.double()
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+def run_variants_path(seed, la, att, gn, nn_modules):
+    """The variants path, in bf16 and f32: LinearAttention(32) forward and
+    backward on the ds3 grid, Attention(32, heads=4) forward on
+    (4, 32, 45, 50, 18), groupnorm_silu at K5_SHAPES.  Launch counts are
+    reset just before each dtype's run and read just after; the outputs
+    and gradients are then held against the plain modules."""
+    from unittest import mock
+
+    counters = (la.fused_linear_attention, att.blockwise_attention, gn.groupnorm_silu,
+                la.fused_attention_block, la.attention_block_backward)
+    want = (1, 1, len(K5_SHAPES), 0, 0)
+    totals, results = [0] * len(counters), {}
+    for dtype in (torch.bfloat16, torch.float32):
+        gen = torch.Generator().manual_seed(seed)
+        lin = nn_modules.LinearAttention(32, dtype=dtype, generator=gen).cuda()
+        full = nn_modules.Attention(32, heads=4, dtype=dtype, generator=gen).cuda()
+        x_lin = torch.randn(DS3_BATCH, 32, *DS3_GRID, generator=gen).cuda().requires_grad_(True)
+        x_att = torch.randn(ATTENTION_BATCH, 32, *DS3_GRID, generator=gen).cuda()
+        gn_args = [gn_inputs(shape, dtype, seed=seed + i) for i, shape in enumerate(K5_SHAPES)]
+
+        def lin_step(module=lin):
+            module.zero_grad(set_to_none=True)
+            x_lin.grad = None
+            out = module(x_lin)
+            (out.float() ** 2).mean().backward()
+            return out.detach(), [x_lin.grad] + [p.grad for p in module.parameters()]
+
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        lin_out, lin_grads = lin_step()
+        with torch.no_grad():
+            att_out = full(x_att)
+        gn_outs = [gn.groupnorm_silu(*a, groups=8) for a in gn_args]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = tuple(c.launches for c in counters)
+        if launched != want:
+            fail(f"variants path ({dtype}) launched K3, K4, K5, K1, K2 {launched} times, "
+                 f"expected {want}")
+        totals = [t + n for t, n in zip(totals, launched)]
+
+        # the plain modules: the same modules with K3's and K4's entries
+        # replaced by their plain versions
+        rows = dense_rows(ATTENTION_BATCH, 4, DS3_N)
+        with mock.patch.object(nn_modules, "fused_linear_attention",
+                               la.linear_attention_reference), \
+             mock.patch.object(nn_modules, "blockwise_attention",
+                               lambda q, k, v: att.dense_attention(q, k, v, q_rows=rows)):
+            ref_out, ref_grads = lin_step()
+            if dtype == torch.bfloat16:
+                lin32 = nn_modules.LinearAttention(32).cuda()
+                lin32.load_state_dict(lin.state_dict())
+                _, true_grads = lin_step(lin32)
+            with torch.no_grad():
+                att_ref = full(x_att)
+        if lin_out.shape != x_lin.shape or att_out.shape != x_att.shape:
+            fail(f"variants path shapes {tuple(lin_out.shape)}, {tuple(att_out.shape)}")
+        lin_err = elementwise_err("LinearAttention", lin_out, ref_out, K3_TOL[dtype],
+                                  f"module, {dtype}")
+        # against the plain f32 module's gradients: held to K3_GRAD_TOL_F32
+        # in f32; in bf16 printed beside the plain bf16 module's own error
+        plain_errs = []
+        if dtype == torch.float32:
+            true_grads, grad_note = ref_grads, f"(tol {K3_GRAD_TOL_F32})"
+        else:
+            plain_errs = [round(max_norm_rel(a, b), 6) for a, b in zip(ref_grads, true_grads)]
+            grad_note = f"(no limit; the plain bf16 module: {plain_errs})"
+        if not all(g is not None and torch.isfinite(g).all() for g in lin_grads):
+            fail(f"LinearAttention ({dtype}): a gradient is missing or not finite")
+        grad_errs = [max_norm_rel(a, b) for a, b in zip(lin_grads, true_grads)]
+        worst = max(range(len(grad_errs)), key=grad_errs.__getitem__)
+        if dtype == torch.float32 and grad_errs[worst] > K3_GRAD_TOL_F32:
+            fail(f"LinearAttention gradient {worst} ({dtype}): max-norm relative error "
+                 f"{grad_errs[worst]:.3g} > {K3_GRAD_TOL_F32}")
+        att_err = elementwise_err("Attention", att_out, att_ref, ATTENTION_MODULE_TOL[dtype],
+                                  f"module, {dtype}")
+        gn_err = max(elementwise_err("groupnorm_silu", o, gn.gn_silu_reference(*a, 8),
+                                     K5_TOL[dtype], f"path, {dtype}")
+                     for o, a in zip(gn_outs, gn_args))
+        results[dtype_name(dtype)] = dict(
+            wall_s=wall, launches=launched, linear_attention_err=lin_err,
+            linear_attention_grad_errs=grad_errs,
+            linear_attention_grad_tol=K3_GRAD_TOL_F32 if dtype == torch.float32 else None,
+            plain_module_grad_errs=plain_errs,
+            attention_err=att_err, gn_err=gn_err)
+        print(f"variants ({dtype_name(dtype)}): LinearAttention(32) fwd+bwd on "
+              f"{tuple(x_lin.shape)}, Attention(32, heads=4) fwd on "
+              f"{tuple(x_att.shape)}, groupnorm_silu x {len(K5_SHAPES)}: "
+              f"{wall:.3f} s; launches K3 {launched[0]}, K4 {launched[1]}, K5 {launched[2]}; "
+              f"vs plain modules: LinearAttention out {lin_err:.3g}, gradients (max-norm rel"
+              f"{'' if dtype == torch.float32 else ' to the f32 plain module'}) "
+              f"{[round(e, 6) for e in grad_errs]} {grad_note}, "
+              f"Attention out {att_err:.3g}, groupnorm_silu {gn_err:.3g}", flush=True)
+    return dict(zip(("fused_linear_attention", "blockwise_attention", "groupnorm_silu",
+                     "fused_attention_block", "attention_block_backward"), totals)), results
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batches", type=int, default=2)
@@ -449,8 +739,11 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
     try:
+        from calodiffusion_tpu_torch.models import nn_modules
         from calodiffusion_tpu_torch.models.diffusion import CaloDiffusion
+        from calodiffusion_tpu_torch.ops import attention as att
         from calodiffusion_tpu_torch.ops import cuda_build
+        from calodiffusion_tpu_torch.ops import groupnorm as gn
         from calodiffusion_tpu_torch.ops import linear_attention as attn
         from calodiffusion_tpu_torch.utils.config import load_config
     except ImportError as e:
@@ -466,10 +759,11 @@ def main() -> None:
 
     # 2. build
     t0 = time.perf_counter()
-    attn.build_all()
-    print(f"build: {len(attn.BUILDS)} kernel variants in {time.perf_counter() - t0:.1f} s",
+    builds = attn.BUILDS + att.KERNEL.builds + gn.KERNEL.builds
+    cuda_build.build_all(builds)
+    print(f"build: {len(builds)} kernel variants in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    for name, defines in attn.BUILDS:
+    for name, defines in builds:
         log = cuda_build.library_path(name, defines).with_suffix(".log")
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
@@ -513,7 +807,15 @@ def main() -> None:
     train = run_training(cfg, args, attn, card)
     step_check = check_train_step_card_vs_cpu(cfg, train.pop("state_dict"), args.seed + 5, attn)
 
-    # 6. result
+    # 6. variants
+    t0 = time.perf_counter()
+    k3_cases = check_linear_kernel(attn)
+    k4_cases = check_blockwise_kernel(att)
+    k5_cases = check_groupnorm_kernel(gn)
+    var_launches, var_results = run_variants_path(args.seed + 6, attn, att, gn, nn_modules)
+    print(f"variants: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 7. result
     launches = {"fused_attention_block": (gen_launches[0], train["k1"]),
                 "attention_block_backward": (gen_launches[1], train["k2"])}
     kernels = []
@@ -524,7 +826,8 @@ def main() -> None:
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
             # launches on this slice's path, TrainDiffusion.train
             launches=launches[name][1],
-            launches_by_path={"generate": launches[name][0], "train": launches[name][1]},
+            launches_by_path={"generate": launches[name][0], "train": launches[name][1],
+                              "variants": var_launches[name]},
             max_abs_err=max(c["max_abs_err"] for c in bf16),
             # times of the 7 launches of one ds2 U-Net call, B=128, bf16
             ms=per_call(cases, "kernel_ms"), plain_ms=per_call(cases, "plain_ms"),
@@ -533,10 +836,31 @@ def main() -> None:
             library_ms=None, launches_per_call=len(DS2_ATTENTION_BLOCKS),
             launches_per_train_step=len(DS2_ATTENTION_BLOCKS), cases=cases,
         ))
+    # K3-K5: the times of their launches in one bf16 run of the variants path
+    path_shapes = {"fused_linear_attention": [[DS3_BATCH, DS3_N, 32]],
+                   "blockwise_attention": [[ATTENTION_BATCH, 4, DS3_N, D]],
+                   "groupnorm_silu": [list(sh) for sh in K5_SHAPES]}
+    for name, cases in (("fused_linear_attention", k3_cases), ("blockwise_attention", k4_cases),
+                        ("groupnorm_silu", k5_cases)):
+        bf16 = [c for c in cases if c["dtype"] == "bfloat16"]
+        on_path = [c for c in bf16 if c["shape"] in path_shapes[name]]
+        kernels.append(dict(
+            name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
+            launches=var_launches[name],
+            launches_by_path={"generate": 0, "train": 0, "variants": var_launches[name]},
+            max_abs_err=max(c["max_abs_err"] for c in bf16),
+            ms=sum(c["kernel_ms"] for c in on_path), plain_ms=sum(c["plain_ms"] for c in on_path),
+            bound_ms=sum(c["bound_ms"] for c in on_path),
+            bound_by="bytes" if all(c["bound_by"] == "bytes" for c in on_path) else "operations",
+            library_ms=(sum(c["library_ms"] for c in on_path)
+                        if name == "blockwise_attention" else None),
+            path_shapes=path_shapes[name], cases=cases,
+        ))
     print(json.dumps({"train": {k: v for k, v in train.items() if k != "steps"},
                       "train_step_losses": [s["loss"] for s in train["steps"]],
                       "train_step_s": [s["s"] for s in train["steps"]],
-                      "card_vs_cpu_step": step_check, "card": card}), flush=True)
+                      "card_vs_cpu_step": step_check, "variants": var_results,
+                      "card": card}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -8,11 +8,12 @@ std::barriers, warp shuffles go through a per-warp buffer, shared memory is
 filled with NaN so a read before a write shows.  The kernel launch
 ``kernel<<<grid, block, smem, stream>>>(args)`` is rewritten into a call
 that runs the block's threads.  The libraries expose the same C entries as
-the nvcc builds and are called through ``ops/linear_attention.py``'s
-``launch_forward``/``launch_backward`` with CPU tensors.  This checks the
+the nvcc builds and are called through the ops modules' ``launch*``
+functions with CPU tensors: K1/K2/K3 (``ops/linear_attention.py``), K4
+(``ops/attention.py``), K5 (``ops/groupnorm.py``).  This checks the
 kernels' arithmetic, indexing, masking and barriers; it says nothing about
 their speed, and the card's own compiler may still refuse what g++ takes.
-Tolerances are the on-card ones of chip_smoke.py.
+Tolerances are the on-card ones (``ops/tolerances.py``).
 """
 
 import ctypes
@@ -25,8 +26,21 @@ import numpy as np
 import pytest
 import torch
 
+from calodiffusion_tpu_torch.ops import attention as tatt
 from calodiffusion_tpu_torch.ops import cuda_build
+from calodiffusion_tpu_torch.ops import groupnorm as tgn
 from calodiffusion_tpu_torch.ops import linear_attention as tattn
+from calodiffusion_tpu_torch.ops.tolerances import K1_TOL, K2_TOL, K3_TOL, K4_TOL, K5_TOL
+
+# every (kernel, variant) of the three ops modules
+JOBS = tattn.BUILDS + tatt.KERNEL.builds + tgn.KERNEL.builds
+ONE_DTYPE_KERNELS = {k.name: k for k in (tatt.KERNEL, tgn.KERNEL)}  # one library a dtype
+
+
+def _job(module, dtype):
+    """The (kernel, variant) of K4's or K5's library for ``dtype``."""
+    return module.KERNEL.name, cuda_build.dtype_variant(dtype)
+
 
 EMULATION_HEADER = r"""
 // CPU emulation of the CUDA subset the attention kernels use: one std::thread
@@ -115,10 +129,8 @@ template <class F> void emu_launch(int grid, int block, size_t smem, F f) {
 }
 """
 
-# K1: |kernel - plain| <= atol + rtol |plain|; K2: max-norm relative error
-K1_TOL = {torch.bfloat16: (0.0625, 2.0**-6), torch.float32: (1e-4, 0.0)}
-K2_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-4}
-_LAUNCH = re.compile(r"(\w+<\w+, \w+>)<<<(\w+), (\w+), (\w+), (\w+)>>>\((.*?)\);", re.S)
+_LAUNCH = re.compile(r"(\w+(?:<[\w, ]+>)?)<<<([\w *+()/-]+?), (\w+), (\w+), (\w+)>>>\((.*?)\);",
+                     re.S)
 
 
 def _build(out_dir, name, defines):
@@ -135,12 +147,15 @@ def _build(out_dir, name, defines):
            "-o", str(so), str(cpp)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    return (name, defines), tattn.bind(ctypes.CDLL(str(so)), name)
+    lib = ctypes.CDLL(str(so))
+    if name in ONE_DTYPE_KERNELS:
+        return (name, defines), ONE_DTYPE_KERNELS[name].bind(lib)
+    return (name, defines), tattn.bind(lib, name)
 
 
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
-    """Every (kernel, variant) of tattn.BUILDS compiled for the emulation."""
+    """Every (kernel, variant) of the ops modules compiled for the emulation."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to compile the kernels for the CPU emulation")
     out = tmp_path_factory.mktemp("cuda_emulation")
@@ -148,7 +163,7 @@ def libs(tmp_path_factory):
         (out / name).write_text(EMULATION_HEADER if name == "cuda_emu.h"
                                 else '#include "cuda_emu.h"\n')
     with ThreadPoolExecutor(4) as pool:
-        return dict(pool.map(lambda job: _build(out, *job), tattn.BUILDS))
+        return dict(pool.map(lambda job: _build(out, *job), JOBS))
 
 
 def _args(B, N, C, dtype, seed):
@@ -210,3 +225,72 @@ def test_a_library_refuses_another_variant(libs):
     lib = libs[(tattn.FORWARD_KERNEL, tattn.variant(torch.bfloat16, 32))]
     with pytest.raises(RuntimeError, match="launch failed"):
         tattn.launch_forward(lib, *args, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("B,N,C", SHAPES)
+def test_linear_attention_kernel_matches_plain(libs, B, N, C, dtype):
+    x, _, _, w_qkv, w_out, b_out, _, _ = _args(B, N, C, dtype, seed=B + N + C + 2)
+    got = tattn.launch_linear(libs[(tattn.LINEAR_KERNEL, tattn.variant(dtype, C))],
+                              x, w_qkv, w_out, b_out)
+    want = tattn.linear_attention_reference(x, w_qkv, w_out, b_out)
+    assert got.dtype == dtype
+    atol, rtol = K3_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+def _qkv(B, H, N, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((B, H, N, 32)).astype(np.float32)).to(dtype)
+            for _ in range(3)]
+
+
+# one key; under one query tile of 128 and one key tile of 64; both ragged
+# over two query tiles; several (b, h)
+ATTN_SHAPES = [(1, 2, 1), (2, 1, 100), (1, 1, 200), (2, 2, 130)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("B,H,N", ATTN_SHAPES)
+def test_blockwise_attention_kernel_matches_plain(libs, B, H, N, dtype):
+    q, k, v = _qkv(B, H, N, dtype, seed=B + H + N)
+    got = tatt.launch(libs[_job(tatt, dtype)], q, k, v)
+    want = tatt.dense_attention(q, k, v)
+    assert got.dtype == dtype
+    atol, rtol = K4_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+# C = 96 (ds1 photon / HGCal widths), ds2-like level shapes, 4 groups, no SiLU
+GN_CASES = [((2, 5, 4, 3, 96), 8, True), ((2, 9, 4, 3, 32), 8, True),
+            ((3, 7, 7, 32), 4, True), ((1, 23, 64), 8, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("shape,groups,silu", GN_CASES)
+def test_groupnorm_silu_kernel_matches_plain(libs, shape, groups, silu, dtype):
+    rng = np.random.default_rng(len(shape) + shape[-1])
+    x = torch.from_numpy((2.0 + rng.standard_normal(shape)).astype(np.float32)).to(dtype)
+    C = shape[-1]
+    scale = torch.from_numpy((1.0 + 0.1 * rng.standard_normal(C)).astype(np.float32))
+    bias = torch.from_numpy((0.1 * rng.standard_normal(C)).astype(np.float32))
+    got = tgn.launch(libs[_job(tgn, dtype)], x, scale, bias, groups, 1e-5, silu)
+    want = tgn.gn_silu_reference(x, scale, bias, groups, 1e-5, silu)
+    assert got.dtype == dtype
+    atol, rtol = K5_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+def test_k4_k5_libraries_refuse_what_they_do_not_take(libs):
+    """K4 takes only its build's dtype and D = 32; K5 only its build's dtype
+    and C divisible by the groups: the C entries return an error, which the
+    launch functions raise."""
+    q, k, v = _qkv(1, 1, 8, torch.float32, seed=0)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tatt.launch(libs[_job(tatt, torch.bfloat16)], q, k, v)
+    q16 = torch.zeros(1, 1, 8, 16)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tatt.launch(libs[_job(tatt, torch.float32)], q16, q16, q16)
+    x, ones = torch.zeros(1, 4, 32), torch.ones(32)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tgn.launch(libs[_job(tgn, torch.float32)], x, ones, ones, 5, 1e-5, True)

@@ -13,19 +13,18 @@ import numpy as np
 import pytest
 import torch
 
+from calodiffusion_tpu_torch.models import nn_modules
 from calodiffusion_tpu_torch.models.diffusion import CaloDiffusion
+from calodiffusion_tpu_torch.ops import attention as tatt
+from calodiffusion_tpu_torch.ops import groupnorm as tgn
 from calodiffusion_tpu_torch.ops import linear_attention as tattn
+from calodiffusion_tpu_torch.ops.tolerances import K1_TOL, K2_TOL, K3_TOL, K4_TOL, K5_TOL
 from calodiffusion_tpu_torch.utils.config import load_config
 
 CONFIG = Path(__file__).resolve().parent.parent / "configs" / "config_dataset2.json"
 
 pytestmark = pytest.mark.gpu
 
-# kernel vs plain version, |kernel - plain| <= atol + rtol * |plain|; the
-# reasons are stated beside the same numbers in chip_smoke.py
-TOL = {torch.bfloat16: (0.0625, 2.0**-6), torch.float32: (1e-4, 0.0)}
-# K2 vs plain backward, max-norm relative error of each gradient (chip_smoke.py)
-K2_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-4}
 # the shapes of the main path (B = 4 here), and ragged N: one position, a
 # partial tile, one past a whole tile of 256
 SHAPES = [(4, 6480, 32), (4, 736, 64), (4, 736, 32), (4, 96, 32), (4, 96, 64), (3, 1, 32),
@@ -66,7 +65,7 @@ def test_attention_block_kernel_matches_plain(B, N, C, dtype):
     assert tattn.fused_attention_block.launches == before + 1
     assert got.shape == (B, N, C) and got.dtype == dtype
     want = tattn.attention_block_reference(*args).float()
-    atol, rtol = TOL[dtype]
+    atol, rtol = K1_TOL[dtype]
     torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
 
 
@@ -163,3 +162,116 @@ def test_train_step_gradients_on_card_match_cpu():
     for k, g in g_cpu.items():
         err = ((g_card[k] - g).abs().max() / (g.abs().max() + 1e-3 * G)).item()
         assert err <= 5e-3, f"{k}: {err:.3g}"
+
+
+# ---------------------------------------------------------------------------
+# K3, K4, K5
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("B,N,C", SHAPES + [(2, 40500, 32)])
+def test_linear_attention_kernel_matches_plain(B, N, C, dtype):
+    x, _, _, w_qkv, w_out, b_out, _, _ = _block_args(B, N, C, dtype, seed=B + N + C + 2)
+    before = tattn.fused_linear_attention.launches
+    got = tattn.fused_linear_attention(x, w_qkv, w_out, b_out)
+    torch.cuda.synchronize()
+    assert tattn.fused_linear_attention.launches == before + 1
+    assert got.shape == (B, N, C) and got.dtype == dtype
+    want = tattn.linear_attention_reference(x, w_qkv, w_out, b_out).float()
+    atol, rtol = K3_TOL[dtype]
+    torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
+
+
+def test_linear_attention_module_backward_through_k3():
+    """LinearAttention(32) on the card: the forward launches K3 once, and the
+    loss and every gradient match the same module with K3's entry replaced by
+    the plain version (f32, 1e-4: N = 540 sums ctx over far fewer positions
+    than chip_smoke.py's ds3 check, whose K3_GRAD_TOL_F32 states its reasons)."""
+    m = nn_modules.LinearAttention(32, generator=torch.Generator().manual_seed(0)).cuda()
+    x = torch.randn(2, 32, 9, 10, 6, device="cuda", requires_grad=True)
+    grads = []
+    for entry in (tattn.fused_linear_attention, tattn.linear_attention_reference):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(nn_modules, "fused_linear_attention", entry)
+            m.zero_grad(set_to_none=True)
+            x.grad = None
+            before = tattn.fused_linear_attention.launches
+            (m(x) ** 2).mean().backward()
+            launched = tattn.fused_linear_attention.launches - before
+        assert launched == (entry is tattn.fused_linear_attention)
+        grads.append([x.grad] + [p.grad for p in m.parameters()])
+    for a, w in zip(*grads):
+        assert ((a - w).abs().max() / w.abs().max()).item() <= 1e-4
+
+
+def _qkv(B, H, N, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(B, H, N, 32, generator=g).to("cuda", dtype) for _ in range(3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("B,H,N", [(1, 2, 1), (2, 1, 100), (1, 2, 736), (1, 8, 4096),
+                                   (2, 1, 2500)])
+def test_blockwise_attention_kernel_matches_plain(B, H, N, dtype):
+    q, k, v = _qkv(B, H, N, dtype, seed=B + H + N)
+    before = tatt.blockwise_attention.launches
+    got = tatt.blockwise_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert tatt.blockwise_attention.launches == before + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    atol, rtol = K4_TOL[dtype]
+    torch.testing.assert_close(got.float(), tatt.dense_attention(q, k, v).float(),
+                               atol=atol, rtol=rtol)
+
+
+def test_blockwise_attention_dispatch_and_no_backward():
+    """On the card K4 runs at every N, below the JAX entry's dense limit of
+    2048 too, and its backward raises."""
+    for n, seed in ((736, 0), (2049, 1)):
+        q, k, v = (t.requires_grad_(True) for t in _qkv(1, 2, n, torch.float32, seed=seed))
+        before = tatt.blockwise_attention.launches
+        out = tatt.blockwise_attention(q, k, v)
+        assert tatt.blockwise_attention.launches == before + 1
+        with pytest.raises(NotImplementedError, match="forward only"):
+            out.sum().backward()
+
+
+def test_attention_module_on_card_matches_cpu():
+    """Attention(32, heads=4) in f32 on a 45 x 50 x 2 grid (N = 4500: K4 on
+    the card, the dense formulation on the CPU)."""
+    cpu = nn_modules.Attention(32, heads=4, cylindrical=True,
+                               generator=torch.Generator().manual_seed(0))
+    card = nn_modules.Attention(32, heads=4, cylindrical=True).cuda()
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(2, 32, 45, 50, 2, generator=torch.Generator().manual_seed(1))
+    before = tatt.blockwise_attention.launches
+    with torch.no_grad():
+        got, want = card(x.cuda()), cpu(x)
+    assert tatt.blockwise_attention.launches == before + 1
+    torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("shape,groups", [((4, 45, 16, 9, 32), 8), ((4, 23, 8, 4, 64), 8),
+                                          ((2, 5, 4, 3, 96), 8), ((3, 7, 7, 32), 4),
+                                          ((2, 1, 16), 8)])
+def test_groupnorm_silu_kernel_matches_plain(shape, groups, dtype):
+    g = torch.Generator().manual_seed(sum(shape))
+    C = shape[-1]
+    x = (torch.randn(*shape, generator=g) + 0.5).to("cuda", dtype)
+    scale = (1.0 + 0.1 * torch.randn(C, generator=g)).cuda()
+    bias = (0.1 * torch.randn(C, generator=g)).cuda()
+    before = tgn.groupnorm_silu.launches
+    got = tgn.groupnorm_silu(x, scale, bias, groups=groups)
+    torch.cuda.synchronize()
+    assert tgn.groupnorm_silu.launches == before + 1 and got.dtype == dtype
+    atol, rtol = K5_TOL[dtype]
+    torch.testing.assert_close(got.float(), tgn.gn_silu_reference(x, scale, bias, groups).float(),
+                               atol=atol, rtol=rtol)
+
+
+def test_groupnorm_silu_refuses_a_backward():
+    x = torch.randn(2, 40, 32, device="cuda", requires_grad=True)
+    out = tgn.groupnorm_silu(x, torch.ones(32, device="cuda"), torch.zeros(32, device="cuda"))
+    with pytest.raises(NotImplementedError, match="forward only"):
+        out.sum().backward()
