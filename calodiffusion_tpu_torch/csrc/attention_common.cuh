@@ -1,12 +1,12 @@
-// The linear-attention core shared by the attention-block kernels (K1
-// forward, K2 backward) and the attention-alone kernel (K3), and the one
-// (dtype, C) variant a build compiles.
+// The one (dtype, C) variant a build of the linear-attention kernels (K1,
+// K2, K3) compiles, and the linear-attention core of K3 (K1 ran it until its
+// cluster design, linear_attention_block.cu).
 //
 // Each source builds once per variant, -DCALO_BF16=0|1 -DCALO_C=32|64 (the
 // compute dtype and the channel count), so the variants compile in
 // parallel and each library holds one instantiation of its kernel.
 //
-// The core (K1 and K3) runs one block of ATT_THREADS threads per sample,
+// The core runs one block of ATT_THREADS threads per sample,
 // heads = 1, dim_head D = 32:
 //   context_pass  k/v projections of 256-position tiles into shared memory;
 //                 online softmax over N (running max, rescaled sum, tail

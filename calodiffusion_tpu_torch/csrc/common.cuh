@@ -1,5 +1,6 @@
 // Helpers shared by every kernel of csrc/: the compute dtype of the build,
-// dtype conversions, 16-byte row loads and stores, and a block-wide sum.
+// dtype conversions, 16-byte row loads and stores, the tensor-core,
+// ldmatrix and cp.async primitives, and a block-wide sum.
 //
 // Each source builds once per variant; -DCALO_BF16=0|1 picks the compute
 // dtype (bf16 or f32), so the variants compile in parallel and each
@@ -95,6 +96,90 @@ __device__ __forceinline__ void load8(const T* __restrict__ p, float* r) {
 #pragma unroll
   for (int i = 0; i < 8 / PER; ++i) load16(p + i * PER, r + i * PER);
 }
+
+// ---------------------------------------------------------------------------
+// Tensor-core, shared-memory-matrix and asynchronous-copy primitives
+// (sm_90a), one PTX instruction each.  The kernels reach mma.sync, ldmatrix
+// and cp.async only through these, so the tests' CPU emulation
+// (CALO_EMULATION) can supply counterparts that follow the PTX ISA's
+// fragment layouts lane by lane.  m16n8k16 with bf16 inputs, f32 sums;
+// groupID g = lane >> 2, threadID_in_group t = lane & 3:
+//   A (16 x 16, row): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8, 2t+8..)
+//   B (16 x 8, col):  b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g)
+//   C (16 x 8, f32):  c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1)
+// Two bf16 share a 32-bit register, the lower index in the low half.
+// ---------------------------------------------------------------------------
+
+// two floats rounded to bf16, packed (lo in the low half)
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+__device__ __forceinline__ float bf16_lo(unsigned u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned u) { return __uint_as_float(u & 0xffff0000u); }
+
+#if defined(CALO_EMULATION)
+// the emulation header defines emu_ldmatrix, emu_mma_bf16, emu_cp_async16,
+// emu_cp_async_commit, emu_cp_async_wait
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  emu_ldmatrix(r, p, false);
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
+  emu_ldmatrix(r, p, true);
+}
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                               unsigned b1) {
+  emu_mma_bf16(d, a, b0, b1);
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  emu_cp_async16(dst, src, full);
+}
+__device__ __forceinline__ void cp_async_commit() { emu_cp_async_commit(); }
+template <int N> __device__ __forceinline__ void cp_async_wait() { emu_cp_async_wait(N); }
+__device__ __forceinline__ float exp2_approx(float x) { return exp2f(x); }
+#else
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// four 8x8 b16 matrices; lane l gives the address of row l & 7 of matrix
+// l >> 3 (16 bytes), and receives (row l >> 2, columns 2(l & 3)..+1) of each
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+// the same, each matrix transposed: lane l receives (rows 2(l & 3)..+1, column l >> 2)
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+// d += a b, m16n8k16, bf16 inputs, f32 accumulators
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                               unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// 16 bytes global -> shared, asynchronously; zeros when !full (src not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// wait until at most N of this thread's committed groups are in flight
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+// 2^x on the special-function unit (relative error ~2^-22; 0 at -inf)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+#endif
 
 // sum over a block of THREADS threads; every thread gets the total
 template <int THREADS>

@@ -46,20 +46,23 @@ LINEAR_KERNEL = "linear_attention"
 _SUPPORTED_C = (32, 64)
 _PTR = ctypes.c_void_p
 _PTRS = ctypes.POINTER(ctypes.c_void_p)
-# C entry and argument types of each kernel's library
+_INT = ctypes.c_int
+# C entries and argument types of each kernel's library
 _ENTRIES = {
-    FORWARD_KERNEL: ("calo_attention_block_forward",
-                     [_PTR] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float, _PTR]),
-    BACKWARD_KERNEL: ("calo_attention_block_backward",
-                      [_PTR] * 8 + [_PTRS, _PTR, _PTRS] + [ctypes.c_int] * 4
-                      + [ctypes.c_float, _PTR]),
-    LINEAR_KERNEL: ("calo_linear_attention_forward", [_PTR] * 5 + [ctypes.c_int] * 4 + [_PTR]),
+    FORWARD_KERNEL: [("calo_attention_block_forward",
+                      [_PTR] * 10 + [_INT] * 4 + [ctypes.c_float, _INT, _INT, _PTR]),
+                     ("calo_attention_block_plan", [_INT] * 5 + [ctypes.POINTER(_INT)])],
+    BACKWARD_KERNEL: [("calo_attention_block_backward",
+                       [_PTR] * 8 + [_PTRS, _PTR, _PTRS] + [_INT] * 4 + [ctypes.c_float, _PTR])],
+    LINEAR_KERNEL: [("calo_linear_attention_forward", [_PTR] * 5 + [_INT] * 4 + [_PTR])],
 }
 
 
 def bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
-    """Declare the argument and result types of ``lib``'s entry for kernel ``name``."""
-    return cuda_build.bind(lib, *_ENTRIES[name])
+    """Declare the argument and result types of ``lib``'s entries for kernel ``name``."""
+    for entry, argtypes in _ENTRIES[name]:
+        cuda_build.bind(lib, entry, argtypes)
+    return lib
 
 
 def variant(dtype, C: int) -> tuple[str, str]:
@@ -123,22 +126,57 @@ def _check_block(x, gn_pre_scale, gn_pre_bias, w_qkv, w_out, b_out, gn_post_scal
     return B, N, C
 
 
+def forward_plan(lib, N: int, C: int, dtype, cluster: int = 0, smem_limit: int = 0) -> dict:
+    """Where K1 keeps a sample of N positions (``lib``'s plan entry): the
+    cluster size ``G`` (CTAs a sample), the positions ``P`` a CTA holds, and
+    whether x and y stay in shared memory (``x_resident``, ``y_resident``;
+    otherwise device memory) in the ``smem_bytes`` a CTA takes.  ``cluster``
+    0 lets the kernel choose G (the smallest of 1, 2, 4, 8 that holds the
+    sample on chip); ``smem_limit`` 0 is the card's limit a block."""
+    return dict(zip(("G", "P", "x_resident", "y_resident", "smem_bytes"),
+                    _plan(lib, N, C, dtype == torch.bfloat16, cluster, smem_limit)))
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(lib, N, C, is_bf16, cluster, smem_limit) -> tuple:
+    plan = (ctypes.c_int * 5)()
+    rc = lib.calo_attention_block_plan(N, C, int(is_bf16), cluster, smem_limit, plan)
+    if rc != 0:
+        raise RuntimeError(f"{FORWARD_KERNEL} kernel launch failed: no launch plan for N={N}, "
+                           f"C={C}, {'bf16' if is_bf16 else 'f32'}, cluster {cluster} "
+                           f"(CUDA error {rc})")
+    return tuple(plan)
+
+
 def launch_forward(lib, x, gn_pre_scale, gn_pre_bias, w_qkv, w_out, b_out,
-                   gn_post_scale, gn_post_bias, eps: float):
-    """Allocate K1's output and scratch and call ``lib``'s forward entry on
-    checked inputs; returns the block's output."""
+                   gn_post_scale, gn_post_bias, eps: float, cluster: int = 0,
+                   smem_limit: int = 0):
+    """Allocate K1's output (and, where the plan keeps y in device memory,
+    its scratch) and call ``lib``'s forward entry on checked inputs; returns
+    the block's output.  ``cluster`` and ``smem_limit`` as in ``forward_plan``."""
     B, N, C = x.shape
-    y_scr = torch.empty((B, N, C), dtype=torch.float32, device=x.device)
+    plan = forward_plan(lib, N, C, x.dtype, cluster, smem_limit)
+    y_scr = None
+    if not plan["y_resident"]:
+        y_scr = torch.empty((B, plan["G"] * plan["P"] * C), dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     rc = lib.calo_attention_block_forward(
         x.data_ptr(), gn_pre_scale.data_ptr(), gn_pre_bias.data_ptr(),
         w_qkv.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
         gn_post_scale.data_ptr(), gn_post_bias.data_ptr(),
-        y_scr.data_ptr(), out.data_ptr(), B, N, C,
-        int(x.dtype == torch.bfloat16), float(eps), cuda_build.stream_of(x.device),
+        None if y_scr is None else y_scr.data_ptr(), out.data_ptr(), B, N, C,
+        int(x.dtype == torch.bfloat16), float(eps), cluster, smem_limit,
+        cuda_build.stream_of(x.device),
     )
     cuda_build.raise_on(rc, FORWARD_KERNEL, x)
     return out
+
+
+def cluster_plan(x, cluster: int = 0) -> dict:
+    """K1's ``forward_plan`` for a (B, N, C) tensor ``x`` on the card."""
+    lib = _kernel_library(FORWARD_KERNEL, x)
+    with cuda_build.on_device(x):
+        return forward_plan(lib, x.shape[1], x.shape[2], x.dtype, cluster)
 
 
 def launch_backward(lib, x, gn_pre_scale, gn_pre_bias, w_qkv, w_out, b_out,

@@ -11,8 +11,11 @@ prints no result:
             nvcc, all at once, from this checkout; their register/spill lines
 3. kernels  K1 and K2 against their plain PyTorch versions on the card at the
             shapes of the ds2 paths (batch 128), in bf16 and f32, with their
-            times, the plain versions' times and the card's bound:
-            K1 (forward) against attention_block_reference, K2 (backward)
+            times (CUDA events around a call, and for K1 also the device time
+            with the card kept busy while the host launches), the plain
+            versions' times and the card's bound:
+            K1 (forward) against attention_block_reference, with the cluster
+            size it chose and where it kept x and y, K2 (backward)
             against attention_block_backward_reference
 4. main     dataset-2 shower generation at the full width of
             configs/config_dataset2.json (bf16, 400-step DDIM, batch 128)
@@ -34,7 +37,9 @@ prints no result:
             every ds2 (C, N), B = 128, and at dataset 3's full grid (B = 64,
             N = 45*50*18 = 40,500, C = 32); K4 (blockwise softmax attention)
             against dense_attention at (B*H = 8, N = 4096), N = 736,
-            and N = 40,500 with B*H = 4 and 16, beside SDPA's time; K5
+            and N = 40,500 with B*H = 4 and 16, and at (B*H = 8, N = 4096)
+            with q scaled by 8 (a peaked softmax), beside SDPA's time and
+            K4's device time; K5
             (GroupNorm + SiLU) against gn_silu_reference at ds2 levels 0 and
             2 and ds3 level 0.  Then, counts reset just before: a
             LinearAttention(32) forward and backward on the ds3 grid (K3 once;
@@ -131,6 +136,8 @@ DS3_BATCH = 64
 # level 1, below the JAX entry's dense limit of 2048, where the port runs K4
 # too), and the Attention(32, heads=4) call of the variants path at batch 4
 K4_SHAPES = [(1, 8, 4096), (2, 4, 736), (1, 4, DS3_N), (4, 4, DS3_N)]
+# and q scaled by 8 at the first: a peaked softmax, a few keys carry the weight
+K4_PEAKED = (1, 8, 4096)
 ATTENTION_BATCH = 4
 # K5's shapes (channels-last), groups 8: ds2 level 0 and 2, ds3 level 0
 K5_SHAPES = [(BATCH, 45, 16, 9, 32), (BATCH, 23, 8, 4, 64), (DS3_BATCH, *DS3_GRID, 32)]
@@ -175,6 +182,32 @@ def time_ms(fn, warmup: int = 3, reps: int = 20) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+# cycles the card spins before each call that device_ms times (~1 ms at the
+# H100's clocks, longer than the host takes to launch any kernel here)
+SPIN_CYCLES = 2_000_000
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Median device time of one call of ``fn``, without the host's launch:
+    the card first spins (``torch.cuda._sleep``), so the host has enqueued
+    the call before its start event runs.  Where the host takes longer to
+    launch a kernel than the card to run it, ``time_ms`` times the host;
+    this times the kernel."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -248,16 +281,23 @@ def check_attention_kernel(attn):
             err = elementwise_err("fused_attention_block", got, want, K1_TOL[dtype],
                                   f"C={C}, N={N}, {dtype}")
             k_ms = time_ms(lambda: attn.fused_attention_block(*args))
+            d_ms = device_ms(lambda: attn.fused_attention_block(*args))
             p_ms = time_ms(lambda: attn.attention_block_reference(*args))
             b_ms, b_by, _ = attention_bound(BATCH, N, C, dtype)
+            plan = attn.cluster_plan(args[0])
             cases.append(dict(
                 name="fused_attention_block", shape=[BATCH, N, C], dtype=dtype_name(dtype),
-                max_abs_err=err, tol={"atol": atol, "rtol": rtol}, kernel_ms=k_ms, plain_ms=p_ms,
-                bound_ms=b_ms, bound_by=b_by, launches_per_call=DS2_ATTENTION_BLOCKS.count((C, N)),
+                max_abs_err=err, tol={"atol": atol, "rtol": rtol}, kernel_ms=k_ms,
+                device_ms=d_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                launches_per_call=DS2_ATTENTION_BLOCKS.count((C, N)), cluster_plan=plan,
             ))
             print(f"kernel fused_attention_block B={BATCH} N={N} C={C} {cases[-1]['dtype']}: "
-                  f"max_abs_err {err:.3g} (tol {atol} + {rtol} * |plain|), kernel {k_ms:.4f} ms, "
-                  f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+                  f"max_abs_err {err:.3g} (tol {atol} + {rtol} * |plain|), kernel {k_ms:.4f} ms "
+                  f"(device {d_ms:.4f}), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+                  f"cluster G={plan['G']}, "
+                  f"{plan['P']} positions a CTA, x {'on chip' if plan['x_resident'] else 'in HBM'},"
+                  f" y {'on chip' if plan['y_resident'] else 'in HBM'}, "
+                  f"{plan['smem_bytes']} B shared a CTA", flush=True)
     return cases
 
 
@@ -564,9 +604,10 @@ def check_blockwise_kernel(att):
 
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
-        for B, H, N in K4_SHAPES:
+        for (B, H, N), gain in [(shape, 1) for shape in K4_SHAPES] + [(K4_PEAKED, 8)]:
             g = torch.Generator().manual_seed(B + H + N)
             q, k, v = (torch.randn(B, H, N, D, generator=g).cuda().to(dtype) for _ in range(3))
+            q = (q.float() * gain).to(dtype)  # gain 8: a peaked softmax
             before = att.blockwise_attention.launches
             got = att.blockwise_attention(q, k, v)
             torch.cuda.synchronize()
@@ -575,16 +616,19 @@ def check_blockwise_kernel(att):
             rows = dense_rows(B, H, N)
             want = att.dense_attention(q, k, v, q_rows=rows)
             err = elementwise_err("blockwise_attention", got, want, K4_TOL[dtype],
-                                  f"B={B} H={H} N={N} {dtype}")
+                                  f"B={B} H={H} N={N} q x {gain} {dtype}")
             big = N > 8192
             reps = dict(warmup=1, reps=5) if big else {}
             k_ms = time_ms(lambda: att.blockwise_attention_forward(q, k, v), **reps)
+            d_ms = device_ms(lambda: att.blockwise_attention_forward(q, k, v),
+                             reps=3 if big else 10)
             p_ms = time_ms(lambda: att.dense_attention(q, k, v, q_rows=rows), **reps)
             l_ms = time_ms(lambda: sdpa(q, k, v), **reps)
             cases.append(case_line("blockwise_attention", (B, H, N, D), dtype, err,
                                    K4_TOL[dtype], k_ms, p_ms, blockwise_bound(B, H, N, dtype),
-                                   extra=f", SDPA {l_ms:.4f} ms"))
-            cases[-1].update(library_ms=l_ms)
+                                   extra=f", device {d_ms:.4f} ms, SDPA {l_ms:.4f} ms, "
+                                         f"q x {gain}"))
+            cases[-1].update(library_ms=l_ms, q_gain=gain, device_ms=d_ms)
     return cases
 
 
@@ -738,6 +782,7 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("no CUDA device")
+    t_start = time.perf_counter()
     try:
         from calodiffusion_tpu_torch.models import nn_modules
         from calodiffusion_tpu_torch.models.diffusion import CaloDiffusion
@@ -831,6 +876,7 @@ def main() -> None:
             max_abs_err=max(c["max_abs_err"] for c in bf16),
             # times of the 7 launches of one ds2 U-Net call, B=128, bf16
             ms=per_call(cases, "kernel_ms"), plain_ms=per_call(cases, "plain_ms"),
+            device_ms=per_call(cases, "device_ms") if name == "fused_attention_block" else None,
             bound_ms=per_call(cases, "bound_ms"),
             bound_by="bytes" if all(c["bound_by"] == "bytes" for c in bf16) else "operations",
             library_ms=None, launches_per_call=len(DS2_ATTENTION_BLOCKS),
@@ -843,19 +889,22 @@ def main() -> None:
     for name, cases in (("fused_linear_attention", k3_cases), ("blockwise_attention", k4_cases),
                         ("groupnorm_silu", k5_cases)):
         bf16 = [c for c in cases if c["dtype"] == "bfloat16"]
-        on_path = [c for c in bf16 if c["shape"] in path_shapes[name]]
+        on_path = [c for c in bf16 if c["shape"] in path_shapes[name] and c.get("q_gain", 1) == 1]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
             launches=var_launches[name],
             launches_by_path={"generate": 0, "train": 0, "variants": var_launches[name]},
             max_abs_err=max(c["max_abs_err"] for c in bf16),
             ms=sum(c["kernel_ms"] for c in on_path), plain_ms=sum(c["plain_ms"] for c in on_path),
+            device_ms=(sum(c["device_ms"] for c in on_path)
+                       if name == "blockwise_attention" else None),
             bound_ms=sum(c["bound_ms"] for c in on_path),
             bound_by="bytes" if all(c["bound_by"] == "bytes" for c in on_path) else "operations",
             library_ms=(sum(c["library_ms"] for c in on_path)
                         if name == "blockwise_attention" else None),
             path_shapes=path_shapes[name], cases=cases,
         ))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"train": {k: v for k, v in train.items() if k != "steps"},
                       "train_step_losses": [s["loss"] for s in train["steps"]],
                       "train_step_s": [s["s"] for s in train["steps"]],

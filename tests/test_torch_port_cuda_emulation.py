@@ -44,8 +44,12 @@ def _job(module, dtype):
 
 EMULATION_HEADER = r"""
 // CPU emulation of the CUDA subset the attention kernels use: one std::thread
-// per CUDA thread, std::barrier for __syncthreads/__syncwarp, shuffles via a
-// per-warp buffer.  Shared memory is poisoned with NaN.
+// per CUDA thread, std::barrier for __syncthreads/__syncwarp, shuffles,
+// mma.sync and ldmatrix via per-warp buffers, cp.async as copies deferred to
+// their wait, the CTAs of a thread-block cluster run together (cluster.sync
+// a barrier over their threads, map_shared_rank onto the other CTA's
+// buffer).  Shared memory is poisoned with NaN (all-ones bytes: NaN as f32
+// and as bf16).
 #pragma once
 #include <math.h>
 #include <cmath>
@@ -71,6 +75,8 @@ inline thread_local EmuDim threadIdx, blockIdx;
 
 struct uint4 { unsigned x, y, z, w; };
 struct float4 { float x, y, z, w; };
+struct float2 { float x, y; };
+inline float2 make_float2(float a, float b) { return {a, b}; }
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 
@@ -85,19 +91,35 @@ inline __nv_bfloat16 __float2bfloat16(float f) {
   return {uint16_t(u >> 16)};
 }
 inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 h) { return h.v; }
+struct __nv_bfloat162 { __nv_bfloat16 x, y; };
+inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
+  return {__float2bfloat16(a), __float2bfloat16(b)};
+}
 inline float rsqrtf(float v) { return 1.0f / std::sqrt(v); }
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 constexpr int cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 0;
+constexpr int cudaFuncAttributeNonPortableClusterSizeAllowed = 1, cudaErrorInvalidConfiguration = 9;
+constexpr int cudaDevAttrMaxSharedMemoryPerBlockOptin = 97;
 template <class F> int cudaFuncSetAttribute(F, int, int) { return 0; }
 inline int cudaGetLastError() { return 0; }
+inline int cudaGetDevice(int* d) { *d = 0; return 0; }
+inline int cudaDeviceGetAttribute(int* v, int, int) { *v = 232448; return 0; }  // an H100's
 
+struct EmuCluster {
+  std::barrier<>* bar;
+  std::vector<float*> smem;  // each CTA's shared memory, by rank
+};
 struct EmuBlock {
   std::barrier<>* bar;
   std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
   std::vector<float> shfl;
+  std::vector<unsigned> words;     // 32 lanes x 6 words a warp (mma operands)
+  std::vector<const void*> ptrs;   // 32 lanes a warp (ldmatrix row addresses)
   float* smem;
+  EmuCluster* cluster;
+  unsigned rank;
 };
 inline thread_local EmuBlock* emu_block;
 inline void __syncthreads() { emu_block->bar->arrive_and_wait(); }
@@ -112,20 +134,140 @@ inline float __shfl_xor_sync(unsigned, float v, int o) {
   return r;
 }
 
-template <class F> void emu_launch(int grid, int block, size_t smem, F f) {
-  for (int b = 0; b < grid; ++b) {
-    std::vector<float> sm(smem / 4 + 4, NAN);
-    std::barrier<> bar(block);
-    EmuBlock eb;
-    eb.bar = &bar;
-    for (int w = 0; w < block / 32; ++w) eb.warp_bars.emplace_back(new std::barrier<>(32));
-    eb.shfl.assign(block, 0.f);
-    eb.smem = sm.data();
+// ldmatrix .x4 (.trans): lane l gives row l & 7 of matrix l >> 3; each lane
+// gathers its two b16 elements of each matrix from the rows' owners
+inline void emu_ldmatrix(unsigned (&r)[4], const void* p, bool trans) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const void** rows = emu_block->ptrs.data() + w * 32;
+  rows[lane] = p;
+  __syncwarp();
+  for (int i = 0; i < 4; ++i) {
+    r[i] = 0;
+    for (int h = 0; h < 2; ++h) {
+      const int row = trans ? 2 * (lane & 3) + h : lane >> 2;
+      const int col = trans ? lane >> 2 : 2 * (lane & 3) + h;
+      r[i] |= unsigned(static_cast<const uint16_t*>(rows[8 * i + row])[col]) << (16 * h);
+    }
+  }
+  __syncwarp();
+}
+
+// mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32, d += a b: each lane
+// gathers row g (g + 8) of A and column 2t (2t + 1) of B from the lanes
+// that hold them in the PTX ISA's fragment layout
+inline void emu_mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  unsigned* buf = emu_block->words.data() + w * 32 * 6;
+  for (int i = 0; i < 4; ++i) buf[lane * 6 + i] = a[i];
+  buf[lane * 6 + 4] = b0;
+  buf[lane * 6 + 5] = b1;
+  __syncwarp();
+  auto elem = [&](int owner, int reg, int k) {
+    return __uint_as_float((k & 1) ? buf[owner * 6 + reg] & 0xffff0000u : buf[owner * 6 + reg] << 16);
+  };
+  const int g = lane >> 2, t = lane & 3;
+  float out[4];
+  for (int i = 0; i < 4; ++i) {
+    const int row = g + 8 * (i >> 1), col = 2 * t + (i & 1);
+    float acc = d[i];
+    for (int k = 0; k < 16; ++k) {
+      const float av = elem((row & 7) * 4 + (k & 7) / 2, (row >> 3) + 2 * (k >> 3), k);
+      const float bv = elem(col * 4 + (k & 7) / 2, 4 + (k >> 3), k);
+      acc += av * bv;
+    }
+    out[i] = acc;
+  }
+  __syncwarp();
+  for (int i = 0; i < 4; ++i) d[i] = out[i];
+}
+
+// cp.async: a copy is queued and lands when a wait retires its group, so a
+// read before the wait finds the poison
+struct EmuCopy { void* dst; const void* src; bool full; };
+inline thread_local std::vector<EmuCopy> emu_cp_open;
+inline thread_local std::vector<std::vector<EmuCopy>> emu_cp_groups;
+inline void emu_cp_async16(void* dst, const void* src, bool full) { emu_cp_open.push_back({dst, src, full}); }
+inline void emu_cp_async_commit() { emu_cp_groups.push_back(std::move(emu_cp_open)); emu_cp_open.clear(); }
+inline void emu_cp_async_wait(int n) {
+  while (static_cast<int>(emu_cp_groups.size()) > n) {
+    for (const EmuCopy& c : emu_cp_groups.front()) {
+      if (c.full) std::memcpy(c.dst, c.src, 16); else std::memset(c.dst, 0, 16);
+    }
+    emu_cp_groups.erase(emu_cp_groups.begin());
+  }
+}
+
+namespace cooperative_groups {
+struct cluster_group {
+  unsigned block_rank() const { return emu_block->rank; }
+  unsigned num_blocks() const { return static_cast<unsigned>(emu_block->cluster->smem.size()); }
+  void sync() const { emu_block->cluster->bar->arrive_and_wait(); }
+  template <class T> T* map_shared_rank(T* p, unsigned r) const {
+    const std::ptrdiff_t off = reinterpret_cast<char*>(p) - reinterpret_cast<char*>(emu_block->smem);
+    return reinterpret_cast<T*>(reinterpret_cast<char*>(emu_block->cluster->smem[r]) + off);
+  }
+};
+inline cluster_group this_cluster() { return {}; }
+}  // namespace cooperative_groups
+
+// the CTAs of each cluster of `csize` run together, one std::thread a CUDA thread
+template <class F> void emu_launch_cluster(int grid, int block, size_t smem, int csize, F f) {
+  for (int c0 = 0; c0 < grid; c0 += csize) {
+    std::vector<std::vector<float>> sm(csize);
+    std::barrier<> cbar(block * csize);
+    EmuCluster cl;
+    cl.bar = &cbar;
+    std::vector<std::unique_ptr<std::barrier<>>> bars;
+    std::vector<EmuBlock> eb(csize);
+    for (int r = 0; r < csize; ++r) {
+      sm[r].resize(smem / 4 + 4);
+      std::memset(sm[r].data(), 0xff, sm[r].size() * 4);
+      cl.smem.push_back(sm[r].data());
+      bars.emplace_back(new std::barrier<>(block));
+      eb[r].bar = bars.back().get();
+      for (int w = 0; w < block / 32; ++w) eb[r].warp_bars.emplace_back(new std::barrier<>(32));
+      eb[r].shfl.assign(block, 0.f);
+      eb[r].words.assign(block * 6, 0u);
+      eb[r].ptrs.assign(block, nullptr);
+      eb[r].smem = sm[r].data();
+      eb[r].cluster = &cl;
+      eb[r].rank = r;
+    }
     std::vector<std::thread> ts;
-    for (int t = 0; t < block; ++t)
-      ts.emplace_back([&, t] { threadIdx.x = t; blockIdx.x = b; emu_block = &eb; f(); });
+    for (int r = 0; r < csize; ++r)
+      for (int t = 0; t < block; ++t)
+        ts.emplace_back([&, r, t] { threadIdx.x = t; blockIdx.x = c0 + r; emu_block = &eb[r]; f(); });
     for (auto& th : ts) th.join();
   }
+}
+template <class F> void emu_launch(int grid, int block, size_t smem, F f) {
+  emu_launch_cluster(grid, block, smem, 1, f);
+}
+
+struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
+constexpr int cudaLaunchAttributeClusterDimension = 4;
+struct cudaLaunchAttributeValue { struct { unsigned x, y, z; } clusterDim; };
+struct cudaLaunchAttribute { int id; cudaLaunchAttributeValue val; };
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+inline int emu_cluster_size(const cudaLaunchConfig_t* cfg) {
+  for (unsigned i = 0; i < cfg->numAttrs; ++i)
+    if (cfg->attrs[i].id == cudaLaunchAttributeClusterDimension) return cfg->attrs[i].val.clusterDim.x;
+  return 1;
+}
+template <class... P, class... A> int cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*k)(P...), A... args) {
+  emu_launch_cluster(cfg->gridDim.x, cfg->blockDim.x, cfg->dynamicSmemBytes, emu_cluster_size(cfg),
+                     [&] { k(static_cast<P>(args)...); });
+  return 0;
+}
+template <class F> int cudaOccupancyMaxActiveClusters(int* n, F, const cudaLaunchConfig_t* cfg) {
+  *n = emu_cluster_size(cfg) <= 8 ? 1 : 0;
+  return 0;
 }
 """
 
@@ -138,13 +280,14 @@ def _build(out_dir, name, defines):
     src = src.replace("extern __shared__ __align__(16) float smem[];",
                       "float* smem = emu_block->smem;")
     src, n = _LAUNCH.subn(r"emu_launch(\2, \3, \4, [&] { \1(\6); });", src)
-    assert n == 1, f"{name}.cu: expected one kernel launch, found {n}"
+    # one <<<...>>> launch, or a cluster launch through cudaLaunchKernelEx
+    assert n + src.count("cudaLaunchKernelEx(") == 1, f"{name}.cu: expected one kernel launch"
     tag = "_".join(d.replace("=", "") for d in defines)
     cpp, so = out_dir / f"{name}_{tag}.cpp", out_dir / f"{name}_{tag}.so"
     cpp.write_text(src)
     cmd = ["g++", "-std=c++20", "-O1", "-fno-strict-aliasing", "-shared", "-fPIC", "-pthread",
-           f"-I{out_dir}", f"-I{cuda_build.CSRC_DIR}", *(f"-D{d}" for d in defines),
-           "-o", str(so), str(cpp)]
+           f"-I{out_dir}", f"-I{cuda_build.CSRC_DIR}", "-DCALO_EMULATION",
+           *(f"-D{d}" for d in defines), "-o", str(so), str(cpp)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr[-4000:]
     lib = ctypes.CDLL(str(so))
@@ -153,17 +296,96 @@ def _build(out_dir, name, defines):
     return (name, defines), tattn.bind(lib, name)
 
 
-@pytest.fixture(scope="module")
-def libs(tmp_path_factory):
-    """Every (kernel, variant) of the ops modules compiled for the emulation."""
+def _emulation_dir(tmp_path_factory):
+    """A directory holding the emulation header under the CUDA headers' names."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to compile the kernels for the CPU emulation")
     out = tmp_path_factory.mktemp("cuda_emulation")
-    for name in ("cuda_emu.h", "cuda_bf16.h", "cuda_runtime.h"):
+    for name in ("cuda_emu.h", "cuda_bf16.h", "cuda_runtime.h", "cooperative_groups.h"):
         (out / name).write_text(EMULATION_HEADER if name == "cuda_emu.h"
                                 else '#include "cuda_emu.h"\n')
+    return out
+
+
+@pytest.fixture(scope="module")
+def libs(tmp_path_factory):
+    """Every (kernel, variant) of the ops modules compiled for the emulation."""
+    out = _emulation_dir(tmp_path_factory)
     with ThreadPoolExecutor(4) as pool:
         return dict(pool.map(lambda job: _build(out, *job), JOBS))
+
+
+# One warp computes a (16 x 16) (16 x 16) product through common.cuh's
+# mma_bf16_16816 (two n-tiles of 8), its operands loaded either element by
+# element after the PTX ISA's fragment layouts or by ldmatrix (A) and
+# ldmatrix.trans (B) from row-major tiles in shared memory, as the kernels
+# load them.
+TILE_MMA_SOURCE = r"""
+#include "common.cuh"
+using namespace calo;
+extern "C" void tile_mma(const uint16_t* a, const uint16_t* b, float* c, int via_ldmatrix) {
+  emu_launch(1, 32, 2 * 256 * 2, [&] {
+    const int lane = threadIdx.x, g = lane >> 2, t = lane & 3;
+    unsigned af[4], bf[2][2];
+    if (via_ldmatrix) {
+      uint16_t* sa = reinterpret_cast<uint16_t*>(emu_block->smem);
+      uint16_t* sb = sa + 256;
+      for (int i = lane; i < 256; i += 32) { sa[i] = a[i]; sb[i] = b[i]; }
+      __syncwarp();
+      const int row = (lane & 7) + ((lane >> 3) & 1) * 8, col = (lane >> 4) * 8;
+      unsigned r[4];
+      ldmatrix_x4(af, sa + row * 16 + col);
+      ldmatrix_x4_trans(r, sb + row * 16 + col);
+      bf[0][0] = r[0]; bf[0][1] = r[1]; bf[1][0] = r[2]; bf[1][1] = r[3];
+    } else {
+      auto pk = [](uint16_t lo, uint16_t hi) { return unsigned(lo) | (unsigned(hi) << 16); };
+      for (int i = 0; i < 4; ++i) {
+        const int row = g + 8 * (i & 1), col = 2 * t + 8 * (i >> 1);
+        af[i] = pk(a[row * 16 + col], a[row * 16 + col + 1]);
+      }
+      for (int n = 0; n < 2; ++n)
+        for (int j = 0; j < 2; ++j) {
+          const int k = 2 * t + 8 * j, col = n * 8 + g;
+          bf[n][j] = pk(b[k * 16 + col], b[(k + 1) * 16 + col]);
+        }
+    }
+    for (int n = 0; n < 2; ++n) {
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_bf16_16816(d, af, bf[n][0], bf[n][1]);
+      for (int i = 0; i < 4; ++i) c[(g + 8 * (i >> 1)) * 16 + n * 8 + 2 * t + (i & 1)] = d[i];
+    }
+  });
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def tile_mma(tmp_path_factory):
+    out = _emulation_dir(tmp_path_factory)
+    cpp, so = out / "tile_mma.cpp", out / "tile_mma.so"
+    cpp.write_text(TILE_MMA_SOURCE)
+    cmd = ["g++", "-std=c++20", "-O1", "-fno-strict-aliasing", "-shared", "-fPIC", "-pthread",
+           f"-I{out}", f"-I{cuda_build.CSRC_DIR}", "-DCALO_EMULATION", "-DCALO_BF16=1",
+           "-o", str(so), str(cpp)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    fn = ctypes.CDLL(str(so)).tile_mma
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    return fn
+
+
+@pytest.mark.parametrize("via_ldmatrix", [False, True], ids=["fragments", "ldmatrix"])
+def test_emulated_mma_matches_matmul(tile_mma, via_ldmatrix):
+    """The emulated m16n8k16 bf16 mma (and ldmatrix) against torch.matmul on
+    a random tile: the products of bf16 inputs are exact in f32, so only the
+    order of 16 f32 sums differs."""
+    rng = np.random.default_rng(7 + via_ldmatrix)
+    a, b = (torch.from_numpy(rng.standard_normal((16, 16)).astype(np.float32)).bfloat16()
+            for _ in range(2))
+    c = torch.empty(16, 16)
+    tile_mma(a.view(torch.int16).data_ptr(), b.view(torch.int16).data_ptr(), c.data_ptr(),
+             int(via_ldmatrix))
+    torch.testing.assert_close(c, a.float() @ b.float(), atol=1e-5, rtol=1e-6)
 
 
 def _args(B, N, C, dtype, seed):
@@ -218,6 +440,63 @@ def test_backward_kernel_matches_plain(libs, B, N, C, dtype):
         assert err <= K2_TOL[dtype], f"gradient {i}: max-norm relative error {err:.3g}"
 
 
+# (B, N, C, cluster): N split unevenly over G = 2 and 4 CTAs (the last
+# CTA's share short of a whole tile), and G = 4 with an empty CTA (N = 40:
+# 16 positions a CTA)
+CLUSTER_CASES = [(2, 100, 32, 2), (1, 130, 64, 4), (2, 40, 32, 4), (1, 257, 64, 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("B,N,C,cluster", CLUSTER_CASES)
+def test_forward_kernel_cluster_matches_plain(libs, B, N, C, cluster, dtype):
+    """K1 with its sample split over a cluster of G CTAs, merged over the
+    emulated distributed shared memory."""
+    args = _args(B, N, C, dtype, seed=B + N + C + cluster)
+    lib = libs[(tattn.FORWARD_KERNEL, tattn.variant(dtype, C))]
+    plan = tattn.forward_plan(lib, N, C, dtype, cluster)
+    assert plan["G"] == cluster and plan["x_resident"] and plan["y_resident"]
+    got = tattn.launch_forward(lib, *args, 1e-5, cluster=cluster)
+    want = tattn.attention_block_reference(*args)
+    atol, rtol = K1_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("resident", ["x", "none"])
+def test_forward_kernel_off_chip_plans_match_plain(libs, resident, dtype):
+    """Where a sample does not fit the cluster's shared memory (a smaller
+    limit stands in for a large N here), y and then x too live in device
+    memory: the same code on other pointers."""
+    B, N, C, cluster = 1, 1400, 32, 2
+    lib = libs[(tattn.FORWARD_KERNEL, tattn.variant(dtype, C))]
+    limit = tattn.forward_plan(lib, N, C, dtype, cluster)["smem_bytes"] - 16
+    if resident == "none":
+        limit = tattn.forward_plan(lib, N, C, dtype, cluster, smem_limit=limit)["smem_bytes"] - 16
+    plan = tattn.forward_plan(lib, N, C, dtype, cluster, smem_limit=limit)
+    assert (plan["x_resident"], plan["y_resident"]) == (resident == "x", False)
+    args = _args(B, N, C, dtype, seed=N + len(resident))
+    got = tattn.launch_forward(lib, *args, 1e-5, cluster=cluster, smem_limit=limit)
+    want = tattn.attention_block_reference(*args)
+    atol, rtol = K1_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+def test_forward_plan_picks_the_smallest_cluster_that_holds_a_sample(libs):
+    """Against a limit of 227 KB a block: ds2's three N in bf16 and f32."""
+    for dtype, C, N, G, resident in ((torch.bfloat16, 32, 6480, 8, True),
+                                     (torch.bfloat16, 64, 736, 2, True),
+                                     (torch.bfloat16, 32, 736, 1, True),
+                                     (torch.bfloat16, 64, 96, 1, True),
+                                     (torch.float32, 32, 6480, 8, False),
+                                     (torch.float32, 64, 736, 4, True),
+                                     (torch.bfloat16, 32, 40500, 8, False)):
+        plan = tattn.forward_plan(libs[(tattn.FORWARD_KERNEL, tattn.variant(dtype, C))],
+                                  N, C, dtype)
+        assert (plan["G"], plan["y_resident"]) == (G, resident), (dtype, C, N, plan)
+        assert plan["P"] % 16 == 0 and plan["G"] * plan["P"] >= N
+        assert plan["smem_bytes"] <= 232448
+
+
 def test_a_library_refuses_another_variant(libs):
     """Each library holds one (dtype, C) instantiation and returns an error
     for any other, which the wrapper raises."""
@@ -247,7 +526,7 @@ def _qkv(B, H, N, dtype, seed):
 
 # one key; under one query tile of 128 and one key tile of 64; both ragged
 # over two query tiles; several (b, h)
-ATTN_SHAPES = [(1, 2, 1), (2, 1, 100), (1, 1, 200), (2, 2, 130)]
+ATTN_SHAPES = [(1, 2, 1), (2, 1, 100), (1, 1, 200), (2, 2, 130), (1, 1, 13)]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
@@ -257,6 +536,19 @@ def test_blockwise_attention_kernel_matches_plain(libs, B, H, N, dtype):
     got = tatt.launch(libs[_job(tatt, dtype)], q, k, v)
     want = tatt.dense_attention(q, k, v)
     assert got.dtype == dtype
+    atol, rtol = K4_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("B,H,N", [(1, 1, 13), (1, 2, 200), (2, 1, 130)])
+def test_blockwise_attention_kernel_peaked_matches_plain(libs, B, H, N, dtype):
+    """q scaled by 8: a peaked softmax, where a few keys carry most of the
+    weight and one bf16 rounding of P would show."""
+    q, k, v = _qkv(B, H, N, dtype, seed=B + H + N + 1)
+    q = (q.float() * 8).to(dtype)
+    got = tatt.launch(libs[_job(tatt, dtype)], q, k, v)
+    want = tatt.dense_attention(q, k, v)
     atol, rtol = K4_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 

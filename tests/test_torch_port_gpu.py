@@ -69,6 +69,32 @@ def test_attention_block_kernel_matches_plain(B, N, C, dtype):
     torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("C,N", [(32, 6480), (64, 736), (32, 736), (32, 96), (64, 96)])
+@pytest.mark.parametrize("cluster", [1, 8])
+def test_attention_block_kernel_at_forced_cluster_sizes(C, N, cluster, dtype):
+    """K1 with its cluster size forced to 1 (one CTA a sample, x and y off
+    chip where they do not fit) and to the largest, 8 (the merge over
+    distributed shared memory, empty CTAs at N = 96), at every ds2 (C, N)."""
+    args = _block_args(4, N, C, dtype, seed=N + C + cluster)
+    plan = tattn.cluster_plan(args[0], cluster)
+    assert plan["G"] == cluster
+    lib = tattn._kernel_library(tattn.FORWARD_KERNEL, args[0])
+    got = tattn.launch_forward(lib, *args, 1e-5, cluster=cluster)
+    torch.cuda.synchronize()
+    want = tattn.attention_block_reference(*args).float()
+    atol, rtol = K1_TOL[dtype]
+    torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
+
+
+def test_attention_block_keeps_ds2_samples_on_chip():
+    """At ds2's shapes the bf16 kernel holds each sample's x and y in its
+    cluster's shared memory: no device scratch."""
+    for C, N, G in ((32, 6480, 8), (64, 736, 2), (32, 736, 1), (32, 96, 1), (64, 96, 1)):
+        plan = tattn.cluster_plan(torch.empty(1, N, C, device="cuda", dtype=torch.bfloat16))
+        assert (plan["G"], plan["x_resident"], plan["y_resident"]) == (G, 1, 1), (C, N, plan)
+
+
 def test_attention_block_kernel_rejects_what_it_does_not_take():
     x, *rest = _block_args(2, 64, 32, torch.float32, seed=0)
     with pytest.raises(ValueError, match="contiguous"):
@@ -188,7 +214,8 @@ def test_linear_attention_module_backward_through_k3():
     the plain version (f32, 1e-4: N = 540 sums ctx over far fewer positions
     than chip_smoke.py's ds3 check, whose K3_GRAD_TOL_F32 states its reasons)."""
     m = nn_modules.LinearAttention(32, generator=torch.Generator().manual_seed(0)).cuda()
-    x = torch.randn(2, 32, 9, 10, 6, device="cuda", requires_grad=True)
+    x = torch.randn(2, 32, 9, 10, 6, generator=torch.Generator().manual_seed(1))
+    x = x.cuda().requires_grad_(True)
     grads = []
     for entry in (tattn.fused_linear_attention, tattn.linear_attention_reference):
         with pytest.MonkeyPatch.context() as mp:
@@ -219,6 +246,21 @@ def test_blockwise_attention_kernel_matches_plain(B, H, N, dtype):
     torch.cuda.synchronize()
     assert tatt.blockwise_attention.launches == before + 1
     assert got.shape == q.shape and got.dtype == dtype
+    atol, rtol = K4_TOL[dtype]
+    torch.testing.assert_close(got.float(), tatt.dense_attention(q, k, v).float(),
+                               atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("B,H,N", [(1, 1, 13), (1, 2, 4097), (1, 8, 4096)])
+@pytest.mark.parametrize("q_gain", [1, 8])
+def test_blockwise_attention_kernel_ragged_and_peaked(B, H, N, q_gain, dtype):
+    """N under one 16-key step and one past a 64-key tile; q scaled by 8, a
+    peaked softmax where a few keys carry the weight."""
+    q, k, v = _qkv(B, H, N, dtype, seed=B + H + N + q_gain)
+    q = (q.float() * q_gain).to(dtype)
+    got = tatt.blockwise_attention(q, k, v)
+    torch.cuda.synchronize()
     atol, rtol = K4_TOL[dtype]
     torch.testing.assert_close(got.float(), tatt.dense_attention(q, k, v).float(),
                                atol=atol, rtol=rtol)
