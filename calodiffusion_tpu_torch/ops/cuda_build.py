@@ -2,8 +2,8 @@
 
 Each source compiles with ``nvcc`` for ``sm_90a`` into a plain-C shared
 library, loaded with ``ctypes``.  The library lands in ``_build/`` beside
-this package (listed in ``.gitignore``), named after a hash of the source,
-the shared headers of ``csrc/`` and the flags, so an edited source builds
+this package (listed in ``.gitignore``), named after a hash of every
+source and header of ``csrc/`` and the flags, so an edited source builds
 anew and an unchanged one loads at once.  The compiler's
 register/shared-memory report (``-Xptxas -v``) is kept beside the library
 as ``<name>.log``.  ``build_all`` runs one ``nvcc`` per source, all at once.
@@ -52,11 +52,11 @@ def _nvcc() -> str:
 
 def library_path(name: str, defines: tuple[str, ...] = ()) -> Path:
     """Where the build of ``csrc/<name>.cu`` with the macros ``defines``
-    (``"NAME=value"``) goes, keyed on the sources, the macros and the flags."""
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
-    flags = " ".join((*NVCC_FLAGS, *defines)).encode()
-    digest = hashlib.sha256(src + headers + flags).hexdigest()
+    (``"NAME=value"``) goes, keyed on csrc's sources, the macros and the flags."""
+    # every source of csrc/: a source may include another (K3 includes K1's)
+    sources = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cu*")))
+    flags = " ".join((*NVCC_FLAGS, name, *defines)).encode()
+    digest = hashlib.sha256(sources + flags).hexdigest()
     tag = "".join(f"-{d.replace('=', '')}" for d in defines)
     return BUILD_DIR / f"{name}{tag}-{digest[:16]}.so"
 

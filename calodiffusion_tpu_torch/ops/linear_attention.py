@@ -10,8 +10,18 @@ signatures and ``(B, N, C)`` layout):
   through ``fused_attention_block``;
 - K2, the block's backward (``_block_bwd_kernel``):
   ``csrc/linear_attention_block_bwd.cu``, through ``attention_block_backward``;
-- K3, LinearAttention alone (``_kernel``): ``csrc/linear_attention.cu``,
-  through ``fused_linear_attention``.
+- K3, LinearAttention alone (``_kernel``): ``csrc/linear_attention.cu``, which
+  is K1's source built without its GroupNorms and residual, through
+  ``fused_linear_attention``.
+
+All three spread a sample over a thread-block cluster of G CTAs (up to 8
+for K1 and K3, 16 for K2), keep its share on chip, run their products on
+the tensor cores in bf16 and merge every sum over the cluster in rank
+order.  Each library's plan entry picks G and what stays in shared memory
+from the sizes alone (``kernel_plan``); where no G holds a sample, part of
+it lives in a device scratch from the wrapper or is re-read from device
+memory.  ``cluster`` and ``smem_limit`` force a G or a smaller shared
+memory (the tests reach the merges and the off-chip plans that way).
 
 On a CUDA tensor each entry is a ``torch.autograd.Function``: the block's
 forward launches K1 and its backward K2; LinearAttention's forward launches
@@ -27,7 +37,8 @@ Bound on the card: device-memory bytes.  The block's forward and K3 read x
 once and write their output once (2 * B * N * C elements), the backward
 reads x and g once and writes dx once (3 * B * N * C); their matrix
 products are a few thousand FLOPs per position, far below the tensor
-cores' rate per byte.  See the sources for the kernels' designs.
+cores' rate per byte.  See the sources for the kernels' designs and their
+times on the card.
 """
 
 from __future__ import annotations
@@ -53,8 +64,22 @@ _ENTRIES = {
                       [_PTR] * 10 + [_INT] * 4 + [ctypes.c_float, _INT, _INT, _PTR]),
                      ("calo_attention_block_plan", [_INT] * 5 + [ctypes.POINTER(_INT)])],
     BACKWARD_KERNEL: [("calo_attention_block_backward",
-                       [_PTR] * 8 + [_PTRS, _PTR, _PTRS] + [_INT] * 4 + [ctypes.c_float, _PTR])],
-    LINEAR_KERNEL: [("calo_linear_attention_forward", [_PTR] * 5 + [_INT] * 4 + [_PTR])],
+                       [_PTR] * 8 + [_PTRS, _PTR, _PTRS] + [_INT] * 4
+                       + [ctypes.c_float, _INT, _INT, _PTR]),
+                      ("calo_attention_block_backward_plan",
+                       [_INT] * 5 + [ctypes.POINTER(_INT)])],
+    LINEAR_KERNEL: [("calo_linear_attention_forward", [_PTR] * 5 + [_INT] * 6 + [_PTR]),
+                    ("calo_linear_attention_plan", [_INT] * 5 + [ctypes.POINTER(_INT)])],
+}
+# each kernel's plan entry and the names of what it returns
+_PLANS = {
+    FORWARD_KERNEL: ("calo_attention_block_plan",
+                     ("G", "P", "x_resident", "y_resident", "smem_bytes")),
+    BACKWARD_KERNEL: ("calo_attention_block_backward_plan",
+                      ("G", "P", "x_resident", "g_resident", "y_resident", "dxn_resident",
+                       "smem_bytes")),
+    LINEAR_KERNEL: ("calo_linear_attention_plan",
+                    ("G", "P", "x_resident", "y_resident", "smem_bytes")),
 }
 
 
@@ -126,24 +151,27 @@ def _check_block(x, gn_pre_scale, gn_pre_bias, w_qkv, w_out, b_out, gn_post_scal
     return B, N, C
 
 
-def forward_plan(lib, N: int, C: int, dtype, cluster: int = 0, smem_limit: int = 0) -> dict:
-    """Where K1 keeps a sample of N positions (``lib``'s plan entry): the
-    cluster size ``G`` (CTAs a sample), the positions ``P`` a CTA holds, and
-    whether x and y stay in shared memory (``x_resident``, ``y_resident``;
-    otherwise device memory) in the ``smem_bytes`` a CTA takes.  ``cluster``
-    0 lets the kernel choose G (the smallest of 1, 2, 4, 8 that holds the
-    sample on chip); ``smem_limit`` 0 is the card's limit a block."""
-    return dict(zip(("G", "P", "x_resident", "y_resident", "smem_bytes"),
-                    _plan(lib, N, C, dtype == torch.bfloat16, cluster, smem_limit)))
+def kernel_plan(lib, name: str, N: int, C: int, dtype, cluster: int = 0,
+                smem_limit: int = 0) -> dict:
+    """Where kernel ``name`` (K1, K2 or K3; ``lib``'s plan entry) keeps a
+    sample of N positions: the cluster size ``G`` (CTAs a sample), the
+    positions ``P`` a CTA holds, which of its tensors stay in shared memory
+    (``*_resident``; otherwise device memory) and the ``smem_bytes`` a CTA
+    takes.  ``cluster`` 0 lets the kernel choose G (the smallest that holds
+    the sample on chip: of 1, 2, 4, 8 for K1 and K3, up to 16 for K2);
+    ``smem_limit`` 0 is the card's limit a block."""
+    entry, keys = _PLANS[name]
+    return dict(zip(keys, _plan(lib, entry, len(keys), N, C, dtype == torch.bfloat16, cluster,
+                                smem_limit)))
 
 
 @functools.lru_cache(maxsize=256)
-def _plan(lib, N, C, is_bf16, cluster, smem_limit) -> tuple:
-    plan = (ctypes.c_int * 5)()
-    rc = lib.calo_attention_block_plan(N, C, int(is_bf16), cluster, smem_limit, plan)
+def _plan(lib, entry, n, N, C, is_bf16, cluster, smem_limit) -> tuple:
+    plan = (ctypes.c_int * n)()
+    rc = getattr(lib, entry)(N, C, int(is_bf16), cluster, smem_limit, plan)
     if rc != 0:
-        raise RuntimeError(f"{FORWARD_KERNEL} kernel launch failed: no launch plan for N={N}, "
-                           f"C={C}, {'bf16' if is_bf16 else 'f32'}, cluster {cluster} "
+        raise RuntimeError(f"kernel launch failed: {entry} has no launch plan for N={N}, C={C}, "
+                           f"{'bf16' if is_bf16 else 'f32'}, cluster {cluster} "
                            f"(CUDA error {rc})")
     return tuple(plan)
 
@@ -153,9 +181,9 @@ def launch_forward(lib, x, gn_pre_scale, gn_pre_bias, w_qkv, w_out, b_out,
                    smem_limit: int = 0):
     """Allocate K1's output (and, where the plan keeps y in device memory,
     its scratch) and call ``lib``'s forward entry on checked inputs; returns
-    the block's output.  ``cluster`` and ``smem_limit`` as in ``forward_plan``."""
+    the block's output.  ``cluster`` and ``smem_limit`` as in ``kernel_plan``."""
     B, N, C = x.shape
-    plan = forward_plan(lib, N, C, x.dtype, cluster, smem_limit)
+    plan = kernel_plan(lib, FORWARD_KERNEL, N, C, x.dtype, cluster, smem_limit)
     y_scr = None
     if not plan["y_resident"]:
         y_scr = torch.empty((B, plan["G"] * plan["P"] * C), dtype=torch.float32, device=x.device)
@@ -172,37 +200,43 @@ def launch_forward(lib, x, gn_pre_scale, gn_pre_bias, w_qkv, w_out, b_out,
     return out
 
 
-def cluster_plan(x, cluster: int = 0) -> dict:
-    """K1's ``forward_plan`` for a (B, N, C) tensor ``x`` on the card."""
-    lib = _kernel_library(FORWARD_KERNEL, x)
+def cluster_plan(x, cluster: int = 0, name: str = FORWARD_KERNEL) -> dict:
+    """The ``kernel_plan`` of kernel ``name`` (K1 by default) for a
+    (B, N, C) tensor ``x`` on the card."""
+    lib = _kernel_library(name, x)
     with cuda_build.on_device(x):
-        return forward_plan(lib, x.shape[1], x.shape[2], x.dtype, cluster)
+        return kernel_plan(lib, name, x.shape[1], x.shape[2], x.dtype, cluster)
 
 
 def launch_backward(lib, x, gn_pre_scale, gn_pre_bias, w_qkv, w_out, b_out,
-                    gn_post_scale, g, eps: float):
-    """Allocate K2's outputs and scratch and call ``lib``'s backward entry on
-    checked inputs; sums the per-sample weight gradients over the batch, as
-    the Pallas wrapper does (pallas_linear_attention.py:741-752), and
-    returns (dx, d gn_pre_scale, d gn_pre_bias, d w_qkv, d w_out, d b_out,
-    d gn_post_scale, d gn_post_bias) in their inputs' dtypes."""
+                    gn_post_scale, g, eps: float, cluster: int = 0, smem_limit: int = 0):
+    """Allocate K2's outputs (and, where the plan keeps y or dxn in device
+    memory, their scratch) and call ``lib``'s backward entry on checked
+    inputs; sums the per-sample weight gradients over the batch, as the
+    Pallas wrapper does (pallas_linear_attention.py:741-752), and returns
+    (dx, d gn_pre_scale, d gn_pre_bias, d w_qkv, d w_out, d b_out,
+    d gn_post_scale, d gn_post_bias) in their inputs' dtypes.  ``cluster``
+    and ``smem_limit`` as in ``kernel_plan``."""
     B, N, C = x.shape
     D = DIM_HEAD
     dev, f32 = x.device, torch.float32
-    scratch = [torch.empty(shape, dtype=f32, device=dev)
-               for shape in ((B, N, C), (B, N, C), (B, N, D), (B, N, D), (B, N, D))]
+    plan = kernel_plan(lib, BACKWARD_KERNEL, N, C, x.dtype, cluster, smem_limit)
+    scratch = [None if plan[f"{name}_resident"] else
+               torch.empty((B, plan["G"] * plan["P"] * C), dtype=f32, device=dev)
+               for name in ("y", "dxn")]
     dx = torch.empty_like(x)
     dg1, db1, dbo, dg2, db2 = (torch.empty((B, C), dtype=f32, device=dev) for _ in range(5))
     dwq, dwk, dwv = (torch.empty((B, C, D), dtype=f32, device=dev) for _ in range(3))
     dwo = torch.empty((B, D, C), dtype=f32, device=dev)
     grads = (dg1, db1, dwq, dwk, dwv, dwo, dbo, dg2, db2)
-    scratch_ptrs = (ctypes.c_void_p * 5)(*(t.data_ptr() for t in scratch))
+    scratch_ptrs = (ctypes.c_void_p * 2)(*(None if t is None else t.data_ptr() for t in scratch))
     grad_ptrs = (ctypes.c_void_p * 9)(*(t.data_ptr() for t in grads))
     rc = lib.calo_attention_block_backward(
         x.data_ptr(), g.data_ptr(), gn_pre_scale.data_ptr(), gn_pre_bias.data_ptr(),
         w_qkv.data_ptr(), w_out.data_ptr(), b_out.data_ptr(), gn_post_scale.data_ptr(),
         scratch_ptrs, dx.data_ptr(), grad_ptrs, B, N, C,
-        int(x.dtype == torch.bfloat16), float(eps), cuda_build.stream_of(dev),
+        int(x.dtype == torch.bfloat16), float(eps), cluster, smem_limit,
+        cuda_build.stream_of(dev),
     )
     cuda_build.raise_on(rc, BACKWARD_KERNEL, x)
     d_w_qkv = torch.cat([dwq.sum(0), dwk.sum(0), dwv.sum(0)], dim=1).to(w_qkv.dtype)
@@ -296,13 +330,15 @@ def fused_attention_block(x, gn_pre_scale, gn_pre_bias, w_qkv, w_out, b_out,
 fused_attention_block.launches = 0  # forward kernel launches since the last reset
 
 
-def launch_linear(lib, x, w_qkv, w_out, b_out):
-    """Allocate K3's output and call ``lib``'s entry on checked inputs."""
+def launch_linear(lib, x, w_qkv, w_out, b_out, cluster: int = 0, smem_limit: int = 0):
+    """Allocate K3's output and call ``lib``'s entry on checked inputs;
+    ``cluster`` and ``smem_limit`` as in ``kernel_plan``."""
     B, N, C = x.shape
     out = torch.empty_like(x)
     rc = lib.calo_linear_attention_forward(
         x.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(), b_out.data_ptr(), out.data_ptr(),
-        B, N, C, int(x.dtype == torch.bfloat16), cuda_build.stream_of(x.device),
+        B, N, C, int(x.dtype == torch.bfloat16), cluster, smem_limit,
+        cuda_build.stream_of(x.device),
     )
     cuda_build.raise_on(rc, LINEAR_KERNEL, x)
     return out

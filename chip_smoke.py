@@ -11,12 +11,12 @@ prints no result:
             nvcc, all at once, from this checkout; their register/spill lines
 3. kernels  K1 and K2 against their plain PyTorch versions on the card at the
             shapes of the ds2 paths (batch 128), in bf16 and f32, with their
-            times (CUDA events around a call, and for K1 also the device time
-            with the card kept busy while the host launches), the plain
-            versions' times and the card's bound:
-            K1 (forward) against attention_block_reference, with the cluster
-            size it chose and where it kept x and y, K2 (backward)
-            against attention_block_backward_reference
+            times (CUDA events around a call, and the device time with the
+            card kept busy while the host launches), the plain versions'
+            times and the card's bound: K1 (forward) against
+            attention_block_reference, K2 (backward) against
+            attention_block_backward_reference, each with the cluster size it
+            chose and which of its tensors it kept on chip
 4. main     dataset-2 shower generation at the full width of
             configs/config_dataset2.json (bf16, 400-step DDIM, batch 128)
             through CaloDiffusion.generate, from seeded random weights; the
@@ -35,8 +35,9 @@ prints no result:
 6. variants the entries that run the other three kernels, in bf16 and f32:
             K3 (LinearAttention alone) against linear_attention_reference at
             every ds2 (C, N), B = 128, and at dataset 3's full grid (B = 64,
-            N = 45*50*18 = 40,500, C = 32); K4 (blockwise softmax attention)
-            against dense_attention at (B*H = 8, N = 4096), N = 736,
+            N = 45*50*18 = 40,500, C = 32), with its device time and plan;
+            K4 (blockwise softmax attention) against dense_attention at
+            (B*H = 8, N = 4096), N = 736,
             and N = 40,500 with B*H = 4 and 16, and at (B*H = 8, N = 4096)
             with q scaled by 8 (a peaked softmax), beside SDPA's time and
             K4's device time; K5
@@ -294,11 +295,16 @@ def check_attention_kernel(attn):
             print(f"kernel fused_attention_block B={BATCH} N={N} C={C} {cases[-1]['dtype']}: "
                   f"max_abs_err {err:.3g} (tol {atol} + {rtol} * |plain|), kernel {k_ms:.4f} ms "
                   f"(device {d_ms:.4f}), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
-                  f"cluster G={plan['G']}, "
-                  f"{plan['P']} positions a CTA, x {'on chip' if plan['x_resident'] else 'in HBM'},"
-                  f" y {'on chip' if plan['y_resident'] else 'in HBM'}, "
-                  f"{plan['smem_bytes']} B shared a CTA", flush=True)
+                  f"{plan_text(plan)}", flush=True)
     return cases
+
+
+def plan_text(plan) -> str:
+    """A kernel's cluster plan: G, positions a CTA, where each tensor lives."""
+    where = ", ".join(f"{k.removesuffix('_resident')} {'on chip' if v else 'in HBM'}"
+                      for k, v in plan.items() if k.endswith("_resident"))
+    return (f"cluster G={plan['G']}, {plan['P']} positions a CTA, {where}, "
+            f"{plan['smem_bytes']} B shared a CTA")
 
 
 GRAD_NAMES = ("dx", "d_gn_pre_scale", "d_gn_pre_bias", "d_w_qkv", "d_w_out", "d_b_out",
@@ -329,18 +335,20 @@ def check_backward_kernel(attn):
                      f"{K2_TOL[dtype]}")
             abs_dx = (got[0].float() - want[0].float()).abs().max().item()
             k_ms = time_ms(lambda: attn.attention_block_backward(*args, g))
+            d_ms = device_ms(lambda: attn.attention_block_backward(*args, g))
             p_ms = time_ms(lambda: attn.attention_block_backward_reference(*args, g))
             b_ms, b_by, _ = backward_bound(BATCH, N, C, dtype)
+            plan = attn.cluster_plan(args[0], name=attn.BACKWARD_KERNEL)
             cases.append(dict(
                 name="attention_block_backward", shape=[BATCH, N, C], dtype=dtype_name(dtype),
                 max_abs_err=abs_dx, max_norm_rel_err=rel, tol_max_norm_rel=K2_TOL[dtype],
-                kernel_ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                launches_per_call=DS2_ATTENTION_BLOCKS.count((C, N)),
+                kernel_ms=k_ms, device_ms=d_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                launches_per_call=DS2_ATTENTION_BLOCKS.count((C, N)), cluster_plan=plan,
             ))
             print(f"kernel attention_block_backward B={BATCH} N={N} C={C} {cases[-1]['dtype']}: "
                   f"max-norm rel err {rel[worst]:.3g} ({worst}; tol {K2_TOL[dtype]}), dx "
-                  f"max_abs_err {abs_dx:.3g}, kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-                  f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+                  f"max_abs_err {abs_dx:.3g}, kernel {k_ms:.4f} ms (device {d_ms:.4f}), plain "
+                  f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); {plan_text(plan)}", flush=True)
     return cases
 
 
@@ -579,9 +587,13 @@ def check_linear_kernel(la):
             err = elementwise_err("fused_linear_attention", got, want, K3_TOL[dtype],
                                   f"B={B} N={N} C={C} {dtype}")
             k_ms = time_ms(lambda: la.linear_attention_forward(*args))
+            d_ms = device_ms(lambda: la.linear_attention_forward(*args))
             p_ms = time_ms(lambda: la.linear_attention_reference(*args))
+            plan = la.cluster_plan(args[0], name=la.LINEAR_KERNEL)
             cases.append(case_line("fused_linear_attention", (B, N, C), dtype, err,
-                                   K3_TOL[dtype], k_ms, p_ms, linear_bound(B, N, C, dtype)))
+                                   K3_TOL[dtype], k_ms, p_ms, linear_bound(B, N, C, dtype),
+                                   extra=f", device {d_ms:.4f} ms; {plan_text(plan)}"))
+            cases[-1].update(device_ms=d_ms, cluster_plan=plan)
     return cases
 
 
@@ -876,7 +888,7 @@ def main() -> None:
             max_abs_err=max(c["max_abs_err"] for c in bf16),
             # times of the 7 launches of one ds2 U-Net call, B=128, bf16
             ms=per_call(cases, "kernel_ms"), plain_ms=per_call(cases, "plain_ms"),
-            device_ms=per_call(cases, "device_ms") if name == "fused_attention_block" else None,
+            device_ms=per_call(cases, "device_ms"),
             bound_ms=per_call(cases, "bound_ms"),
             bound_by="bytes" if all(c["bound_by"] == "bytes" for c in bf16) else "operations",
             library_ms=None, launches_per_call=len(DS2_ATTENTION_BLOCKS),
@@ -897,7 +909,7 @@ def main() -> None:
             max_abs_err=max(c["max_abs_err"] for c in bf16),
             ms=sum(c["kernel_ms"] for c in on_path), plain_ms=sum(c["plain_ms"] for c in on_path),
             device_ms=(sum(c["device_ms"] for c in on_path)
-                       if name == "blockwise_attention" else None),
+                       if name != "groupnorm_silu" else None),
             bound_ms=sum(c["bound_ms"] for c in on_path),
             bound_by="bytes" if all(c["bound_by"] == "bytes" for c in on_path) else "operations",
             library_ms=(sum(c["library_ms"] for c in on_path)

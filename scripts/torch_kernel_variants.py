@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Design variants of the K4 and K1 kernels, timed on one CUDA card.
+"""Design variants of the K4, K1 and K2 kernels, timed on one CUDA card.
 
     python3 scripts/torch_kernel_variants.py [--out FILE]
 
@@ -17,6 +17,14 @@ and whether it stays within the kernel's tolerance of its plain version.
   built, and with 8 warps a CTA at C = 32; then the as-built kernel with a
   timestamp (%globaltimer) at each phase's end in thread 0 of every CTA:
   the median CTA's phases and how many CTAs ran at once.
+- K2 (the attention block's backward) at the ds2 shapes, batch 128: as
+  built (8 warps a CTA), with 16 warps, and as built at a forced cluster
+  size of 4, 8 and 16; then stamped as K1, at (6480, 32).
+- With ``--baseline DIR`` (another checkout of the repository, such as the
+  parent commit, whose K2 and K3 take the C signatures they had before
+  their cluster designs): that checkout's K2 at the ds2 shapes and K3 at
+  the ds2 shapes and dataset 3's (64, 40,500, 32), bf16, beside this
+  checkout's, each by its device time in one trace.
 """
 
 from __future__ import annotations
@@ -38,7 +46,7 @@ sys.path.insert(0, str(ROOT))
 from calodiffusion_tpu_torch.ops import attention as att  # noqa: E402
 from calodiffusion_tpu_torch.ops import cuda_build  # noqa: E402
 from calodiffusion_tpu_torch.ops import linear_attention as la  # noqa: E402
-from calodiffusion_tpu_torch.ops.tolerances import K1_TOL, K4_TOL  # noqa: E402
+from calodiffusion_tpu_torch.ops.tolerances import K1_TOL, K2_TOL, K4_TOL  # noqa: E402
 
 OUT_DIR = cuda_build.BUILD_DIR / "variants"
 K4_SHAPES = [(4, 4, 40500), (1, 8, 4096), (2, 4, 736)]
@@ -55,36 +63,56 @@ K4_VARIANTS = {
     "keys_128": [("constexpr int BK = 64; ", "constexpr int BK = 128;")],
 }
 
-# thread 0 of each CTA stamps the end of each phase
+# thread 0 of each CTA stamps the end of each phase (up to 16 stamps a CTA)
+STAMPS = 16
 _STAMP = ("#define STAMP(i) if (threadIdx.x == 0) { unsigned long long t_; "
           "asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t_)); "
-          "g_stamps[blockIdx.x * 8 + (i)] = t_; }\n")
-TRACE = [
-    ("namespace cg = cooperative_groups;\n",
-     "namespace cg = cooperative_groups;\n__device__ unsigned long long g_stamps[1 << 16];\n" + _STAMP
-     + "extern \"C\" int calo_read_stamps(void* dst) {\n"
-       "  return (int)cudaMemcpyFromSymbol(dst, g_stamps, sizeof(g_stamps));\n}\n"),
-    ("  const float denom = static_cast<float>(C) * static_cast<float>(N);\n",
-     "  const float denom = static_cast<float>(C) * static_cast<float>(N);\n  STAMP(0)\n"),
-    ("    pre_sh[tid] = gn_pre_bias[tid] - sc * mu;\n  }\n  __syncthreads();\n",
-     "    pre_sh[tid] = gn_pre_bias[tid] - sc * mu;\n  }\n  __syncthreads();\n  STAMP(1)\n"),
-    ("  // the warps' partials -> the CTA's", "  STAMP(2)\n  // the warps' partials -> the CTA's"),
-    ("  cluster.sync();  // every CTA has read the others' partials: y may take their place\n",
-     "  cluster.sync();  // every CTA has read the others' partials: y may take their place\n"
-     "  STAMP(3)\n"),
-    ("  const float mu_y = cluster_sum(", "  STAMP(4)\n  const float mu_y = cluster_sum("),
-    ("    post_sh[tid] = gn_post_bias[tid] - sc * mu_y;\n  }\n  __syncthreads();\n",
-     "    post_sh[tid] = gn_post_bias[tid] - sc * mu_y;\n  }\n  __syncthreads();\n  STAMP(5)\n"),
-    ("  cluster.sync();  // no CTA leaves", "  STAMP(6)\n  cluster.sync();  // no CTA leaves"),
-]
+          f"g_stamps[blockIdx.x * {STAMPS} + (i)] = t_; }}\n")
+_STAMP_DEFS = [('#include "attention_common.cuh"\n',
+                '#include "attention_common.cuh"\n__device__ unsigned long long g_stamps[1 << 16];\n'
+                + _STAMP + "extern \"C\" int calo_read_stamps(void* dst) {\n"
+                "  return (int)cudaMemcpyFromSymbol(dst, g_stamps, sizeof(g_stamps));\n}\n"),
+               ("  const float denom = static_cast<float>(C) * static_cast<float>(N);\n",
+                "  const float denom = static_cast<float>(C) * static_cast<float>(N);\n"
+                "  STAMP(0)\n")]
+
+
+def _stamped(anchors):
+    """STAMP(i) inserted before the i-th anchor (i = 1, 2, ...)."""
+    return _STAMP_DEFS + [(a, f"  STAMP({i})\n{a}") for i, a in enumerate(anchors, 1)]
+
+
+TRACE = _stamped(["  // the projections' input of a tile's positions",
+                  "  // the warps' partials, then the CTAs', merged into s_ctx",
+                  "  // ---- phase B: y = W_o",
+                  "  const float mu_y = cluster_sum<",
+                  "  // ---- phase C: out = x + GN1_post(y)",
+                  "  cluster.sync();  // no CTA leaves"])
 PHASES = ["x load + pre-GN statistics", "phase A (k, v, ctx partials)", "ctx merge",
           "phase B (q, ctx^T q, W_o)", "post-GN statistics", "phase C (out)"]
+K2_TRACE = _stamped(["  auto make_xn = [&](int tile) { stage_input<true>",
+                     "  // q of a staged xn tile",
+                     "  // ---- phase G: post-GN backward sums",
+                     "  const float s1n = s_scal[4]",
+                     "  // the k softmax (final max and sum) of a staged xn tile",
+                     "  // ---- phase K:",
+                     "  // ---- phase F:",
+                     "}\n\nint plan_for("])
+K2_PHASES = ["x, g load + pre-GN statistics", "phase A (ctx) + merge",
+             "phase B (y) + statistics", "phase G (S1, S2)", "phase M (dq, dctx) + merge",
+             "phase R (r_d) + merge", "phase K (dk, dv, dxn) + merge", "phase F (dx)"]
 K1_VARIANTS = {
     "as_built": [],
     "warps_8": [("constexpr int THREADS = CALO_BF16 && C == 32 ? 512 : 256;",
                  "constexpr int THREADS = 256;")],
     "stamped": TRACE,
 }
+K2_VARIANTS = {
+    "as_built": [],
+    "warps_16": [("constexpr int THREADS = 256;", "constexpr int THREADS = 512;")],
+    "stamped": K2_TRACE,
+}
+K2_STAMPED_SHAPE = (32, 6480)
 
 
 def write_variant(kernel: str, name: str, subs) -> Path:
@@ -123,6 +151,34 @@ def device_ms(fn, key: str, reps: int) -> float:
                if key in ev.key) / 1e3 / reps
 
 
+def read_phases(lib, n_cta: int, names) -> dict:
+    """The stamped kernel's last launch: the median CTA's phase times, the
+    launch's span and how many CTAs ran at once."""
+    stamps = np.zeros(1 << 16, dtype=np.uint64)
+    lib.calo_read_stamps.argtypes = [ctypes.c_void_p]
+    if lib.calo_read_stamps(stamps.ctypes.data) != 0:
+        raise SystemExit("reading the phase stamps failed")
+    k = len(names)
+    t = stamps.reshape(-1, STAMPS)[:n_cta, :k + 1].astype(np.float64) / 1e3  # us
+    t -= t[:, 0].min()
+    phases = np.median(np.diff(t, axis=1), axis=0)
+    running = [int(((t[:, 0] <= s) & (t[:, k] > s)).sum()) for s in t[:, 0]]
+    out = dict(launch_us=float(t[:, k].max()), cta_us=float(np.median(t[:, k] - t[:, 0])),
+               phases_us=dict(zip(names, phases.tolist())),
+               ctas_running_median=float(np.median(running)), ctas=n_cta)
+    print("  phases of the median CTA (us): "
+          + ", ".join(f"{p} {v:.2f}" for p, v in zip(names, phases))
+          + f"; CTA {out['cta_us']:.1f} us, launch {out['launch_us']:.1f} us, "
+          f"{out['ctas_running_median']:.0f} of {n_cta} CTAs running at a CTA's start", flush=True)
+    return out
+
+
+def rel_err(a, w) -> float:
+    """max-norm relative error, in float64."""
+    a, w = a.double(), w.double()
+    return ((a - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+
+
 def within(got, want, tol) -> bool:
     atol, rtol = tol
     return bool(((got.float() - want.float()).abs() <= atol + rtol * want.float().abs()).all())
@@ -140,9 +196,95 @@ def block_inputs(N, C, seed):
     return args
 
 
+# the C entries of K2 and K3 before their cluster designs: K2 took five f32
+# scratch slabs (y, dxn (B, N, C); k, v, q (B, N, D)), K3 no plan arguments
+_PTR, _PTRS, _INT = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.c_int
+BASELINE_ENTRIES = {
+    la.BACKWARD_KERNEL: ("calo_attention_block_backward",
+                         [_PTR] * 8 + [_PTRS, _PTR, _PTRS] + [_INT] * 4 + [ctypes.c_float, _PTR]),
+    la.LINEAR_KERNEL: ("calo_linear_attention_forward", [_PTR] * 5 + [_INT] * 4 + [_PTR]),
+}
+K3_SHAPES = [(BATCH, N, C) for C, N in K1_SHAPES] + [(64, 40500, 32)]
+
+
+def baseline_backward(lib, x, gps, gpb, w_qkv, w_out, b_out, gos, g):
+    B, N, C = x.shape
+    f32, dev = torch.float32, x.device
+    scratch = [torch.empty(shape, dtype=f32, device=dev)
+               for shape in ((B, N, C), (B, N, C), (B, N, 32), (B, N, 32), (B, N, 32))]
+    grads = [torch.empty(shape, dtype=f32, device=dev) for shape in
+             [(B, C)] * 2 + [(B, C, 32)] * 3 + [(B, 32, C)] + [(B, C)] * 3]
+    dx = torch.empty_like(x)
+    rc = lib.calo_attention_block_backward(
+        *(t.data_ptr() for t in (x, g, gps, gpb, w_qkv, w_out, b_out, gos)),
+        (ctypes.c_void_p * 5)(*(t.data_ptr() for t in scratch)), dx.data_ptr(),
+        (ctypes.c_void_p * 9)(*(t.data_ptr() for t in grads)), B, N, C, 1, 1e-5,
+        cuda_build.stream_of(dev))
+    cuda_build.raise_on(rc, "baseline K2", x)
+
+
+def baseline_linear(lib, x, w_qkv, w_out, b_out):
+    B, N, C = x.shape
+    out = torch.empty_like(x)
+    rc = lib.calo_linear_attention_forward(x.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(),
+                                           b_out.data_ptr(), out.data_ptr(), B, N, C, 1,
+                                           cuda_build.stream_of(x.device))
+    cuda_build.raise_on(rc, "baseline K3", x)
+
+
+def compare_baseline(root: Path) -> dict:
+    """Device ms of the baseline checkout's K2 and K3 beside this one's, bf16."""
+    csrc = root / "calodiffusion_tpu_torch" / "csrc"
+    jobs = {(name, C): (csrc / f"{name}.cu", la.variant(torch.bfloat16, C))
+            for name in BASELINE_ENTRIES for C in (32, 64)}
+
+    def build_baseline(item):
+        (name, C), (src, defines) = item
+        so = OUT_DIR / f"baseline-{name}-{C}.so"
+        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, f"-I{csrc}",
+               *(f"-D{d}" for d in defines), "-o", str(so), str(src)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed for the baseline's {src.name}:\n{proc.stderr[-4000:]}")
+        lib = ctypes.CDLL(str(so))
+        entry, argtypes = BASELINE_ENTRIES[name]
+        return (name, C), cuda_build.bind(lib, entry, argtypes)
+
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        base = dict(pool.map(build_baseline, jobs.items()))
+    out = {}
+    for C, N in K1_SHAPES:
+        x_args = block_inputs(N, C, seed=C + N + 1)
+        g = torch.randn(BATCH, N, C, generator=torch.Generator().manual_seed(N - C))
+        g = g.cuda().bfloat16()
+        lib = la._kernel_library(la.BACKWARD_KERNEL, x_args[0])
+        new = device_ms(lambda: la.launch_backward(lib, *x_args[:7], g, 1e-5),
+                        "attention_block_bwd_kernel", reps=10)
+        old = device_ms(lambda: baseline_backward(base[(la.BACKWARD_KERNEL, C)], *x_args[:7], g),
+                        "attention_block_bwd_kernel", reps=10)
+        out[f"K2 {(BATCH, N, C)}"] = dict(ms=new, baseline_ms=old)
+        print(f"K2 {(BATCH, N, C)}: {new:.4f} ms device, baseline {old:.4f} ms", flush=True)
+    for B, N, C in K3_SHAPES:
+        g = torch.Generator().manual_seed(B + N + C)
+        x, w_qkv, w_out = (torch.randn(B, N, C, generator=g), 0.2 * torch.randn(C, 96, generator=g),
+                           0.2 * torch.randn(32, C, generator=g))
+        x, w_qkv, w_out = (t.cuda().bfloat16().contiguous() for t in (x, w_qkv, w_out))
+        b_out = (0.1 * torch.randn(C, generator=g)).cuda()
+        lib = la._kernel_library(la.LINEAR_KERNEL, x)
+        # this checkout's K3 is K1's kernel built without the GroupNorms
+        new = device_ms(lambda: la.launch_linear(lib, x, w_qkv, w_out, b_out),
+                        "attention_block_kernel", reps=10)
+        old = device_ms(lambda: baseline_linear(base[(la.LINEAR_KERNEL, C)], x, w_qkv, w_out,
+                                                b_out), "linear_attention_kernel", reps=10)
+        out[f"K3 {(B, N, C)}"] = dict(ms=new, baseline_ms=old)
+        print(f"K3 {(B, N, C)}: {new:.4f} ms device, baseline {old:.4f} ms", flush=True)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, help="JSON file for the results")
+    ap.add_argument("--baseline", type=Path, help="another checkout whose K2 and K3 to time")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -154,9 +296,11 @@ def main() -> None:
             for n, subs in K4_VARIANTS.items()]
     jobs += [(write_variant(la.FORWARD_KERNEL, n, subs), la.variant(torch.bfloat16, C))
              for n, subs in K1_VARIANTS.items() for C in (32, 64)]
+    jobs += [(write_variant(la.BACKWARD_KERNEL, n, subs), la.variant(torch.bfloat16, C))
+             for n, subs in K2_VARIANTS.items() for C in (32, 64)]
     with ThreadPoolExecutor(len(jobs)) as pool:
         built = {job: (lib, regs) for job, lib, regs in pool.map(build, jobs)}
-    result = {"card": card, "k4": {}, "k1": {}, "k1_phases": {}}
+    result = {"card": card, "k4": {}, "k1": {}, "k1_phases": {}, "k2": {}, "k2_phases": {}}
     for (src, defines), (_, regs) in built.items():
         print(f"build {src.stem} {' '.join(defines)}: {'; '.join(regs)}", flush=True)
 
@@ -184,29 +328,38 @@ def main() -> None:
             ok = within(la.launch_forward(lib, *x_args, 1e-5), want, K1_TOL[torch.bfloat16])
             ms = device_ms(lambda: la.launch_forward(lib, *x_args, 1e-5),
                            "attention_block_kernel", reps=20)
-            plan = la.forward_plan(lib, N, C, torch.bfloat16)
+            plan = la.kernel_plan(lib, la.FORWARD_KERNEL, N, C, torch.bfloat16)
             result["k1"][f"{name} {(BATCH, N, C)}"] = dict(ms=ms, within_tol=ok, plan=plan)
             print(f"K1 {name} {(BATCH, N, C)}: {ms:.4f} ms, within K1_TOL {ok}, plan {plan}",
                   flush=True)
-            if name != "stamped":
+            if name == "stamped":
+                result["k1_phases"][f"{(BATCH, N, C)}"] = read_phases(lib, BATCH * plan["G"],
+                                                                      PHASES)
+
+    for C, N in K1_SHAPES:
+        x_args = block_inputs(N, C, seed=C + N + 1)
+        g = torch.randn(BATCH, N, C, generator=torch.Generator().manual_seed(N - C))
+        g = g.cuda().bfloat16()
+        want = la.attention_block_backward_reference(*x_args, g)
+        defines = la.variant(torch.bfloat16, C)
+        runs = [(name, 0) for name in K2_VARIANTS] + [("as_built", G) for G in (4, 8, 16)]
+        for name, cluster in runs:
+            if name == "stamped" and (C, N) != K2_STAMPED_SHAPE:
                 continue
-            stamps = np.zeros(1 << 16, dtype=np.uint64)
-            lib.calo_read_stamps.argtypes = [ctypes.c_void_p]
-            if lib.calo_read_stamps(stamps.ctypes.data) != 0:
-                raise SystemExit("reading the phase stamps failed")
-            n_cta = BATCH * plan["G"]
-            t = stamps.reshape(-1, 8)[:n_cta, :7].astype(np.float64) / 1e3  # us
-            t -= t[:, 0].min()
-            phases = np.median(np.diff(t, axis=1), axis=0)
-            running = [int(((t[:, 0] <= s) & (t[:, 6] > s)).sum()) for s in t[:, 0]]
-            result["k1_phases"][f"{(BATCH, N, C)}"] = dict(
-                launch_us=float(t[:, 6].max()), cta_us=float(np.median(t[:, 6] - t[:, 0])),
-                phases_us=dict(zip(PHASES, phases.tolist())),
-                ctas_running_median=float(np.median(running)), ctas=n_cta)
-            print(f"  phases of the median CTA (us): "
-                  + ", ".join(f"{p} {v:.2f}" for p, v in zip(PHASES, phases))
-                  + f"; CTA {np.median(t[:, 6] - t[:, 0]):.1f} us, launch {t[:, 6].max():.1f} us, "
-                  f"{np.median(running):.0f} of {n_cta} CTAs running at a CTA's start", flush=True)
+            lib = la.bind(lib_of(la.BACKWARD_KERNEL, name, defines), la.BACKWARD_KERNEL)
+            got = la.launch_backward(lib, *x_args[:7], g, 1e-5, cluster=cluster)
+            ok = all(rel_err(a, w) <= K2_TOL[torch.bfloat16] for a, w in zip(got, want))
+            ms = device_ms(lambda: la.launch_backward(lib, *x_args[:7], g, 1e-5, cluster=cluster),
+                           "attention_block_bwd_kernel", reps=10)
+            plan = la.kernel_plan(lib, la.BACKWARD_KERNEL, N, C, torch.bfloat16, cluster)
+            key = f"{name}{f' G={cluster}' if cluster else ''} {(BATCH, N, C)}"
+            result["k2"][key] = dict(ms=ms, within_tol=ok, plan=plan)
+            print(f"K2 {key}: {ms:.4f} ms, within K2_TOL {ok}, plan {plan}", flush=True)
+            if name == "stamped":
+                result["k2_phases"][f"{(BATCH, N, C)}"] = read_phases(lib, BATCH * plan["G"],
+                                                                      K2_PHASES)
+    if args.baseline:
+        result["baseline"] = compare_baseline(args.baseline)
     if args.out:
         args.out.write_text(json.dumps(result, indent=1))
 

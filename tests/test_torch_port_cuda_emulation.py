@@ -61,6 +61,7 @@ EMULATION_HEADER = r"""
 #include <vector>
 #include <memory>
 #include <algorithm>
+#include <utility>
 using std::min; using std::max;
 
 #define __global__
@@ -102,7 +103,23 @@ typedef void* cudaStream_t;
 constexpr int cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 0;
 constexpr int cudaFuncAttributeNonPortableClusterSizeAllowed = 1, cudaErrorInvalidConfiguration = 9;
 constexpr int cudaDevAttrMaxSharedMemoryPerBlockOptin = 97;
-template <class F> int cudaFuncSetAttribute(F, int, int) { return 0; }
+// the kernels that may take clusters past the portable 8, and each
+// kernel's dynamic shared memory limit (48 KB until raised), as the card
+// keeps them per kernel
+inline std::vector<const void*> emu_nonportable;
+inline std::vector<std::pair<const void*, int>> emu_smem_limit;
+template <class F> int cudaFuncSetAttribute(F f, int attr, int v) {
+  const void* k = reinterpret_cast<const void*>(f);
+  if (attr == cudaFuncAttributeNonPortableClusterSizeAllowed && v) emu_nonportable.push_back(k);
+  if (attr == cudaFuncAttributeMaxDynamicSharedMemorySize) emu_smem_limit.emplace_back(k, v);
+  return 0;
+}
+inline size_t emu_smem_of(const void* k) {
+  size_t limit = 48 * 1024;
+  for (const auto& e : emu_smem_limit)
+    if (e.first == k) limit = e.second;
+  return limit;
+}
 inline int cudaGetLastError() { return 0; }
 inline int cudaGetDevice(int* d) { *d = 0; return 0; }
 inline int cudaDeviceGetAttribute(int* v, int, int) { *v = 232448; return 0; }  // an H100's
@@ -124,6 +141,15 @@ struct EmuBlock {
 inline thread_local EmuBlock* emu_block;
 inline void __syncthreads() { emu_block->bar->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) { emu_block->warp_bars[threadIdx.x >> 5]->arrive_and_wait(); }
+inline float __shfl_sync(unsigned, float v, int src) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  float* buf = emu_block->shfl.data() + w * 32;
+  buf[lane] = v;
+  __syncwarp();
+  const float r = buf[src & 31];
+  __syncwarp();
+  return r;
+}
 inline float __shfl_xor_sync(unsigned, float v, int o) {
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   float* buf = emu_block->shfl.data() + w * 32;
@@ -261,12 +287,18 @@ inline int emu_cluster_size(const cudaLaunchConfig_t* cfg) {
   return 1;
 }
 template <class... P, class... A> int cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*k)(P...), A... args) {
+  if (cfg->dynamicSmemBytes > emu_smem_of(reinterpret_cast<const void*>(k))) return cudaErrorInvalidConfiguration;
   emu_launch_cluster(cfg->gridDim.x, cfg->blockDim.x, cfg->dynamicSmemBytes, emu_cluster_size(cfg),
                      [&] { k(static_cast<P>(args)...); });
   return 0;
 }
-template <class F> int cudaOccupancyMaxActiveClusters(int* n, F, const cudaLaunchConfig_t* cfg) {
-  *n = emu_cluster_size(cfg) <= 8 ? 1 : 0;
+// an H100 places clusters of up to 8 CTAs, and of 16 for a kernel that allows it
+template <class F> int cudaOccupancyMaxActiveClusters(int* n, F f, const cudaLaunchConfig_t* cfg) {
+  const int size = emu_cluster_size(cfg);
+  const bool allowed = std::find(emu_nonportable.begin(), emu_nonportable.end(),
+                                 reinterpret_cast<const void*>(f)) != emu_nonportable.end();
+  const bool fits = cfg->dynamicSmemBytes <= emu_smem_of(reinterpret_cast<const void*>(f));
+  *n = fits && (size <= 8 || (size <= 16 && allowed)) ? 1 : 0;
   return 0;
 }
 """
@@ -277,6 +309,9 @@ _LAUNCH = re.compile(r"(\w+(?:<[\w, ]+>)?)<<<([\w *+()/-]+?), (\w+), (\w+), (\w+
 
 def _build(out_dir, name, defines):
     src = (cuda_build.CSRC_DIR / f"{name}.cu").read_text()
+    # a source that includes another (K3 includes K1's) is rewritten whole
+    src = re.sub(r'#include "(\w+\.cu)"\n',
+                 lambda m: (cuda_build.CSRC_DIR / m.group(1)).read_text(), src)
     src = src.replace("extern __shared__ __align__(16) float smem[];",
                       "float* smem = emu_block->smem;")
     src, n = _LAUNCH.subn(r"emu_launch(\2, \3, \4, [&] { \1(\6); });", src)
@@ -431,13 +466,23 @@ def test_backward_kernel_matches_plain(libs, B, N, C, dtype):
     g = torch.from_numpy(np.random.default_rng(N).standard_normal((B, N, C)).astype(np.float32))
     g = g.to(dtype)
     lib = libs[(tattn.BACKWARD_KERNEL, tattn.variant(dtype, C))]
-    got = tattn.launch_backward(lib, *args[:7], g, 1e-5)
+    _check_backward(lib, args, g, dtype)
+
+
+def _check_backward(lib, args, g, dtype, **launch):
+    """K2's eight gradients against the plain backward, max-norm relative."""
+    got = tattn.launch_backward(lib, *args[:7], g, 1e-5, **launch)
     want = tattn.attention_block_backward_reference(*args, g)
     for i, (a, w) in enumerate(zip(got, want)):
         assert a.shape == w.shape and a.dtype == w.dtype, i
         a, w = a.double(), w.double()
         err = ((a - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
         assert err <= K2_TOL[dtype], f"gradient {i}: max-norm relative error {err:.3g}"
+
+
+def _grad_out(B, N, C, dtype):
+    return torch.from_numpy(
+        np.random.default_rng(N).standard_normal((B, N, C)).astype(np.float32)).to(dtype)
 
 
 # (B, N, C, cluster): N split unevenly over G = 2 and 4 CTAs (the last
@@ -453,7 +498,7 @@ def test_forward_kernel_cluster_matches_plain(libs, B, N, C, cluster, dtype):
     emulated distributed shared memory."""
     args = _args(B, N, C, dtype, seed=B + N + C + cluster)
     lib = libs[(tattn.FORWARD_KERNEL, tattn.variant(dtype, C))]
-    plan = tattn.forward_plan(lib, N, C, dtype, cluster)
+    plan = tattn.kernel_plan(lib, tattn.FORWARD_KERNEL, N, C, dtype, cluster)
     assert plan["G"] == cluster and plan["x_resident"] and plan["y_resident"]
     got = tattn.launch_forward(lib, *args, 1e-5, cluster=cluster)
     want = tattn.attention_block_reference(*args)
@@ -469,10 +514,11 @@ def test_forward_kernel_off_chip_plans_match_plain(libs, resident, dtype):
     memory: the same code on other pointers."""
     B, N, C, cluster = 1, 1400, 32, 2
     lib = libs[(tattn.FORWARD_KERNEL, tattn.variant(dtype, C))]
-    limit = tattn.forward_plan(lib, N, C, dtype, cluster)["smem_bytes"] - 16
+    K1 = tattn.FORWARD_KERNEL
+    limit = tattn.kernel_plan(lib, K1, N, C, dtype, cluster)["smem_bytes"] - 16
     if resident == "none":
-        limit = tattn.forward_plan(lib, N, C, dtype, cluster, smem_limit=limit)["smem_bytes"] - 16
-    plan = tattn.forward_plan(lib, N, C, dtype, cluster, smem_limit=limit)
+        limit = tattn.kernel_plan(lib, K1, N, C, dtype, cluster, smem_limit=limit)["smem_bytes"] - 16
+    plan = tattn.kernel_plan(lib, K1, N, C, dtype, cluster, smem_limit=limit)
     assert (plan["x_resident"], plan["y_resident"]) == (resident == "x", False)
     args = _args(B, N, C, dtype, seed=N + len(resident))
     got = tattn.launch_forward(lib, *args, 1e-5, cluster=cluster, smem_limit=limit)
@@ -490,10 +536,125 @@ def test_forward_plan_picks_the_smallest_cluster_that_holds_a_sample(libs):
                                      (torch.float32, 32, 6480, 8, False),
                                      (torch.float32, 64, 736, 4, True),
                                      (torch.bfloat16, 32, 40500, 8, False)):
-        plan = tattn.forward_plan(libs[(tattn.FORWARD_KERNEL, tattn.variant(dtype, C))],
-                                  N, C, dtype)
+        plan = tattn.kernel_plan(libs[(tattn.FORWARD_KERNEL, tattn.variant(dtype, C))],
+                                 tattn.FORWARD_KERNEL, N, C, dtype)
         assert (plan["G"], plan["y_resident"]) == (G, resident), (dtype, C, N, plan)
         assert plan["P"] % 16 == 0 and plan["G"] * plan["P"] >= N
+        assert plan["smem_bytes"] <= 232448
+
+
+# K2's cases: K1's in bf16 and f32, and in bf16 (whose plan may take G up to
+# 16) G = 16, the non-portable cluster, with 13 CTAs that hold positions and
+# 3 empty ones
+BACKWARD_CLUSTER_CASES = (
+    [(*case, dt) for case in CLUSTER_CASES for dt in (torch.bfloat16, torch.float32)]
+    + [(1, 200, 32, 16, torch.bfloat16)])
+
+
+@pytest.mark.parametrize("B,N,C,cluster,dtype", BACKWARD_CLUSTER_CASES)
+def test_backward_kernel_cluster_matches_plain(libs, B, N, C, cluster, dtype):
+    """K2 with its sample split over a cluster of G CTAs: every sum and the
+    per-sample gradients merged over the emulated distributed shared memory."""
+    args = _args(B, N, C, dtype, seed=B + N + C + cluster + 1)
+    lib = libs[(tattn.BACKWARD_KERNEL, tattn.variant(dtype, C))]
+    plan = tattn.kernel_plan(lib, tattn.BACKWARD_KERNEL, N, C, dtype, cluster)
+    assert plan["G"] == cluster
+    if dtype == torch.bfloat16:  # f32 at (257, 64) keeps y and dxn in device memory
+        assert all(plan[f"{k}_resident"] for k in ("x", "g", "y", "dxn")), plan
+    _check_backward(lib, args, _grad_out(B, N, C, dtype), dtype, cluster=cluster)
+
+
+# what K2 keeps on chip as its shared memory shrinks: dxn leaves first, x last
+BACKWARD_MODES = {"x_g_y": 1, "x_g": 2, "x": 3, "none": 4}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("resident", list(BACKWARD_MODES))
+def test_backward_kernel_off_chip_plans_match_plain(libs, resident, dtype):
+    """Where a sample does not fit the cluster's shared memory (a smaller
+    limit stands in for a large N here), dxn, then y, then g, then x live in
+    device memory: the same code on other pointers."""
+    B, N, C, cluster = 1, 300, 32, 2
+    lib = libs[(tattn.BACKWARD_KERNEL, tattn.variant(dtype, C))]
+    plan, limit = tattn.kernel_plan(lib, tattn.BACKWARD_KERNEL, N, C, dtype, cluster), 0
+    for _ in range(BACKWARD_MODES[resident]):
+        limit = plan["smem_bytes"] - 16
+        plan = tattn.kernel_plan(lib, tattn.BACKWARD_KERNEL, N, C, dtype, cluster,
+                                 smem_limit=limit)
+    kept = {k for k in ("x", "g", "y", "dxn") if plan[f"{k}_resident"]}
+    assert plan["G"] == cluster and kept == (set(resident.split("_")) - {"none"}), plan
+    args = _args(B, N, C, dtype, seed=N + len(resident))
+    _check_backward(lib, args, _grad_out(B, N, C, dtype), dtype, cluster=cluster,
+                    smem_limit=limit)
+
+
+def test_backward_plan_picks_the_smallest_cluster_that_holds_a_sample(libs):
+    """Against a limit of 227 KB a block: at ds2's (C, N) in bf16, x, g, y
+    and dxn stay on chip (G = 16 at N = 6480); where they do not (f32 at
+    ds2's largest shapes, ds3's N = 40,500), the largest G (16 bf16, 8 f32)
+    keeps part of the sample in device memory."""
+    keys = ("x", "g", "y", "dxn")
+    for dtype, C, N, G, kept in ((torch.bfloat16, 32, 6480, 16, keys),
+                                 (torch.bfloat16, 64, 736, 4, keys),
+                                 (torch.bfloat16, 32, 736, 2, keys),
+                                 (torch.bfloat16, 32, 96, 1, keys),
+                                 (torch.bfloat16, 64, 96, 1, keys),
+                                 (torch.float32, 32, 6480, 8, ("x",)),
+                                 (torch.float32, 64, 736, 8, ("x", "g", "y")),
+                                 (torch.float32, 32, 96, 1, keys),
+                                 (torch.bfloat16, 32, 40500, 16, ("x",)),
+                                 (torch.float32, 32, 40500, 8, ())):
+        plan = tattn.kernel_plan(libs[(tattn.BACKWARD_KERNEL, tattn.variant(dtype, C))],
+                                 tattn.BACKWARD_KERNEL, N, C, dtype)
+        got = tuple(k for k in keys if plan[f"{k}_resident"])
+        assert (plan["G"], got) == (G, kept), (dtype, C, N, plan)
+        assert plan["P"] % 16 == 0 and plan["G"] * plan["P"] >= N
+        assert plan["smem_bytes"] <= 232448
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("B,N,C,cluster", CLUSTER_CASES)
+def test_linear_attention_kernel_cluster_matches_plain(libs, B, N, C, cluster, dtype):
+    """K3 (K1's source without its GroupNorms) split over a cluster of G CTAs."""
+    x, _, _, w_qkv, w_out, b_out, _, _ = _args(B, N, C, dtype, seed=B + N + C + cluster + 2)
+    lib = libs[(tattn.LINEAR_KERNEL, tattn.variant(dtype, C))]
+    plan = tattn.kernel_plan(lib, tattn.LINEAR_KERNEL, N, C, dtype, cluster)
+    assert plan["G"] == cluster and plan["x_resident"] and not plan["y_resident"]
+    got = tattn.launch_linear(lib, x, w_qkv, w_out, b_out, cluster=cluster)
+    want = tattn.linear_attention_reference(x, w_qkv, w_out, b_out)
+    atol, rtol = K3_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_linear_attention_kernel_off_chip_plan_matches_plain(libs, dtype):
+    """K3 with x re-read from device memory (ds3's plan; a smaller limit
+    stands in for N = 40,500)."""
+    B, N, C, cluster = 1, 1400, 32, 2
+    lib = libs[(tattn.LINEAR_KERNEL, tattn.variant(dtype, C))]
+    limit = tattn.kernel_plan(lib, tattn.LINEAR_KERNEL, N, C, dtype, cluster)["smem_bytes"] - 16
+    plan = tattn.kernel_plan(lib, tattn.LINEAR_KERNEL, N, C, dtype, cluster, smem_limit=limit)
+    assert not plan["x_resident"] and not plan["y_resident"], plan
+    x, _, _, w_qkv, w_out, b_out, _, _ = _args(B, N, C, dtype, seed=N + 3)
+    got = tattn.launch_linear(lib, x, w_qkv, w_out, b_out, cluster=cluster, smem_limit=limit)
+    want = tattn.linear_attention_reference(x, w_qkv, w_out, b_out)
+    atol, rtol = K3_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+def test_linear_attention_plan_picks_the_smallest_cluster_that_holds_x(libs):
+    """Against 227 KB a block, K3 keeps only x: ds2's (C, N) on chip, ds3's
+    N = 40,500 re-read from device memory at G = 8."""
+    for dtype, C, N, G, resident in ((torch.bfloat16, 32, 6480, 4, True),
+                                     (torch.bfloat16, 64, 736, 1, True),
+                                     (torch.bfloat16, 32, 96, 1, True),
+                                     (torch.float32, 32, 6480, 8, True),
+                                     (torch.bfloat16, 32, 40500, 8, False),
+                                     (torch.float32, 32, 40500, 8, False)):
+        plan = tattn.kernel_plan(libs[(tattn.LINEAR_KERNEL, tattn.variant(dtype, C))],
+                                 tattn.LINEAR_KERNEL, N, C, dtype)
+        assert (plan["G"], plan["x_resident"], plan["y_resident"]) == (G, resident, 0), \
+            (dtype, C, N, plan)
         assert plan["smem_bytes"] <= 232448
 
 

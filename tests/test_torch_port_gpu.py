@@ -145,6 +145,43 @@ def test_attention_block_backward_kernel_matches_plain(B, N, C, dtype):
         assert err <= K2_TOL[dtype], f"gradient {i}: max-norm relative error {err:.3g}"
 
 
+def _check_backward(got, want, dtype):
+    for i, (a, w) in enumerate(zip(got, want)):
+        assert a.shape == w.shape and a.dtype == w.dtype, i
+        a, w = a.double(), w.double()
+        err = ((a - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+        assert err <= K2_TOL[dtype], f"gradient {i}: max-norm relative error {err:.3g}"
+
+
+@pytest.mark.parametrize("C,N", [(32, 6480), (64, 736), (32, 736), (32, 96), (64, 96)])
+@pytest.mark.parametrize("cluster,dtype", [(1, torch.bfloat16), (8, torch.bfloat16),
+                                           (16, torch.bfloat16), (1, torch.float32),
+                                           (8, torch.float32)])
+def test_attention_block_backward_kernel_at_forced_cluster_sizes(C, N, cluster, dtype):
+    """K2 with its cluster size forced to 1 (one CTA a sample, part of it in
+    device memory where it does not fit), 8 and, in bf16, 16 (the
+    non-portable cluster; empty CTAs at N = 96), at every ds2 (C, N)."""
+    args = _block_args(2, N, C, dtype, seed=N + C + cluster + 1)
+    g = torch.from_numpy(np.random.default_rng(N + 1).standard_normal((2, N, C)).astype(np.float32))
+    g = g.to("cuda", dtype)
+    plan = tattn.cluster_plan(args[0], cluster, name=tattn.BACKWARD_KERNEL)
+    assert plan["G"] == cluster
+    lib = tattn._kernel_library(tattn.BACKWARD_KERNEL, args[0])
+    got = tattn.launch_backward(lib, *args[:7], g, 1e-5, cluster=cluster)
+    torch.cuda.synchronize()
+    _check_backward(got, tattn.attention_block_backward_reference(*args, g), dtype)
+
+
+def test_attention_block_backward_keeps_ds2_samples_on_chip():
+    """At ds2's shapes the bf16 backward holds each sample's x, g, y and dxn
+    in its cluster's shared memory: no device scratch."""
+    for C, N, G in ((32, 6480, 16), (64, 736, 4), (32, 736, 2), (32, 96, 1), (64, 96, 1)):
+        plan = tattn.cluster_plan(torch.empty(1, N, C, device="cuda", dtype=torch.bfloat16),
+                                  name=tattn.BACKWARD_KERNEL)
+        assert plan["G"] == G, (C, N, plan)
+        assert all(plan[f"{k}_resident"] for k in ("x", "g", "y", "dxn")), (C, N, plan)
+
+
 def test_fused_attention_block_differentiates_through_the_kernels():
     """With grad on and inputs that require it, the output carries a
     grad_fn whose backward is K2; under no_grad it carries none."""
@@ -203,6 +240,23 @@ def test_linear_attention_kernel_matches_plain(B, N, C, dtype):
     torch.cuda.synchronize()
     assert tattn.fused_linear_attention.launches == before + 1
     assert got.shape == (B, N, C) and got.dtype == dtype
+    want = tattn.linear_attention_reference(x, w_qkv, w_out, b_out).float()
+    atol, rtol = K3_TOL[dtype]
+    torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("C,N", [(32, 40500), (32, 6480), (64, 736)])
+@pytest.mark.parametrize("cluster", [1, 8])
+def test_linear_attention_kernel_at_forced_cluster_sizes(C, N, cluster, dtype):
+    """K3 with its cluster size forced to 1 and 8, on dataset 3's grid
+    (x re-read from device memory) and at ds2's largest shapes."""
+    x, _, _, w_qkv, w_out, b_out, _, _ = _block_args(2, N, C, dtype, seed=N + C + cluster + 2)
+    plan = tattn.cluster_plan(x, cluster, name=tattn.LINEAR_KERNEL)
+    assert plan["G"] == cluster and not plan["y_resident"]
+    lib = tattn._kernel_library(tattn.LINEAR_KERNEL, x)
+    got = tattn.launch_linear(lib, x, w_qkv, w_out, b_out, cluster=cluster)
+    torch.cuda.synchronize()
     want = tattn.linear_attention_reference(x, w_qkv, w_out, b_out).float()
     atol, rtol = K3_TOL[dtype]
     torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
