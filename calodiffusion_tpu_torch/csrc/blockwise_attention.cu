@@ -5,7 +5,10 @@
 //
 // Replaces the Pallas kernel
 // calodiffusion_tpu/ops/pallas_attention.py::_attention_kernel (entry
-// blockwise_attention).  Forward only, as in the JAX package.
+// blockwise_attention).  Where the caller asks for it (a non-null lse), each
+// query row's log-sum-exp of the scaled scores, lse = log(sum_j exp(S_j c)),
+// c = D^-1/2, natural log, f32 (B*H, N): what the backward
+// (blockwise_attention_bwd.cu) recomputes the probabilities from.
 //
 // Bound.  At D = 32 each score costs 4 D = 128 FLOPs of the two products
 // and one exponential: the special-function units (16 exponentials per SM
@@ -52,8 +55,8 @@
 // split of P costs about a fifth of it, warps and tile sizes change it by
 // at most 21 %: the instructions issued a score are the limit.
 //
-// C entry: calo_blockwise_attention_forward, for the one dtype variant of
-// the build; returns cudaGetLastError().
+// C entry: calo_blockwise_attention_forward (lse may be null), for the one
+// dtype variant of the build; returns cudaGetLastError().
 
 #include "common.cuh"
 
@@ -62,6 +65,7 @@ namespace {
 using namespace calo;
 
 constexpr int D = 32;  // head dim
+constexpr float LN2 = 0.6931471805599453f;
 
 #if CALO_BF16
 
@@ -87,8 +91,8 @@ __device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src, int valid
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 blockwise_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ out, int N,
-                           int n_qtiles, float scale) {
+                           const T* __restrict__ v, T* __restrict__ out,
+                           float* __restrict__ lse, int N, int n_qtiles, float scale) {
   extern __shared__ __align__(16) float smem[];
   bf16* s_q = reinterpret_cast<bf16*>(smem);
   bf16* s_k = s_q + BQ * LD;      // 2 buffers
@@ -219,6 +223,9 @@ blockwise_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int dt = 0; dt < 4; ++dt)
         dst[dt * 4 + t] = pack_bf16(o[dt][2 * r] * inv, o[dt][2 * r + 1] * inv);
+      // m and log2(l) are in log2 units of S c: lse in natural units
+      if (lse != nullptr && t == 0)
+        lse[static_cast<size_t>(bh) * N + row] = (m[r] + log2f(l[r])) * LN2;
     }
   }
 }
@@ -235,8 +242,8 @@ constexpr size_t SMEM_BYTES = 2 * BK * D * sizeof(float);
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 blockwise_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ out, int N,
-                           int n_qtiles, float scale) {
+                           const T* __restrict__ v, T* __restrict__ out,
+                           float* __restrict__ lse, int N, int n_qtiles, float scale) {
   extern __shared__ __align__(16) float smem[];
   float* s_k = smem;           // (BK, D)
   float* s_v = smem + BK * D;  // (BK, D)
@@ -315,28 +322,31 @@ blockwise_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int d = 0; d < D; ++d) acc[d] = acc[d] / l;
     store_row<T, D>(out + base + static_cast<size_t>(row) * D, acc);
+    if (lse != nullptr) lse[static_cast<size_t>(bh) * N + row] = m + logf(l);
   }
 }
 
 #endif
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int BH, int N, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int BH, int N,
+           float scale, cudaStream_t stream) {
   const int n_qtiles = (N + BQ - 1) / BQ;
   blockwise_attention_kernel<T><<<BH * n_qtiles, THREADS, SMEM_BYTES, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), N, n_qtiles, scale);
+      static_cast<T*>(out), lse, N, n_qtiles, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" int calo_blockwise_attention_forward(const void* q, const void* k, const void* v,
-                                                void* out, int BH, int N, int head_dim,
-                                                int is_bf16, float scale, void* stream) {
+                                                void* out, void* lse, int BH, int N,
+                                                int head_dim, int is_bf16, float scale,
+                                                void* stream) {
   const long long blocks = static_cast<long long>(BH) * ((N + BQ - 1) / BQ);
   if (BH < 1 || N < 1 || head_dim != D || blocks > 0x7fffffffLL || !is_dtype_variant(is_bf16))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch<VariantT>(q, k, v, out, BH, N, scale, static_cast<cudaStream_t>(stream));
+  return launch<VariantT>(q, k, v, out, static_cast<float*>(lse), BH, N, scale,
+                          static_cast<cudaStream_t>(stream));
 }

@@ -287,7 +287,7 @@ class Attention(nn.Module):
     :246-278; JAX nn_modules.py:368-401): a 1x1 qkv conv without bias,
     ``blockwise_attention`` over (B, heads, N, dim_head), a 1x1 output conv.
     Channel index of q, k, v = h * dim_head + d.  On the card the attention
-    is K4 at every N, forward only."""
+    is K4 at every N, differentiated by its backward kernel."""
 
     def __init__(self, dim, heads=4, dim_head=DIM_HEAD, cylindrical=False,
                  dtype=torch.float32, generator=None):

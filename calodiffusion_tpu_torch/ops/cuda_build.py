@@ -152,18 +152,21 @@ def dtype_variant(dtype) -> tuple[str]:
 
 
 class DtypeKernel:
-    """A kernel of ``csrc/<name>.cu`` with one C entry, built once per
-    dtype (bf16, f32): each library holds one instantiation."""
+    """A kernel of ``csrc/<name>.cu`` with its C entries (``{entry:
+    argtypes}``), built once per dtype (bf16, f32): each library holds one
+    instantiation."""
 
-    def __init__(self, name: str, entry: str, argtypes):
-        self.name, self.entry, self.argtypes = name, entry, argtypes
+    def __init__(self, name: str, entries: dict):
+        self.name, self.entries = name, entries
         # every (kernel, variant) a caller may launch
         self.builds = tuple((name, dtype_variant(dt)) for dt in (torch.bfloat16, torch.float32))
         self._libraries = {}
 
     def bind(self, lib: ctypes.CDLL) -> ctypes.CDLL:
-        """Declare the argument and result types of ``lib``'s entry."""
-        return bind(lib, self.entry, self.argtypes)
+        """Declare the argument and result types of ``lib``'s entries."""
+        for entry, argtypes in self.entries.items():
+            bind(lib, entry, argtypes)
+        return lib
 
     def library(self, t) -> ctypes.CDLL:
         """The library for ``t``'s dtype, built at first use; ``t`` must

@@ -9,8 +9,11 @@ the card always runs the kernel.
 
 K5 is forward only, as in the JAX package: a backward through it raises and
 says so.  The JAX kernel takes its variance in one pass, E[x^2] - mean^2
-(pallas_groupnorm.py:44); K5 takes it in two, as the plain version and the
-GroupNorm module do.
+(pallas_groupnorm.py:44); K5 takes centred sums within chunks of a sample
+and merges them (Chan's formula), as accurate as the two passes of the
+plain version and the GroupNorm module.  Three launches (statistics,
+merge, apply) and an f32 scratch of the chunks' partials and the samples'
+statistics, which the wrapper allocates.
 
 Bound on the card: device-memory bytes, x read once and the output written
 once.
@@ -25,11 +28,13 @@ import torch
 
 from calodiffusion_tpu_torch.ops import cuda_build
 
-MAX_C = 384  # the kernel's threads a block: one channel each, at least
+MAX_C = 384  # the kernel's widest row: its threads a block take a row's 16-byte vectors
 _PTR = ctypes.c_void_p
-KERNEL = cuda_build.DtypeKernel(
-    "groupnorm_silu", "calo_groupnorm_silu_forward",
-    [_PTR] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, _PTR])
+_INT = ctypes.c_int
+KERNEL = cuda_build.DtypeKernel("groupnorm_silu", {
+    "calo_groupnorm_silu_chunks": [_INT] * 3,
+    "calo_groupnorm_silu_forward": [_PTR] * 5 + [_INT] * 5 + [ctypes.c_float, _INT, _INT, _PTR],
+})
 
 
 def _check(x, scale, bias, groups):
@@ -41,19 +46,32 @@ def _check(x, scale, bias, groups):
                          f"x, got shape {tuple(x.shape)}, groups {groups}")
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"the kernel takes bf16 or f32, got {x.dtype}")
+    per_vector = 16 // x.element_size()
+    if C % per_vector:
+        raise ValueError(f"the kernel reads 16-byte vectors: C must be a multiple of "
+                         f"{per_vector} in {x.dtype}, got {C}")
     cuda_build.check_tensor("x", x, x.shape, x.dtype, x.device)
     cuda_build.check_tensor("scale", scale, (C,), torch.float32, x.device)
     cuda_build.check_tensor("bias", bias, (C,), torch.float32, x.device)
+    for name, t in (("x", x), ("scale", scale), ("bias", bias)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (vector loads)")
 
 
-def launch(lib, x, scale, bias, groups: int, eps: float, apply_silu: bool):
-    """Allocate K5's output and call ``lib``'s entry on checked inputs."""
+def launch(lib, x, scale, bias, groups: int, eps: float, apply_silu: bool, steps: int = 0):
+    """Allocate K5's output and its scratch and call ``lib``'s entry on
+    checked inputs.  ``steps`` (1-8) sets the rows of a chunk, that many
+    16-byte vectors a thread; 0 takes the kernel's own."""
     B, C = x.shape[0], x.shape[-1]
     S = math.prod(x.shape[1:-1])
     out = torch.empty_like(x)
+    chunks = lib.calo_groupnorm_silu_chunks(S, C, steps)
+    # the chunks' (mean, M2) partials, then each sample's (mean, rsqrt(var + eps)), per group
+    part = torch.empty((max(chunks, 0) + 1) * B * groups * 2, dtype=torch.float32,
+                       device=x.device)
     rc = lib.calo_groupnorm_silu_forward(
-        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), B, S, C, groups,
-        int(x.dtype == torch.bfloat16), float(eps), int(apply_silu),
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), part.data_ptr(), B, S,
+        C, groups, int(x.dtype == torch.bfloat16), float(eps), int(apply_silu), steps,
         cuda_build.stream_of(x.device),
     )
     cuda_build.raise_on(rc, KERNEL.name, x)

@@ -7,8 +7,9 @@ Phases, each printing its own lines; any failed check exits non-zero and
 prints no result:
 
 1. card     the card's name and power limit (nvidia-smi), torch and CUDA versions
-2. build    every kernel of every path (K1-K5), each variant with its own
-            nvcc, all at once, from this checkout; their register/spill lines
+2. build    every kernel of every path (K1-K5 and K4's backward), each
+            variant with its own nvcc, all at once, from this checkout; their
+            register/spill lines
 3. kernels  K1 and K2 against their plain PyTorch versions on the card at the
             shapes of the ds2 paths (batch 128), in bf16 and f32, with their
             times (CUDA events around a call, and the device time with the
@@ -40,15 +41,22 @@ prints no result:
             (B*H = 8, N = 4096), N = 736,
             and N = 40,500 with B*H = 4 and 16, and at (B*H = 8, N = 4096)
             with q scaled by 8 (a peaked softmax), beside SDPA's time and
-            K4's device time; K5
-            (GroupNorm + SiLU) against gn_silu_reference at ds2 levels 0 and
-            2 and ds3 level 0.  Then, counts reset just before: a
-            LinearAttention(32) forward and backward on the ds3 grid (K3 once;
-            output and f32 gradients against the plain module's; the bf16
-            gradients must be finite and are printed, not held to a limit), an
-            Attention(32, heads=4) forward on (4, 32, 45, 50, 18) (K4 once;
-            against the plain module) and groupnorm_silu at the three shapes
-            (K5 three times).
+            K4's device time; K4's backward kernel against
+            attention_backward_reference (the plain gradient, chunk by
+            chunk) at the same shapes, beside the time of SDPA's backward
+            (torch.autograd.grad through scaled_dot_product_attention), its
+            gradients the same bit for bit in two calls; K5 (GroupNorm +
+            SiLU) against gn_silu_reference at ds2 levels 0 and 2 and ds3
+            level 0, its output the same bit for bit in two calls, beside
+            the two calls F.silu(F.group_norm(.)) on a channels-first copy.
+            Then, counts reset just before: a LinearAttention(32) forward
+            and backward on the ds3 grid (K3 once; output and f32 gradients
+            against the plain module's; the bf16 gradients must be finite and
+            are printed, not held to a limit), an Attention(32, heads=4)
+            forward and backward on (4, 32, 45, 50, 18) (K4 and its backward
+            once each; output and f32 gradients against the plain module's,
+            the bf16 gradients finite) and groupnorm_silu at the three
+            shapes (K5 three times).
 7. result   {"kernels": [...]} and, last, {"ok": true, "device": {...}}
 """
 
@@ -65,9 +73,11 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 try:
-    from calodiffusion_tpu_torch.ops.tolerances import K1_TOL, K2_TOL, K3_TOL, K4_TOL, K5_TOL
+    from calodiffusion_tpu_torch.ops.tolerances import (K1_TOL, K2_TOL, K3_TOL, K4_TOL,
+                                                        K4B_TOL, K5_TOL)
 except ImportError as e:  # the script alone, outside a checkout of the repository
     sys.exit(f"chip_smoke FAILED: calodiffusion_tpu_torch is not importable here: {e}")
 
@@ -92,8 +102,8 @@ DS2_ATTENTION_BLOCKS = [(32, 6480), (64, 736), (32, 96), (32, 96), (64, 96), (32
 BATCH = 128
 D = 32  # dim_head
 
-# The kernels' tolerances against their plain versions, K1_TOL .. K5_TOL,
-# and their reasons: calodiffusion_tpu_torch/ops/tolerances.py.
+# The kernels' tolerances against their plain versions, K1_TOL .. K5_TOL
+# and K4B_TOL, and their reasons: calodiffusion_tpu_torch/ops/tolerances.py.
 
 # One f32 train step, card (K1, K2, cuDNN; TF32 off) against CPU (plain
 # versions, oneDNN), same weights and inputs.  The f32 forward agrees within
@@ -127,6 +137,13 @@ ATTENTION_MODULE_TOL = {torch.bfloat16: (4e-3, 2.0**-7), torch.float32: (1e-4, 0
 # them 0.02-0.24 off over six seeds (the same script, --qkv-gain 4), while
 # K3's bf16 forward is held elementwise above.  They must be finite.
 K3_GRAD_TOL_F32 = 1e-3
+# Attention(32, heads=4)'s f32 gradients on (4, 32, 45, 50, 18) through K4
+# and its backward kernel against the plain module's (the dense
+# formulation, its gradient chunk by chunk), in max-norm relative error:
+# the kernels differ from the plain versions within K4_TOL and K4B_TOL, and
+# the two 1x1 convs around them (cuDNN, TF32 off) only sum in other orders:
+# K4B_TOL's f32 bound.  The bf16 gradients must be finite.
+ATTENTION_GRAD_TOL_F32 = K4B_TOL[torch.float32]
 
 # dataset 3's full-resolution grid (configs/config_dataset3.json: SHAPE_FINAL
 # 45 x 50 x 18, LAYER_SIZE_UNET[0] = 32)
@@ -148,6 +165,9 @@ REPLACES = {
     "attention_block_backward": "calodiffusion_tpu/ops/pallas_linear_attention.py:407",
     "fused_linear_attention": "calodiffusion_tpu/ops/pallas_linear_attention.py:94",
     "blockwise_attention": "calodiffusion_tpu/ops/pallas_attention.py:35",
+    "blockwise_attention_backward": (
+        "calodiffusion_tpu/ops/pallas_attention.py:35 (forward only: the JAX package has no "
+        "Pallas VJP and differentiates _dense_attention, :70-77)"),
     "groupnorm_silu": "calodiffusion_tpu/ops/pallas_groupnorm.py:27",
 }
 SOURCES = {
@@ -155,6 +175,7 @@ SOURCES = {
     "attention_block_backward": "calodiffusion_tpu_torch/csrc/linear_attention_block_bwd.cu",
     "fused_linear_attention": "calodiffusion_tpu_torch/csrc/linear_attention.cu",
     "blockwise_attention": "calodiffusion_tpu_torch/csrc/blockwise_attention.cu",
+    "blockwise_attention_backward": "calodiffusion_tpu_torch/csrc/blockwise_attention_bwd.cu",
     "groupnorm_silu": "calodiffusion_tpu_torch/csrc/groupnorm_silu.cu",
 }
 
@@ -644,6 +665,73 @@ def check_blockwise_kernel(att):
     return cases
 
 
+def blockwise_backward_bound(B, H, N, dtype):
+    """Softmax attention's backward: q, k, v, out and dO read and dq, dk, dv
+    written once, lse read once; the least work is one recompute of S and
+    the four products dV, dP, dK, dQ (10 D FLOPs) and one exponential a
+    score."""
+    elt = torch.finfo(dtype).bits // 8
+    nbytes = 8 * B * H * N * D * elt + 4 * B * H * N
+    return bound_ms(nbytes, 10 * D * B * H * N * N, dtype, exps=B * H * N * N)
+
+
+def check_blockwise_backward(att):
+    """K4's backward vs the plain gradient (chunk by chunk) at K4's shapes,
+    through its wrapper from K4's out and lse, with SDPA's backward timed
+    beside it; two calls must agree bit for bit."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for (B, H, N), gain in [(shape, 1) for shape in K4_SHAPES] + [(K4_PEAKED, 8)]:
+            g = torch.Generator().manual_seed(B + H + N + 1)
+            q, k, v, dout = (torch.randn(B, H, N, D, generator=g).cuda().to(dtype)
+                             for _ in range(4))
+            q = (q.float() * gain).to(dtype)
+            out, lse = att.blockwise_attention_forward(q, k, v, with_lse=True)
+            before = att.blockwise_attention.backward_launches
+            got = att.blockwise_attention_backward(q, k, v, out, lse, dout)
+            again = att.blockwise_attention_backward(q, k, v, out, lse, dout)
+            torch.cuda.synchronize()
+            if att.blockwise_attention.backward_launches != before + 2:
+                fail(f"blockwise_attention_backward (N={N}) did not launch its kernel")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"blockwise_attention_backward (N={N}, {dtype}): two calls differ")
+            rows = dense_rows(B, H, N)
+            want = att.attention_backward_reference(q, k, v, dout, rows)
+            rel = dict(zip(("dq", "dk", "dv"), (max_norm_rel(a, b) for a, b in zip(got, want))))
+            worst = max(rel, key=rel.get)
+            if not all(np.isfinite(e) for e in rel.values()) or rel[worst] > K4B_TOL[dtype]:
+                fail(f"blockwise_attention_backward (B={B} H={H} N={N} q x {gain} {dtype}): "
+                     f"{worst} differs from the plain gradient by {rel[worst]:.3g} (max-norm "
+                     f"relative) > {K4B_TOL[dtype]}")
+            abs_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+            big = N > 8192
+            reps = dict(warmup=1, reps=3) if big else {}
+            k_ms = time_ms(lambda: att.blockwise_attention_backward(q, k, v, out, lse, dout),
+                           **reps)
+            d_ms = device_ms(lambda: att.blockwise_attention_backward(q, k, v, out, lse, dout),
+                             reps=3 if big else 10)
+            p_ms = time_ms(lambda: att.attention_backward_reference(q, k, v, dout, rows), **reps)
+            ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
+            lib_out = sdpa(ql, kl, vl)
+            l_ms = time_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), dout,
+                                                       retain_graph=True), **reps)
+            del lib_out
+            b_ms, b_by, term = blockwise_backward_bound(B, H, N, dtype)
+            print(f"kernel blockwise_attention_backward {(B, H, N, D)} {dtype_name(dtype)}: "
+                  f"max-norm rel err {rel[worst]:.3g} ({worst}; tol {K4B_TOL[dtype]}), "
+                  f"max_abs_err {abs_err:.3g}, kernel {k_ms:.4f} ms, device {d_ms:.4f} ms, "
+                  f"plain {p_ms:.4f} ms, SDPA backward {l_ms:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({term}), q x {gain}; two calls bitwise equal", flush=True)
+            cases.append(dict(
+                name="blockwise_attention_backward", shape=[B, H, N, D], dtype=dtype_name(dtype),
+                max_abs_err=abs_err, max_norm_rel_err=rel, tol_max_norm_rel=K4B_TOL[dtype],
+                kernel_ms=k_ms, device_ms=d_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                bound_by=b_by, bound_term=term, q_gain=gain, deterministic=True))
+    return cases
+
+
 def gn_inputs(shape, dtype, seed):
     g = torch.Generator().manual_seed(seed)
     C = shape[-1]
@@ -668,14 +756,26 @@ def check_groupnorm_kernel(gn):
         for shape in K5_SHAPES:
             x, sc, bi = gn_inputs(shape, dtype, seed=sum(shape))
             got = gn.groupnorm_silu_forward(x, sc, bi, 8)
+            again = gn.groupnorm_silu_forward(x, sc, bi, 8)
             torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"groupnorm_silu ({shape}, {dtype}): two calls differ")
             want = gn.gn_silu_reference(x, sc, bi, 8)
             err = elementwise_err("groupnorm_silu", got, want, K5_TOL[dtype],
                                   f"{shape} {dtype}")
             k_ms = time_ms(lambda: gn.groupnorm_silu_forward(x, sc, bi, 8))
+            d_ms = device_ms(lambda: gn.groupnorm_silu_forward(x, sc, bi, 8))
             p_ms = time_ms(lambda: gn.gn_silu_reference(x, sc, bi, 8))
+            # two PyTorch calls on a channels-first copy (weights in x's dtype)
+            x_cf = x.movedim(-1, 1).contiguous()
+            sc_x, bi_x = sc.to(dtype), bi.to(dtype)
+            two_ms = time_ms(lambda: F.silu(F.group_norm(x_cf, 8, sc_x, bi_x)))
             cases.append(case_line("groupnorm_silu", shape, dtype, err, K5_TOL[dtype], k_ms,
-                                   p_ms, gn_bound(shape, dtype)))
+                                   p_ms, gn_bound(shape, dtype),
+                                   extra=f", device {d_ms:.4f} ms, F.silu(F.group_norm) on "
+                                         f"channels-first (two calls) {two_ms:.4f} ms; two "
+                                         f"calls bitwise equal"))
+            cases[-1].update(device_ms=d_ms, two_call_ms=two_ms, deterministic=True)
     return cases
 
 
@@ -687,61 +787,65 @@ def max_norm_rel(a, b):
 
 def run_variants_path(seed, la, att, gn, nn_modules):
     """The variants path, in bf16 and f32: LinearAttention(32) forward and
-    backward on the ds3 grid, Attention(32, heads=4) forward on
+    backward on the ds3 grid, Attention(32, heads=4) forward and backward on
     (4, 32, 45, 50, 18), groupnorm_silu at K5_SHAPES.  Launch counts are
     reset just before each dtype's run and read just after; the outputs
     and gradients are then held against the plain modules."""
     from unittest import mock
 
-    counters = (la.fused_linear_attention, att.blockwise_attention, gn.groupnorm_silu,
-                la.fused_attention_block, la.attention_block_backward)
-    want = (1, 1, len(K5_SHAPES), 0, 0)
+    # (name, entry, counter) of every kernel the path may launch
+    counters = (("fused_linear_attention", la.fused_linear_attention, "launches"),
+                ("blockwise_attention", att.blockwise_attention, "launches"),
+                ("blockwise_attention_backward", att.blockwise_attention, "backward_launches"),
+                ("groupnorm_silu", gn.groupnorm_silu, "launches"),
+                ("fused_attention_block", la.fused_attention_block, "launches"),
+                ("attention_block_backward", la.attention_block_backward, "launches"))
+    want = (1, 1, 1, len(K5_SHAPES), 0, 0)
     totals, results = [0] * len(counters), {}
     for dtype in (torch.bfloat16, torch.float32):
         gen = torch.Generator().manual_seed(seed)
         lin = nn_modules.LinearAttention(32, dtype=dtype, generator=gen).cuda()
         full = nn_modules.Attention(32, heads=4, dtype=dtype, generator=gen).cuda()
         x_lin = torch.randn(DS3_BATCH, 32, *DS3_GRID, generator=gen).cuda().requires_grad_(True)
-        x_att = torch.randn(ATTENTION_BATCH, 32, *DS3_GRID, generator=gen).cuda()
+        x_att = torch.randn(ATTENTION_BATCH, 32, *DS3_GRID, generator=gen).cuda().requires_grad_(True)
         gn_args = [gn_inputs(shape, dtype, seed=seed + i) for i, shape in enumerate(K5_SHAPES)]
 
-        def lin_step(module=lin):
+        def step(module, x):
             module.zero_grad(set_to_none=True)
-            x_lin.grad = None
-            out = module(x_lin)
+            x.grad = None
+            out = module(x)
             (out.float() ** 2).mean().backward()
-            return out.detach(), [x_lin.grad] + [p.grad for p in module.parameters()]
+            return out.detach(), [x.grad] + [p.grad for p in module.parameters()]
 
         torch.cuda.synchronize()
-        for c in counters:
-            c.launches = 0
+        for _, entry, attr in counters:
+            setattr(entry, attr, 0)
         t0 = time.perf_counter()
-        lin_out, lin_grads = lin_step()
-        with torch.no_grad():
-            att_out = full(x_att)
+        lin_out, lin_grads = step(lin, x_lin)
+        att_out, att_grads = step(full, x_att)
         gn_outs = [gn.groupnorm_silu(*a, groups=8) for a in gn_args]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launched = tuple(c.launches for c in counters)
+        launched = tuple(getattr(entry, attr) for _, entry, attr in counters)
         if launched != want:
-            fail(f"variants path ({dtype}) launched K3, K4, K5, K1, K2 {launched} times, "
-                 f"expected {want}")
+            fail(f"variants path ({dtype}) launched "
+                 f"{', '.join(name for name, _, _ in counters)} {launched} times, expected {want}")
         totals = [t + n for t, n in zip(totals, launched)]
 
         # the plain modules: the same modules with K3's and K4's entries
-        # replaced by their plain versions
+        # replaced by their plain versions (K4's, chunk by chunk, with a
+        # backward that keeps one chunk's scores at a time)
         rows = dense_rows(ATTENTION_BATCH, 4, DS3_N)
         with mock.patch.object(nn_modules, "fused_linear_attention",
                                la.linear_attention_reference), \
              mock.patch.object(nn_modules, "blockwise_attention",
                                lambda q, k, v: att.dense_attention(q, k, v, q_rows=rows)):
-            ref_out, ref_grads = lin_step()
+            ref_out, ref_grads = step(lin, x_lin)
             if dtype == torch.bfloat16:
                 lin32 = nn_modules.LinearAttention(32).cuda()
                 lin32.load_state_dict(lin.state_dict())
-                _, true_grads = lin_step(lin32)
-            with torch.no_grad():
-                att_ref = full(x_att)
+                _, true_grads = step(lin32, x_lin)
+            att_ref, att_ref_grads = step(full, x_att)
         if lin_out.shape != x_lin.shape or att_out.shape != x_att.shape:
             fail(f"variants path shapes {tuple(lin_out.shape)}, {tuple(att_out.shape)}")
         lin_err = elementwise_err("LinearAttention", lin_out, ref_out, K3_TOL[dtype],
@@ -754,8 +858,9 @@ def run_variants_path(seed, la, att, gn, nn_modules):
         else:
             plain_errs = [round(max_norm_rel(a, b), 6) for a, b in zip(ref_grads, true_grads)]
             grad_note = f"(no limit; the plain bf16 module: {plain_errs})"
-        if not all(g is not None and torch.isfinite(g).all() for g in lin_grads):
-            fail(f"LinearAttention ({dtype}): a gradient is missing or not finite")
+        for name, grads in (("LinearAttention", lin_grads), ("Attention", att_grads)):
+            if not all(g is not None and torch.isfinite(g).all() for g in grads):
+                fail(f"{name} ({dtype}): a gradient is missing or not finite")
         grad_errs = [max_norm_rel(a, b) for a, b in zip(lin_grads, true_grads)]
         worst = max(range(len(grad_errs)), key=grad_errs.__getitem__)
         if dtype == torch.float32 and grad_errs[worst] > K3_GRAD_TOL_F32:
@@ -763,25 +868,35 @@ def run_variants_path(seed, la, att, gn, nn_modules):
                  f"{grad_errs[worst]:.3g} > {K3_GRAD_TOL_F32}")
         att_err = elementwise_err("Attention", att_out, att_ref, ATTENTION_MODULE_TOL[dtype],
                                   f"module, {dtype}")
+        att_grad_errs = [max_norm_rel(a, b) for a, b in zip(att_grads, att_ref_grads)]
+        if dtype == torch.float32 and max(att_grad_errs) > ATTENTION_GRAD_TOL_F32:
+            fail(f"Attention gradients ({dtype}): max-norm relative errors {att_grad_errs} > "
+                 f"{ATTENTION_GRAD_TOL_F32}")
+        att_note = (f"(tol {ATTENTION_GRAD_TOL_F32})" if dtype == torch.float32
+                    else "(no limit: finite)")
         gn_err = max(elementwise_err("groupnorm_silu", o, gn.gn_silu_reference(*a, 8),
                                      K5_TOL[dtype], f"path, {dtype}")
                      for o, a in zip(gn_outs, gn_args))
         results[dtype_name(dtype)] = dict(
-            wall_s=wall, launches=launched, linear_attention_err=lin_err,
+            wall_s=wall, launches=dict(zip((name for name, _, _ in counters), launched)),
+            linear_attention_err=lin_err,
             linear_attention_grad_errs=grad_errs,
             linear_attention_grad_tol=K3_GRAD_TOL_F32 if dtype == torch.float32 else None,
             plain_module_grad_errs=plain_errs,
-            attention_err=att_err, gn_err=gn_err)
+            attention_err=att_err, attention_grad_errs=att_grad_errs,
+            attention_grad_tol=ATTENTION_GRAD_TOL_F32 if dtype == torch.float32 else None,
+            gn_err=gn_err)
         print(f"variants ({dtype_name(dtype)}): LinearAttention(32) fwd+bwd on "
-              f"{tuple(x_lin.shape)}, Attention(32, heads=4) fwd on "
+              f"{tuple(x_lin.shape)}, Attention(32, heads=4) fwd+bwd on "
               f"{tuple(x_att.shape)}, groupnorm_silu x {len(K5_SHAPES)}: "
-              f"{wall:.3f} s; launches K3 {launched[0]}, K4 {launched[1]}, K5 {launched[2]}; "
-              f"vs plain modules: LinearAttention out {lin_err:.3g}, gradients (max-norm rel"
+              f"{wall:.3f} s; launches K3 {launched[0]}, K4 {launched[1]}, K4 backward "
+              f"{launched[2]}, K5 {launched[3]}; vs plain modules: LinearAttention out "
+              f"{lin_err:.3g}, gradients (max-norm rel"
               f"{'' if dtype == torch.float32 else ' to the f32 plain module'}) "
               f"{[round(e, 6) for e in grad_errs]} {grad_note}, "
-              f"Attention out {att_err:.3g}, groupnorm_silu {gn_err:.3g}", flush=True)
-    return dict(zip(("fused_linear_attention", "blockwise_attention", "groupnorm_silu",
-                     "fused_attention_block", "attention_block_backward"), totals)), results
+              f"Attention out {att_err:.3g}, gradients {[round(e, 6) for e in att_grad_errs]} "
+              f"{att_note}, groupnorm_silu {gn_err:.3g}", flush=True)
+    return dict(zip((name for name, _, _ in counters), totals)), results
 
 
 def main() -> None:
@@ -816,7 +931,7 @@ def main() -> None:
 
     # 2. build
     t0 = time.perf_counter()
-    builds = attn.BUILDS + att.KERNEL.builds + gn.KERNEL.builds
+    builds = attn.BUILDS + att.KERNEL.builds + att.BACKWARD_KERNEL.builds + gn.KERNEL.builds
     cuda_build.build_all(builds)
     print(f"build: {len(builds)} kernel variants in {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -868,6 +983,7 @@ def main() -> None:
     t0 = time.perf_counter()
     k3_cases = check_linear_kernel(attn)
     k4_cases = check_blockwise_kernel(att)
+    k4b_cases = check_blockwise_backward(att)
     k5_cases = check_groupnorm_kernel(gn)
     var_launches, var_results = run_variants_path(args.seed + 6, attn, att, gn, nn_modules)
     print(f"variants: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -894,11 +1010,14 @@ def main() -> None:
             library_ms=None, launches_per_call=len(DS2_ATTENTION_BLOCKS),
             launches_per_train_step=len(DS2_ATTENTION_BLOCKS), cases=cases,
         ))
-    # K3-K5: the times of their launches in one bf16 run of the variants path
+    # K3-K5 and K4's backward: the times of their launches in one bf16 run
+    # of the variants path
     path_shapes = {"fused_linear_attention": [[DS3_BATCH, DS3_N, 32]],
                    "blockwise_attention": [[ATTENTION_BATCH, 4, DS3_N, D]],
+                   "blockwise_attention_backward": [[ATTENTION_BATCH, 4, DS3_N, D]],
                    "groupnorm_silu": [list(sh) for sh in K5_SHAPES]}
     for name, cases in (("fused_linear_attention", k3_cases), ("blockwise_attention", k4_cases),
+                        ("blockwise_attention_backward", k4b_cases),
                         ("groupnorm_silu", k5_cases)):
         bf16 = [c for c in cases if c["dtype"] == "bfloat16"]
         on_path = [c for c in bf16 if c["shape"] in path_shapes[name] and c.get("q_gain", 1) == 1]
@@ -908,14 +1027,15 @@ def main() -> None:
             launches_by_path={"generate": 0, "train": 0, "variants": var_launches[name]},
             max_abs_err=max(c["max_abs_err"] for c in bf16),
             ms=sum(c["kernel_ms"] for c in on_path), plain_ms=sum(c["plain_ms"] for c in on_path),
-            device_ms=(sum(c["device_ms"] for c in on_path)
-                       if name != "groupnorm_silu" else None),
+            device_ms=sum(c["device_ms"] for c in on_path),
             bound_ms=sum(c["bound_ms"] for c in on_path),
             bound_by="bytes" if all(c["bound_by"] == "bytes" for c in on_path) else "operations",
             library_ms=(sum(c["library_ms"] for c in on_path)
-                        if name == "blockwise_attention" else None),
+                        if name.startswith("blockwise_attention") else None),
             path_shapes=path_shapes[name], cases=cases,
         ))
+        if name == "groupnorm_silu":  # two PyTorch calls, so not a library time
+            kernels[-1]["two_call_ms"] = sum(c["two_call_ms"] for c in on_path)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"train": {k: v for k, v in train.items() if k != "steps"},
                       "train_step_losses": [s["loss"] for s in train["steps"]],

@@ -9,8 +9,9 @@ filled with NaN so a read before a write shows.  The kernel launch
 ``kernel<<<grid, block, smem, stream>>>(args)`` is rewritten into a call
 that runs the block's threads.  The libraries expose the same C entries as
 the nvcc builds and are called through the ops modules' ``launch*``
-functions with CPU tensors: K1/K2/K3 (``ops/linear_attention.py``), K4
-(``ops/attention.py``), K5 (``ops/groupnorm.py``).  This checks the
+functions with CPU tensors: K1/K2/K3 (``ops/linear_attention.py``), K4 and
+its backward (``ops/attention.py``), K5 (``ops/groupnorm.py``).  A source
+with several launches runs them in turn.  This checks the
 kernels' arithmetic, indexing, masking and barriers; it says nothing about
 their speed, and the card's own compiler may still refuse what g++ takes.
 Tolerances are the on-card ones (``ops/tolerances.py``).
@@ -30,16 +31,18 @@ from calodiffusion_tpu_torch.ops import attention as tatt
 from calodiffusion_tpu_torch.ops import cuda_build
 from calodiffusion_tpu_torch.ops import groupnorm as tgn
 from calodiffusion_tpu_torch.ops import linear_attention as tattn
-from calodiffusion_tpu_torch.ops.tolerances import K1_TOL, K2_TOL, K3_TOL, K4_TOL, K5_TOL
+from calodiffusion_tpu_torch.ops.tolerances import (K1_TOL, K2_TOL, K3_TOL, K4_TOL, K4B_TOL,
+                                                    K5_TOL)
 
 # every (kernel, variant) of the three ops modules
-JOBS = tattn.BUILDS + tatt.KERNEL.builds + tgn.KERNEL.builds
-ONE_DTYPE_KERNELS = {k.name: k for k in (tatt.KERNEL, tgn.KERNEL)}  # one library a dtype
+JOBS = tattn.BUILDS + tatt.KERNEL.builds + tatt.BACKWARD_KERNEL.builds + tgn.KERNEL.builds
+# one library a dtype
+ONE_DTYPE_KERNELS = {k.name: k for k in (tatt.KERNEL, tatt.BACKWARD_KERNEL, tgn.KERNEL)}
 
 
-def _job(module, dtype):
-    """The (kernel, variant) of K4's or K5's library for ``dtype``."""
-    return module.KERNEL.name, cuda_build.dtype_variant(dtype)
+def _job(module, dtype, kernel="KERNEL"):
+    """The (kernel, variant) of K4's, K4's backward's or K5's library for ``dtype``."""
+    return getattr(module, kernel).name, cuda_build.dtype_variant(dtype)
 
 
 EMULATION_HEADER = r"""
@@ -315,8 +318,9 @@ def _build(out_dir, name, defines):
     src = src.replace("extern __shared__ __align__(16) float smem[];",
                       "float* smem = emu_block->smem;")
     src, n = _LAUNCH.subn(r"emu_launch(\2, \3, \4, [&] { \1(\6); });", src)
-    # one <<<...>>> launch, or a cluster launch through cudaLaunchKernelEx
-    assert n + src.count("cudaLaunchKernelEx(") == 1, f"{name}.cu: expected one kernel launch"
+    # <<<...>>> launches (each rewritten), or a cluster launch through cudaLaunchKernelEx
+    assert "<<<" not in src, f"{name}.cu: a kernel launch the emulation cannot rewrite"
+    assert n + src.count("cudaLaunchKernelEx(") >= 1, f"{name}.cu: expected a kernel launch"
     tag = "_".join(d.replace("=", "") for d in defines)
     cpp, so = out_dir / f"{name}_{tag}.cpp", out_dir / f"{name}_{tag}.so"
     cpp.write_text(src)
@@ -747,3 +751,107 @@ def test_k4_k5_libraries_refuse_what_they_do_not_take(libs):
     x, ones = torch.zeros(1, 4, 32), torch.ones(32)
     with pytest.raises(RuntimeError, match="launch failed"):
         tgn.launch(libs[_job(tgn, torch.float32)], x, ones, ones, 5, 1e-5, True)
+
+
+# ---------------------------------------------------------------------------
+# K4's log-sum-exp and its backward kernel; K5's chunked statistics
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("B,H,N", [(1, 2, 1), (2, 1, 100), (1, 1, 200)])
+def test_blockwise_attention_lse_matches_logsumexp(libs, B, H, N, dtype):
+    """K4's forward with the rows' log-sum-exp asked for: the output is the
+    one without it, and lse is torch.logsumexp of the scaled f32 scores
+    (the log of a sum of at most 200 f32 terms taken in another order: 1e-5
+    absolute at |lse| < 10)."""
+    q, k, v = _qkv(B, H, N, dtype, seed=B + H + N + 2)
+    lib = libs[_job(tatt, dtype)]
+    out, lse = tatt.launch(lib, q, k, v, with_lse=True)
+    assert lse.shape == (B, H, N) and lse.dtype == torch.float32
+    assert torch.equal(out, tatt.launch(lib, q, k, v))
+    torch.testing.assert_close(lse, tatt.attention_lse_reference(q, k), atol=1e-5, rtol=0)
+
+
+def _attention_backward(libs, q, k, v, dout):
+    out, lse = tatt.launch(libs[_job(tatt, q.dtype)], q, k, v, with_lse=True)
+    return tatt.launch_backward(libs[_job(tatt, q.dtype, "BACKWARD_KERNEL")], q, k, v, out, lse,
+                                dout)
+
+
+# one key; N short of one 64-row tile; N past two tiles of 64 and one of
+# 128, with B*H = 2; q x 8 (a peaked softmax, where dS cancels) at N = 63 and 130
+K4B_CASES = [(1, 1, 1, 1), (1, 1, 63, 1), (2, 1, 130, 1), (1, 2, 63, 8), (1, 1, 130, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("B,H,N,gain", K4B_CASES)
+def test_blockwise_attention_backward_kernel_matches_plain(libs, B, H, N, gain, dtype):
+    """dq, dk, dv of K4's backward (its forward's out and lse) against
+    autograd of dense_attention, max-norm relative, within K4B_TOL."""
+    q, k, v, dout = (*_qkv(B, H, N, dtype, seed=B + H + N + gain),
+                     _qkv(B, H, N, dtype, seed=N + 99)[0])
+    q = (q.float() * gain).to(dtype)
+    got = _attention_backward(libs, q, k, v, dout)
+    want = tatt.attention_backward_reference(q, k, v, dout)
+    # where the plain gradient is zero (N = 1: a softmax over one key does not
+    # depend on q or k), the error is taken relative to dv's largest entry
+    floor = want[2].double().abs().max()
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == w.shape and a.dtype == w.dtype == dtype, name
+        a, w = a.double(), w.double()
+        scale = w.abs().max()
+        err = ((a - w).abs().max() / (scale if scale > 0 else floor)).item()
+        assert err <= K4B_TOL[dtype], f"{name}: max-norm relative error {err:.3g}"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_blockwise_attention_backward_is_deterministic_and_refuses_a_bad_scratch(libs, dtype):
+    """Two calls give the same gradients bit for bit; a library refuses the
+    other dtype and a scratch shorter than N rounded up to 128 rows."""
+    q, k, v = _qkv(1, 2, 130, dtype, seed=5)
+    dout = _qkv(1, 2, 130, dtype, seed=6)[0]
+    first, second = (_attention_backward(libs, q, k, v, dout) for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    lib = libs[_job(tatt, dtype, "BACKWARD_KERNEL")]
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    qo = q.to(other)
+    lse = torch.zeros(1, 2, 130)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tatt.launch_backward(lib, qo, qo, qo, qo, lse, qo)
+    stats = torch.empty(2, 2, 130)
+    rc = lib.calo_blockwise_attention_backward(
+        *(t.data_ptr() for t in (q, k, v, q, dout, lse, q.clone(), k.clone(), v.clone(), stats)),
+        2, 130, 130, 32, int(dtype == torch.bfloat16), 32 ** -0.5, None)
+    assert rc != 0
+
+
+# (shape, groups, SiLU, steps): chunks of 1-8 rows a thread, so a sample
+# spans one to seven chunks (the last one short); C = 16, 32, 64 and 96,
+# groups of 2, 4, 16 and 12 channels against 16-byte vectors of 8 bf16 or
+# 4 f32 channels (a vector straddles two to four groups, or a group two
+# vectors; at C = 96 a warp does not hold whole rows); one position
+GN_CHUNK_CASES = [((2, 300, 32), 8, True, 1), ((1, 500, 16), 8, False, 2),
+                  ((2, 130, 64), 4, True, 4), ((1, 7, 11, 96), 8, True, 1),
+                  ((1, 900, 32), 8, True, 8), ((2, 1, 16), 8, True, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("shape,groups,silu,steps", GN_CHUNK_CASES)
+def test_groupnorm_silu_kernel_chunks_match_plain(libs, shape, groups, silu, steps, dtype):
+    """K5's statistics over chunks of a sample, merged in a fixed order,
+    against the two-pass plain version; the same output bit for bit from two
+    calls."""
+    rng = np.random.default_rng(sum(shape) + steps)
+    x = torch.from_numpy((2.0 + rng.standard_normal(shape)).astype(np.float32)).to(dtype)
+    C = shape[-1]
+    scale = torch.from_numpy((1.0 + 0.1 * rng.standard_normal(C)).astype(np.float32))
+    bias = torch.from_numpy((0.1 * rng.standard_normal(C)).astype(np.float32))
+    lib = libs[_job(tgn, dtype)]
+    S = int(np.prod(shape[1:-1]))
+    chunks = lib.calo_groupnorm_silu_chunks(S, C, steps)
+    assert chunks >= (1 if S < 200 else 2), chunks
+    got = tgn.launch(lib, x, scale, bias, groups, 1e-5, silu, steps)
+    assert torch.equal(got, tgn.launch(lib, x, scale, bias, groups, 1e-5, silu, steps))
+    want = tgn.gn_silu_reference(x, scale, bias, groups, 1e-5, silu)
+    atol, rtol = K5_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)

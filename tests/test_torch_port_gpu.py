@@ -18,7 +18,8 @@ from calodiffusion_tpu_torch.models.diffusion import CaloDiffusion
 from calodiffusion_tpu_torch.ops import attention as tatt
 from calodiffusion_tpu_torch.ops import groupnorm as tgn
 from calodiffusion_tpu_torch.ops import linear_attention as tattn
-from calodiffusion_tpu_torch.ops.tolerances import K1_TOL, K2_TOL, K3_TOL, K4_TOL, K5_TOL
+from calodiffusion_tpu_torch.ops.tolerances import (K1_TOL, K2_TOL, K3_TOL, K4_TOL, K4B_TOL,
+                                                    K5_TOL)
 from calodiffusion_tpu_torch.utils.config import load_config
 
 CONFIG = Path(__file__).resolve().parent.parent / "configs" / "config_dataset2.json"
@@ -320,16 +321,58 @@ def test_blockwise_attention_kernel_ragged_and_peaked(B, H, N, q_gain, dtype):
                                atol=atol, rtol=rtol)
 
 
-def test_blockwise_attention_dispatch_and_no_backward():
+def _max_norm_rel(got, want):
+    """max |got - want| / max |want| of each pair, in float64."""
+    return [((a.double() - w.double()).abs().max() / w.double().abs().max()).item()
+            for a, w in zip(got, want)]
+
+
+def _plain_rows(B, H, N):
+    """Query rows a chunk of the plain gradient takes: ~0.5 GB of f32 scores."""
+    return max(1, (1 << 27) // (B * H * N))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("B,H,N", [(1, 2, 1), (2, 1, 100), (1, 2, 736), (1, 8, 4096),
+                                   (1, 2, 4097)])
+@pytest.mark.parametrize("q_gain", [1, 8])
+def test_blockwise_attention_backward_kernel_matches_plain(B, H, N, q_gain, dtype):
+    """K4's backward (from its forward's out and lse) against
+    attention_backward_reference, max-norm relative within K4B_TOL; where the
+    plain gradient is zero (N = 1), relative to dv's largest entry."""
+    q, k, v = _qkv(B, H, N, dtype, seed=B + H + N + q_gain)
+    q = (q.float() * q_gain).to(dtype)
+    dout = _qkv(B, H, N, dtype, seed=N + 7)[0]
+    before = tatt.blockwise_attention.backward_launches
+    out, lse = tatt.blockwise_attention_forward(q, k, v, with_lse=True)
+    got = tatt.blockwise_attention_backward(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    assert tatt.blockwise_attention.backward_launches == before + 1
+    want = tatt.attention_backward_reference(q, k, v, dout, _plain_rows(B, H, N))
+    floor = want[2].double().abs().max()
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == w.shape and a.dtype == w.dtype == dtype, name
+        scale = w.double().abs().max()
+        err = ((a.double() - w.double()).abs().max() / (scale if scale > 0 else floor)).item()
+        assert err <= K4B_TOL[dtype], f"{name}: max-norm relative error {err:.3g}"
+    again = tatt.blockwise_attention_backward(q, k, v, out, lse, dout)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_blockwise_attention_dispatch_and_backward():
     """On the card K4 runs at every N, below the JAX entry's dense limit of
-    2048 too, and its backward raises."""
+    2048 too, and a backward through the entry launches K4's backward kernel
+    once, its gradients within K4B_TOL of the plain ones."""
     for n, seed in ((736, 0), (2049, 1)):
         q, k, v = (t.requires_grad_(True) for t in _qkv(1, 2, n, torch.float32, seed=seed))
-        before = tatt.blockwise_attention.launches
+        f0, b0 = tatt.blockwise_attention.launches, tatt.blockwise_attention.backward_launches
         out = tatt.blockwise_attention(q, k, v)
-        assert tatt.blockwise_attention.launches == before + 1
-        with pytest.raises(NotImplementedError, match="forward only"):
-            out.sum().backward()
+        assert tatt.blockwise_attention.launches == f0 + 1
+        g = torch.randn_like(out)
+        got = torch.autograd.grad(out, (q, k, v), g)
+        assert tatt.blockwise_attention.backward_launches == b0 + 1
+        want = tatt.attention_backward_reference(q, k, v, g)
+        assert max(_max_norm_rel(got, want)) <= K4B_TOL[torch.float32]
 
 
 def test_attention_module_on_card_matches_cpu():
@@ -345,6 +388,27 @@ def test_attention_module_on_card_matches_cpu():
         got, want = card(x.cuda()), cpu(x)
     assert tatt.blockwise_attention.launches == before + 1
     torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=0)
+
+
+def test_attention_module_backward_on_card_matches_cpu():
+    """Attention(32, heads=4) in f32 on a 45 x 50 x 2 grid: the input's and
+    every parameter's gradient of mean(out^2), card (K4 and its backward
+    kernel, cuDNN with TF32 off) against CPU (autograd of the dense
+    formulation), max-norm relative: K4B_TOL[f32] through two 1x1 convs."""
+    cpu = nn_modules.Attention(32, heads=4, cylindrical=True,
+                               generator=torch.Generator().manual_seed(0))
+    card = nn_modules.Attention(32, heads=4, cylindrical=True).cuda()
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(2, 32, 45, 50, 2, generator=torch.Generator().manual_seed(2))
+    grads = []
+    for m, xx in ((card, x.cuda()), (cpu, x.clone())):
+        xx.requires_grad_(True)
+        b0 = tatt.blockwise_attention.backward_launches
+        (m(xx) ** 2).mean().backward()
+        assert tatt.blockwise_attention.backward_launches == b0 + (m is card)
+        grads.append([xx.grad.cpu()] + [p.grad.cpu() for p in m.parameters()])
+    errs = _max_norm_rel(*grads)
+    assert max(errs) <= K4B_TOL[torch.float32], errs
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
@@ -371,3 +435,27 @@ def test_groupnorm_silu_refuses_a_backward():
     out = tgn.groupnorm_silu(x, torch.ones(32, device="cuda"), torch.zeros(32, device="cuda"))
     with pytest.raises(NotImplementedError, match="forward only"):
         out.sum().backward()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("steps", [1, 2, 4, 8])
+def test_groupnorm_silu_kernel_chunk_sizes(steps, dtype):
+    """K5 with 1-8 rows a thread in a chunk at ds3 level 0's N (B = 2): up
+    to 844 chunks of a sample merged; the same output bit for bit twice."""
+    x, scale, bias = _gn_inputs((2, 45, 50, 18, 32), dtype, seed=steps)
+    lib = tgn.KERNEL.library(x)
+    got = tgn.launch(lib, x, scale, bias, 8, 1e-5, True, steps)
+    again = tgn.launch(lib, x, scale, bias, 8, 1e-5, True, steps)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    atol, rtol = K5_TOL[dtype]
+    torch.testing.assert_close(got.float(), tgn.gn_silu_reference(x, scale, bias, 8).float(),
+                               atol=atol, rtol=rtol)
+
+
+def _gn_inputs(shape, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    C = shape[-1]
+    return ((torch.randn(*shape, generator=g) + 0.5).to("cuda", dtype),
+            (1.0 + 0.1 * torch.randn(C, generator=g)).cuda(),
+            (0.1 * torch.randn(C, generator=g)).cuda())

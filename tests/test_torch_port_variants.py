@@ -184,18 +184,16 @@ def test_blockwise_attention_dispatch(monkeypatch, device, n, kernel):
 
 
 @pytest.mark.parametrize("module,launch_name,plain,call", [
-    (tatt, "launch", tatt.dense_attention,
-     lambda x: tatt._BlockwiseAttention.apply(x, x * 0.5, x * 2.0)),
     (tgn, "launch", tgn.gn_silu_reference,
      lambda x: tgn._GroupNormSiLU.apply(x, torch.ones(32), torch.zeros(32), 8, 1e-5, True)),
-], ids=["K4", "K5"])
+], ids=["K5"])
 def test_k4_k5_refuse_a_backward(monkeypatch, module, launch_name, plain, call):
-    """K4 and K5 are forward only, as in the JAX package: the forward
-    launches the kernel (swapped for the plain version here), and a backward
-    through it raises and says so, rather than differentiating the plain
-    version quietly."""
+    """K5 is forward only, as in the JAX package: the forward launches the
+    kernel (swapped for the plain version here), and a backward through it
+    raises and says so, rather than differentiating the plain version
+    quietly.  (K4 has a backward kernel: the test below.)"""
     _swap_in_plain(monkeypatch, module, launch_name, plain)
-    counter = module.blockwise_attention if module is tatt else module.groupnorm_silu
+    counter = module.groupnorm_silu
     x = torch.randn(1, 2, 40, 32, generator=torch.Generator().manual_seed(0),
                     requires_grad=True)
     before = counter.launches
@@ -203,6 +201,45 @@ def test_k4_k5_refuse_a_backward(monkeypatch, module, launch_name, plain, call):
     assert counter.launches == before + 1 and out.grad_fn is not None
     with pytest.raises(NotImplementedError, match="forward only"):
         out.sum().backward()
+
+
+def test_k4_autograd_function_launches_both_kernels_and_returns_every_gradient(monkeypatch):
+    """The autograd.Function that carries K4 on the card, its kernels'
+    launches swapped for their plain versions: the forward goes through K4's
+    wrapper asking for the rows' log-sum-exp (one forward launch counted),
+    the backward through its backward kernel's wrapper (one backward launch
+    counted), and dq, dk and dv reach q, k and v as autograd of the plain
+    version gives them.  When no input needs a gradient the forward asks no
+    lse."""
+    asked = []
+
+    def forward(lib, q, k, v, with_lse=False):
+        asked.append(with_lse)
+        out = tatt.dense_attention(q, k, v)
+        return (out, tatt.attention_lse_reference(q, k)) if with_lse else out
+
+    monkeypatch.setattr(tatt.KERNEL, "library", lambda *a: None)
+    monkeypatch.setattr(tatt.BACKWARD_KERNEL, "library", lambda *a: None)
+    monkeypatch.setattr(tatt, "launch", forward)
+    monkeypatch.setattr(tatt, "launch_backward", lambda lib, q, k, v, out, lse, dout:
+                        tatt.attention_backward_reference(q, k, v, dout))
+    q, k, v = (torch.from_numpy(a).requires_grad_(True) for a in _qkv(1, 2, 40, seed=7))
+    f0, b0 = tatt.blockwise_attention.launches, tatt.blockwise_attention.backward_launches
+    out = tatt._BlockwiseAttention.apply(q, k, v)
+    assert (tatt.blockwise_attention.launches, tatt.blockwise_attention.backward_launches,
+            asked) == (f0 + 1, b0, [True])
+    g = torch.from_numpy(np.random.default_rng(8).standard_normal(out.shape).astype(np.float32))
+    got = torch.autograd.grad(out, (q, k, v), g)
+    assert (tatt.blockwise_attention.launches,
+            tatt.blockwise_attention.backward_launches) == (f0 + 1, b0 + 1)
+    plain = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(tatt.dense_attention(*plain), plain, g)
+    for a, w in zip(got, want):
+        assert a is not None and a.shape == w.shape
+        torch.testing.assert_close(a, w, rtol=0, atol=0)
+    with torch.no_grad():  # q, k, v from a module's projection need no gradient here
+        tatt._BlockwiseAttention.apply(q.detach(), k.detach(), v.detach())
+    assert asked == [True, False]
 
 
 # ---------------------------------------------------------------------------
@@ -362,4 +399,34 @@ def test_linear_attention_module_gradients_match_jax(heads):
     for k, w in want.items():
         scale = float(w.abs().max()) + 1e-12
         err = float((got[k] - w).abs().max()) / scale
+        assert err < 2e-4, f"{k}: max-norm relative error {err:.2e}"
+
+
+@pytest.mark.parametrize("cylindrical", [False, True])
+def test_attention_module_gradients_match_jax(cylindrical):
+    """Attention(32, heads=4) on the CPU (autograd of the dense formulation):
+    the loss mean(out^2), the input's and every parameter's gradient against
+    jax.value_and_grad of the JAX module (its dense branch, which the JAX
+    entry takes on the CPU at every N).  f32 on both sides, sums in other
+    orders: loss 1e-5 relative, gradients 2e-4 max-norm relative, as the
+    LinearAttention gradients above."""
+    jm = jnn.Attention(heads=4, cylindrical=cylindrical)
+    tm = tnn.Attention(32, heads=4, cylindrical=cylindrical)
+    x = np.random.default_rng(50 + cylindrical).standard_normal((2, 45, 4, 3, 32))
+    x = x.astype(np.float32)
+    params = _random_params(jm, jnp.asarray(x), 50 + cylindrical)
+    tm.load_state_dict(module_params_to_state_dict(params, "Attention"))
+    loss_j, (grads_j, gx_j) = jax.jit(jax.value_and_grad(
+        lambda p, xx: jnp.mean(jm.apply(p, xx) ** 2), argnums=(0, 1)))(params, jnp.asarray(x))
+    xt = _ncdhw(x).requires_grad_(True)
+    loss_t = (tm(xt) ** 2).mean()
+    loss_t.backward()
+    np.testing.assert_allclose(loss_t.item(), float(loss_j), rtol=1e-5)
+    want = module_params_to_state_dict(jax.tree_util.tree_map(np.array, grads_j), "Attention")
+    got = {k: p.grad for k, p in tm.named_parameters()}
+    assert set(got) == set(want)
+    got["x"], want["x"] = torch.from_numpy(_ndhwc(xt.grad).copy()), torch.from_numpy(
+        np.asarray(gx_j))
+    for k, w in want.items():
+        err = float((got[k] - w).abs().max()) / (float(w.abs().max()) + 1e-12)
         assert err < 2e-4, f"{k}: max-norm relative error {err:.2e}"
