@@ -1,6 +1,7 @@
 // Helpers shared by every kernel of csrc/: the compute dtype of the build,
 // dtype conversions, 16-byte row loads and stores, the tensor-core,
-// ldmatrix and cp.async primitives, and a block-wide sum.
+// ldmatrix and cp.async primitives, and a block-wide sum.  Hopper's TMA,
+// mbarriers and wgmma are in hopper.cuh.
 //
 // Each source builds once per variant; -DCALO_BF16=0|1 picks the compute
 // dtype (bf16 or f32), so the variants compile in parallel and each
@@ -119,8 +120,9 @@ __device__ __forceinline__ float bf16_lo(unsigned u) { return __uint_as_float(u 
 __device__ __forceinline__ float bf16_hi(unsigned u) { return __uint_as_float(u & 0xffff0000u); }
 
 #if defined(CALO_EMULATION)
-// the emulation header defines emu_ldmatrix, emu_mma_bf16, emu_cp_async16,
-// emu_cp_async_commit, emu_cp_async_wait
+// the emulation header defines emu_smem_addr, emu_ldmatrix, emu_mma_bf16,
+// emu_cp_async16, emu_cp_async_commit, emu_cp_async_wait
+__device__ __forceinline__ unsigned smem_addr(const void* p) { return emu_smem_addr(p); }
 __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
   emu_ldmatrix(r, p, false);
 }

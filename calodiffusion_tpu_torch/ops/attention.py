@@ -15,8 +15,13 @@ oracle (jax.grad of ``_dense_attention``, pallas_attention.py:70-77; its
 Pallas kernel defines no VJP).  On the card K4's forward also writes each
 row's log-sum-exp, and its backward is a second hand-written kernel,
 ``csrc/blockwise_attention_bwd.cu`` (FlashAttention-2's backward, dq, dk
-and dv in q's dtype), counted in ``blockwise_attention.backward_launches``.
-On the CPU autograd differentiates the dense formulation;
+and dv in q's dtype), counted in ``blockwise_attention.backward_launches``:
+two deterministic passes (dq over query tiles, then dk/dv over key tiles,
+no atomics), in bf16 on Hopper's machinery (128-row CTAs of two consumer
+warpgroups and a TMA producer, every product a ``wgmma``; ``hopper.cuh``),
+in f32 on the CUDA cores.  The C entry encodes the TMA tensor maps of q,
+k, v and dO itself, so this wrapper passes the same pointers in both
+dtypes.  On the CPU autograd differentiates the dense formulation;
 ``attention_backward_reference`` is the backward's plain version.
 
 Bound on the card: at D = 32 one exponential per score against 4 D FLOPs of

@@ -6,7 +6,8 @@ this package (listed in ``.gitignore``), named after a hash of every
 source and header of ``csrc/`` and the flags, so an edited source builds
 anew and an unchanged one loads at once.  The compiler's
 register/shared-memory report (``-Xptxas -v``) is kept beside the library
-as ``<name>.log``.  ``build_all`` runs one ``nvcc`` per source, all at once.
+as ``<name>.log``.  ``build_all`` runs one ``nvcc`` per source, all at once;
+``sass_count`` counts an instruction in a built library.
 
 Below the build, the helpers every kernel wrapper shares: binding a C
 entry, checking its tensors, the stream and device of a launch, raising on
@@ -37,17 +38,35 @@ NVCC_FLAGS = (
 )
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def _cuda_tool(name: str) -> str:
+    found = shutil.which(name)
     if found:
         return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / name
     if cand.exists():
         return str(cand)
     raise RuntimeError(
-        "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels of "
+        f"{name} not found (PATH, $CUDA_HOME/bin): the CUDA kernels of "
         "calodiffusion_tpu_torch are built on first use"
     )
+
+
+def _nvcc() -> str:
+    return _cuda_tool("nvcc")
+
+
+def sass_count(library: Path, opcode: str) -> int:
+    """How many instructions of ``opcode`` (such as ``HGMMA``, the SASS of
+    wgmma) the built ``library`` holds, by ``cuobjdump -sass``."""
+    proc = subprocess.run([_cuda_tool("cuobjdump"), "-sass", str(library)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed for {library}:\n{proc.stderr}")
+    count = 0
+    for line in proc.stdout.splitlines():  # "/*0120*/  [@P0] HGMMA.64x64x16.F32.BF16 ... ;"
+        words = [w for w in line.split("*/", 1)[-1].split() if not w.startswith("@")]
+        count += "*/" in line and bool(words) and words[0].startswith(opcode)
+    return count
 
 
 def library_path(name: str, defines: tuple[str, ...] = ()) -> Path:

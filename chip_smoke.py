@@ -9,7 +9,9 @@ prints no result:
 1. card     the card's name and power limit (nvidia-smi), torch and CUDA versions
 2. build    every kernel of every path (K1-K5 and K4's backward), each
             variant with its own nvcc, all at once, from this checkout; their
-            register/spill lines
+            register/spill lines (and ptxas's wgmma notes); the count of
+            HGMMA (wgmma) instructions in K4's bf16 backward library
+            (cuobjdump -sass), which must not be 0
 3. kernels  K1 and K2 against their plain PyTorch versions on the card at the
             shapes of the ds2 paths (batch 128), in bf16 and f32, with their
             times (CUDA events around a call, and the device time with the
@@ -938,8 +940,13 @@ def main() -> None:
     for name, defines in builds:
         log = cuda_build.library_path(name, defines).with_suffix(".log")
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "wgmma" in line:
                 print(f"build: {name}.cu {' '.join(defines)}: {line.strip()}", flush=True)
+    k4b_lib = cuda_build.library_path(*att.BACKWARD_KERNEL.builds[0])  # bf16
+    hgmma = cuda_build.sass_count(k4b_lib, "HGMMA")
+    print(f"build: {k4b_lib.name}: {hgmma} HGMMA (wgmma) instructions", flush=True)
+    if hgmma == 0:
+        fail("K4's bf16 backward holds no wgmma (HGMMA) instruction")
 
     # 3. kernels
     torch.backends.cudnn.allow_tf32 = False
@@ -1036,6 +1043,8 @@ def main() -> None:
         ))
         if name == "groupnorm_silu":  # two PyTorch calls, so not a library time
             kernels[-1]["two_call_ms"] = sum(c["two_call_ms"] for c in on_path)
+        if name == "blockwise_attention_backward":
+            kernels[-1]["hgmma_instructions"] = hgmma
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"train": {k: v for k, v in train.items() if k != "steps"},
                       "train_step_losses": [s["loss"] for s in train["steps"]],

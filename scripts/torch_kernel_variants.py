@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Design variants of the K4, K1 and K2 kernels, timed on one CUDA card.
+"""Design variants of the K4, K1, K2 kernels and K4's backward, timed on one CUDA card.
 
-    python3 scripts/torch_kernel_variants.py [--out FILE]
+    python3 scripts/torch_kernel_variants.py [--out FILE] [--kernels k4b] [--baseline DIR]
 
 Each variant is the kernel's source in ``calodiffusion_tpu_torch/csrc/``
 with a few text substitutions (a constant changed, two instructions
@@ -20,11 +20,27 @@ and whether it stays within the kernel's tolerance of its plain version.
 - K2 (the attention block's backward) at the ds2 shapes, batch 128: as
   built (8 warps a CTA), with 16 warps, and as built at a forced cluster
   size of 4, 8 and 16; then stamped as K1, at (6480, 32).
+- K4's backward (dq, dk, dv of softmax attention) at chip_smoke.py's K4
+  shapes (B, H, N) = (1, 8, 4096), (2, 4, 736), (1, 4, 40,500), (4, 4,
+  40,500): as built (the plan picked by grid size) and, by substitution,
+  each plan forced (``Plan<C, BT>``: 2 or 3 consumer warpgroups of 64 rows
+  a CTA, streamed tiles of 64 or 128 rows), 3 stages in the TMA ring, and
+  FlashAttention-3's ping-pong (two consumer warpgroups taking turns to
+  issue a tile's S and dP, on hardware barriers), each checked within
+  K4B_TOL of the plain gradient, its device time and CUDA-event time, the
+  HGMMA (wgmma) instructions in its library and its register lines; the
+  f32 build, in two rounds of opposite order, each pass's time apart; two
+  ablations that drop the exponentials (wrong by design, timed only); and
+  SDPA's backward (CUDA events around ``torch.autograd.grad``).
 - With ``--baseline DIR`` (another checkout of the repository, such as the
   parent commit, whose K2 and K3 take the C signatures they had before
   their cluster designs): that checkout's K2 at the ds2 shapes and K3 at
-  the ds2 shapes and dataset 3's (64, 40,500, 32), bf16, beside this
+  the ds2 shapes and dataset 3's (64, 40,500, 32), bf16, and its K4
+  backward at the K4 shapes in bf16 and f32 (the same C entry), beside this
   checkout's, each by its device time in one trace.
+
+``--kernels k4b`` (any of k4, k1, k2, k4b, comma-separated; all by
+default) runs only those sections, the baseline's too.
 """
 
 from __future__ import annotations
@@ -46,7 +62,7 @@ sys.path.insert(0, str(ROOT))
 from calodiffusion_tpu_torch.ops import attention as att  # noqa: E402
 from calodiffusion_tpu_torch.ops import cuda_build  # noqa: E402
 from calodiffusion_tpu_torch.ops import linear_attention as la  # noqa: E402
-from calodiffusion_tpu_torch.ops.tolerances import K1_TOL, K2_TOL, K4_TOL  # noqa: E402
+from calodiffusion_tpu_torch.ops.tolerances import K1_TOL, K2_TOL, K4_TOL, K4B_TOL  # noqa: E402
 
 OUT_DIR = cuda_build.BUILD_DIR / "variants"
 K4_SHAPES = [(4, 4, 40500), (1, 8, 4096), (2, 4, 736)]
@@ -101,6 +117,56 @@ K2_TRACE = _stamped(["  auto make_xn = [&](int tile) { stage_input<true>",
 K2_PHASES = ["x, g load + pre-GN statistics", "phase A (ctx) + merge",
              "phase B (y) + statistics", "phase G (S1, S2)", "phase M (dq, dctx) + merge",
              "phase R (r_d) + merge", "phase K (dk, dv, dxn) + merge", "phase F (dx)"]
+# K4's backward: chip_smoke.py's K4 shapes, and the bf16 design's variants
+K4B_SHAPES = [(1, 8, 4096), (2, 4, 736), (1, 4, 40500), (4, 4, 40500)]
+# and ablations, wrong by design and timed only: the exponentials replaced
+# by their FFMA's result (what the special-function units cost)
+NO_EXP = [("sc[i] = col < nk ? exp2_approx(fmaf(sc[i], c, -lse2[(i >> 1) & 1])) : 0.f;",
+           "sc[i] = col < nk ? fmaf(sc[i], c, -lse2[(i >> 1) & 1]) : 0.f;"),
+          ("sc[i] = exp2_approx(fmaf(sc[i], c, -lt[col]));", "sc[i] = fmaf(sc[i], c, -lt[col]);")]
+
+
+def plan(consumers: int, rows: int):
+    """Every shape on Plan<consumers, rows> (the launch's choice by grid size dropped)."""
+    return [("using SmallGrid = Plan<2, 128>;", f"using SmallGrid = Plan<{consumers}, {rows}>;"),
+            ("if (large_ctas >= 4LL * sms)", "if (false && large_ctas >= 4LL * sms)")]
+
+
+S3 = [("constexpr int STAGES = 2;", "constexpr int STAGES = 3;")]
+# FlashAttention-3's ping-pong: two consumer warpgroups take turns to issue
+# a tile's S and dP products (hardware barriers 1 and 2), so that one's
+# exponentials run beside the other's products
+_TURNS = """// two consumer warpgroups take turns to issue a tile's S and dP
+template <class P> __device__ __forceinline__ void turn_begin(int wg, int j) {
+  if (P::CONSUMERS == 2) {
+    if (j == 0 && wg == 1) asm volatile("bar.arrive 1, 256;\\n" ::: "memory");  // warpgroup 0 first
+    asm volatile("bar.sync %0, 256;\\n" ::"r"(1 + wg) : "memory");
+  }
+}
+template <class P> __device__ __forceinline__ void turn_end(int wg, int j, int n_tiles) {
+  if (P::CONSUMERS == 2 && !(wg == 1 && j == n_tiles - 1))
+    asm volatile("bar.arrive %0, 256;\\n" ::"r"(2 - wg) : "memory");
+}
+
+"""
+PINGPONG = [("// descriptors of a streamed tile", _TURNS + "// descriptors of a streamed tile"),
+            ("    float sc[BT / 2], dp[BT / 2];\n    wgmma_fence();\n",
+             "    float sc[BT / 2], dp[BT / 2];\n    turn_begin<P>(wg, j);\n    wgmma_fence();\n"),
+            ("    wgmma_commit();\n    wgmma_wait<1>();\n    fence_operands(sc);\n",
+             "    wgmma_commit();\n    turn_end<P>(wg, j, n_tiles);\n    wgmma_wait<1>();\n"
+             "    fence_operands(sc);\n")]
+K4B_VARIANTS = {  # name: text substitutions
+    "as_built": [],  # the plan by grid size: c2_bt128 or c3_bt64
+    "c2_bt64": plan(2, 64),
+    "c2_bt128": plan(2, 128),
+    "c3_bt64": plan(3, 64),
+    "c2_bt128_s3": plan(2, 128) + S3,
+    "c3_bt64_s3": plan(3, 64) + S3,
+    "c2_bt64_pingpong": plan(2, 64) + PINGPONG,
+    "c2_bt128_pingpong": plan(2, 128) + PINGPONG,
+    "c2_bt128_no_exp": plan(2, 128) + NO_EXP,
+    "c3_bt64_no_exp": plan(3, 64) + NO_EXP,
+}
 K1_VARIANTS = {
     "as_built": [],
     "warps_8": [("constexpr int THREADS = CALO_BF16 && C == 32 ? 512 : 256;",
@@ -117,7 +183,7 @@ K2_STAMPED_SHAPE = (32, 6480)
 
 def write_variant(kernel: str, name: str, subs) -> Path:
     src = (cuda_build.CSRC_DIR / f"{kernel}.cu").read_text()
-    for old, new in subs:
+    for old, new in subs:  # each occurrence
         if old not in src:
             raise SystemExit(f"{kernel}.cu: variant {name} no longer applies ({old.strip()!r})")
         src = src.replace(old, new)
@@ -139,16 +205,36 @@ def build(job):
     return job, ctypes.CDLL(str(so)), regs
 
 
-def device_ms(fn, key: str, reps: int) -> float:
-    """Device time of one call: kernels named ``key`` in a profiler trace."""
+def events_ms(fn, reps: int) -> float:
+    """Mean time of one call, CUDA events around ``reps`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms_by(fn, keys, reps: int) -> dict:
+    """Device time of one call, by kernel: those whose names hold each of
+    ``keys``, in a profiler trace."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(getattr(ev, "self_device_time_total", 0.0) for ev in prof.key_averages()
-               if key in ev.key) / 1e3 / reps
+    events = prof.key_averages()
+    return {key: sum(getattr(ev, "self_device_time_total", 0.0) for ev in events
+                     if key in ev.key) / 1e3 / reps for key in keys}
+
+
+def device_ms(fn, key: str, reps: int) -> float:
+    """Device time of one call: kernels named ``key`` in a profiler trace."""
+    return device_ms_by(fn, [key], reps)[key]
 
 
 def read_phases(lib, n_cta: int, names) -> dict:
@@ -232,27 +318,121 @@ def baseline_linear(lib, x, w_qkv, w_out, b_out):
     cuda_build.raise_on(rc, "baseline K3", x)
 
 
-def compare_baseline(root: Path) -> dict:
-    """Device ms of the baseline checkout's K2 and K3 beside this one's, bf16."""
+def k4b_inputs(B, H, N, dtype):
+    """q, k, v, dO of K4's backward (chip_smoke.py's seeds) and its forward's out and lse."""
+    g = torch.Generator().manual_seed(B + H + N + 1)
+    q, k, v, dout = (torch.randn(B, H, N, 32, generator=g).cuda().to(dtype) for _ in range(4))
+    out, lse = att.blockwise_attention_forward(q, k, v, with_lse=True)
+    return q, k, v, out, lse, dout
+
+
+def k4b_reps(N) -> int:
+    return 5 if N > 8192 else 20
+
+
+_K4B_CASES = {}  # (dtype, shape) -> (inputs, plain gradient), made once
+
+
+def k4b_case(dtype, shape):
+    if (dtype, shape) not in _K4B_CASES:
+        B, H, N = shape
+        args = k4b_inputs(B, H, N, dtype)
+        want = att.attention_backward_reference(*args[:3], args[5],
+                                                max(1, (1 << 29) // (B * H * N)))
+        _K4B_CASES[(dtype, shape)] = args, want
+    return _K4B_CASES[(dtype, shape)]
+
+
+def time_k4b(libs: dict, label: str) -> dict:
+    """Each library's K4 backward ({(name, dtype): lib}) at K4B_SHAPES:
+    within K4B_TOL of the plain gradient, its device time (both passes)
+    from a trace, and its time by CUDA events (launch costs included)."""
+    out = {}
+    for (name, dtype), lib in libs.items():
+        for shape in K4B_SHAPES:
+            args, want = k4b_case(dtype, shape)
+            got = att.launch_backward(lib, *args)
+            err = max(rel_err(a, w) for a, w in zip(got, want))
+            by = device_ms_by(lambda: att.launch_backward(lib, *args),
+                              ["attention_dq_kernel", "attention_dkdv_kernel"],
+                              reps=k4b_reps(shape[2]))
+            dq_ms, dkdv_ms = by.values()
+            ev = events_ms(lambda: att.launch_backward(lib, *args), reps=k4b_reps(shape[2]))
+            tag = f"{label}{name} {str(dtype)[6:]} {shape}"
+            out[tag] = dict(ms=dq_ms + dkdv_ms, dq_ms=dq_ms, dkdv_ms=dkdv_ms, events_ms=ev,
+                            max_norm_rel_err=err, within_tol=err <= K4B_TOL[dtype])
+            print(f"K4 backward {tag}: {dq_ms + dkdv_ms:.4f} ms device (dq pass {dq_ms:.4f}, "
+                  f"dk/dv pass {dkdv_ms:.4f}), {ev:.4f} ms events, max-norm rel err {err:.3g} "
+                  f"(K4B_TOL {K4B_TOL[dtype]})", flush=True)
+    return out
+
+
+def k4b_libs(built, names) -> dict:
+    """{(name, dtype): bound library} of this checkout's K4 backward builds."""
+    return {(name, torch.float32 if name == "f32" else torch.bfloat16):
+            att.BACKWARD_KERNEL.bind(built[(att.BACKWARD_KERNEL.name, name)][0]) for name in names}
+
+
+def k4b_section(built) -> dict:
+    """K4's backward: the design's variants (bf16) and the f32 build, with
+    SDPA's backward timed beside them."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    names = [*K4B_VARIANTS, "f32"]
+    result = {"variants": {}, "sdpa_backward": {}}
+    for rnd, order in enumerate((names, names[::-1])):  # two rounds, in opposite orders
+        result["variants"].update(time_k4b(k4b_libs(built, order), f"round {rnd} "))
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, H, N in K4B_SHAPES:
+            (q, k, v, _, _, dout), _ = k4b_case(dtype, (B, H, N))
+            ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
+            o = sdpa(ql, kl, vl)
+            ms = events_ms(lambda: torch.autograd.grad(o, (ql, kl, vl), dout, retain_graph=True),
+                           reps=k4b_reps(N))
+            result["sdpa_backward"][f"{str(dtype)[6:]} {(B, H, N)}"] = ms
+            print(f"SDPA backward {str(dtype)[6:]} {(B, H, N)}: {ms:.4f} ms (events)", flush=True)
+    return result
+
+
+def compare_baseline(root: Path, sections, built) -> dict:
+    """Device ms of the baseline checkout's K2 and K3 (bf16) and K4 backward
+    (bf16, f32) beside this one's."""
     csrc = root / "calodiffusion_tpu_torch" / "csrc"
-    jobs = {(name, C): (csrc / f"{name}.cu", la.variant(torch.bfloat16, C))
-            for name in BASELINE_ENTRIES for C in (32, 64)}
+    jobs = {}
+    if "k2" in sections:
+        jobs.update({(name, C): (csrc / f"{name}.cu", la.variant(torch.bfloat16, C))
+                     for name in BASELINE_ENTRIES for C in (32, 64)})
+    if "k4b" in sections:
+        jobs.update({(att.BACKWARD_KERNEL.name, dt): (csrc / f"{att.BACKWARD_KERNEL.name}.cu",
+                                                      cuda_build.dtype_variant(dt))
+                     for dt in (torch.bfloat16, torch.float32)})
 
     def build_baseline(item):
         (name, C), (src, defines) = item
-        so = OUT_DIR / f"baseline-{name}-{C}.so"
+        so = OUT_DIR / f"baseline-{name}-{str(C).replace('torch.', '')}.so"
         cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, f"-I{csrc}",
                *(f"-D{d}" for d in defines), "-o", str(so), str(src)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise SystemExit(f"nvcc failed for the baseline's {src.name}:\n{proc.stderr[-4000:]}")
         lib = ctypes.CDLL(str(so))
+        if name == att.BACKWARD_KERNEL.name:  # the same C entry as this checkout's
+            return (name, C), att.BACKWARD_KERNEL.bind(lib)
         entry, argtypes = BASELINE_ENTRIES[name]
         return (name, C), cuda_build.bind(lib, entry, argtypes)
 
     with ThreadPoolExecutor(len(jobs)) as pool:
         base = dict(pool.map(build_baseline, jobs.items()))
     out = {}
+    if "k4b" in sections:
+        name = att.BACKWARD_KERNEL.name
+        mine = {(f"this {n}", dt): lib for (n, dt), lib in k4b_libs(built, ["as_built", "f32"]).items()}
+        theirs = {("baseline", dt): base[(name, dt)] for dt in (torch.bfloat16, torch.float32)}
+        # in turns: baseline, this, this, baseline
+        for turn, libs in enumerate((theirs, mine, mine, theirs)):
+            out.update(time_k4b(libs, f"turn {turn} "))
+    if "k2" not in sections:
+        return out
     for C, N in K1_SHAPES:
         x_args = block_inputs(N, C, seed=C + N + 1)
         g = torch.randn(BATCH, N, C, generator=torch.Generator().manual_seed(N - C))
@@ -284,30 +464,54 @@ def compare_baseline(root: Path) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, help="JSON file for the results")
-    ap.add_argument("--baseline", type=Path, help="another checkout whose K2 and K3 to time")
+    ap.add_argument("--baseline", type=Path,
+                    help="another checkout whose K2, K3 and K4 backward to time")
+    ap.add_argument("--kernels", default="k4,k1,k2,k4b",
+                    help="the sections to run, comma-separated (k4, k1, k2, k4b)")
     args = ap.parse_args()
+    sections = set(args.kernels.split(","))
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = [(write_variant(att.KERNEL.name, n, subs), ("CALO_BF16=1",))
-            for n, subs in K4_VARIANTS.items()]
-    jobs += [(write_variant(la.FORWARD_KERNEL, n, subs), la.variant(torch.bfloat16, C))
-             for n, subs in K1_VARIANTS.items() for C in (32, 64)]
-    jobs += [(write_variant(la.BACKWARD_KERNEL, n, subs), la.variant(torch.bfloat16, C))
-             for n, subs in K2_VARIANTS.items() for C in (32, 64)]
-    with ThreadPoolExecutor(len(jobs)) as pool:
+    jobs = []
+    if "k4" in sections:
+        jobs += [(write_variant(att.KERNEL.name, n, subs), ("CALO_BF16=1",))
+                 for n, subs in K4_VARIANTS.items()]
+    if "k1" in sections:
+        jobs += [(write_variant(la.FORWARD_KERNEL, n, subs), la.variant(torch.bfloat16, C))
+                 for n, subs in K1_VARIANTS.items() for C in (32, 64)]
+    if "k2" in sections:
+        jobs += [(write_variant(la.BACKWARD_KERNEL, n, subs), la.variant(torch.bfloat16, C))
+                 for n, subs in K2_VARIANTS.items() for C in (32, 64)]
+    k4b_jobs = {}
+    if "k4b" in sections:
+        k4b = att.BACKWARD_KERNEL.name
+        k4b_jobs = {(k4b, n): (write_variant(k4b, n, subs), ("CALO_BF16=1",))
+                    for n, subs in K4B_VARIANTS.items()}
+        k4b_jobs[(k4b, "f32")] = (write_variant(k4b, "f32", []), ("CALO_BF16=0",))
+        jobs += list(k4b_jobs.values())
+    with ThreadPoolExecutor(max(1, len(jobs))) as pool:
         built = {job: (lib, regs) for job, lib, regs in pool.map(build, jobs)}
+    built.update({key: built[job] for key, job in k4b_jobs.items()})
     result = {"card": card, "k4": {}, "k1": {}, "k1_phases": {}, "k2": {}, "k2_phases": {}}
-    for (src, defines), (_, regs) in built.items():
-        print(f"build {src.stem} {' '.join(defines)}: {'; '.join(regs)}", flush=True)
+    for job in jobs:
+        src, defines = job
+        print(f"build {src.stem} {' '.join(defines)}: {'; '.join(built[job][1])}", flush=True)
+    for key, (src, defines) in k4b_jobs.items():
+        so = src.with_name(f"{src.stem}-{'-'.join(d.replace('=', '') for d in defines)}.so")
+        hgmma = cuda_build.sass_count(so, "HGMMA")
+        result.setdefault("k4b_hgmma", {})[key[1]] = hgmma
+        print(f"build {src.stem} {' '.join(defines)}: {hgmma} HGMMA instructions", flush=True)
 
     def lib_of(kernel, name, defines):
         return built[(OUT_DIR / f"{kernel}-{name}.cu", defines)][0]
 
-    for B, H, N in K4_SHAPES:
+    if "k4b" in sections:
+        result["k4b"] = k4b_section(built)
+    for B, H, N in K4_SHAPES if "k4" in sections else []:
         g = torch.Generator().manual_seed(N)
         q, k, v = (torch.randn(B, H, N, 32, generator=g).cuda().bfloat16() for _ in range(3))
         want = att.dense_attention(q, k, v, q_rows=max(1, (1 << 29) // (B * H * N)))
@@ -319,7 +523,7 @@ def main() -> None:
             result["k4"][f"{name} {(B, H, N)}"] = dict(ms=ms, within_tol=ok)
             print(f"K4 {name} {(B, H, N)}: {ms:.4f} ms, within K4_TOL {ok}", flush=True)
 
-    for C, N in K1_SHAPES:
+    for C, N in K1_SHAPES if "k1" in sections else []:
         x_args = block_inputs(N, C, seed=C + N)
         want = la.attention_block_reference(*x_args)
         defines = la.variant(torch.bfloat16, C)
@@ -336,7 +540,7 @@ def main() -> None:
                 result["k1_phases"][f"{(BATCH, N, C)}"] = read_phases(lib, BATCH * plan["G"],
                                                                       PHASES)
 
-    for C, N in K1_SHAPES:
+    for C, N in K1_SHAPES if "k2" in sections else []:
         x_args = block_inputs(N, C, seed=C + N + 1)
         g = torch.randn(BATCH, N, C, generator=torch.Generator().manual_seed(N - C))
         g = g.cuda().bfloat16()
@@ -359,7 +563,7 @@ def main() -> None:
                 result["k2_phases"][f"{(BATCH, N, C)}"] = read_phases(lib, BATCH * plan["G"],
                                                                       K2_PHASES)
     if args.baseline:
-        result["baseline"] = compare_baseline(args.baseline)
+        result["baseline"] = compare_baseline(args.baseline, sections, built)
     if args.out:
         args.out.write_text(json.dumps(result, indent=1))
 

@@ -51,11 +51,19 @@ EMULATION_HEADER = r"""
 // mma.sync and ldmatrix via per-warp buffers, cp.async as copies deferred to
 // their wait, the CTAs of a thread-block cluster run together (cluster.sync
 // a barrier over their threads, map_shared_rank onto the other CTA's
-// buffer).  Shared memory is poisoned with NaN (all-ones bytes: NaN as f32
-// and as bf16).
+// buffer); Hopper's mbarriers (arrivals, transaction bytes, phases), TMA
+// tiles (swizzled, landing when issued), and wgmma (register A gathered
+// over the warpgroup when issued, run at the wait_group that retires it, B
+// read through the descriptor then); setmaxnreg a no-op.
+// Shared memory is poisoned with NaN (all-ones bytes: NaN as f32 and as
+// bf16).
 #pragma once
 #include <math.h>
+#include <atomic>
+#include <chrono>
 #include <cmath>
+#include <cstdio>
+#include <cstdlib>
 #include <cstdint>
 #include <cstring>
 #include <cstddef>
@@ -125,7 +133,13 @@ inline size_t emu_smem_of(const void* k) {
 }
 inline int cudaGetLastError() { return 0; }
 inline int cudaGetDevice(int* d) { *d = 0; return 0; }
-inline int cudaDeviceGetAttribute(int* v, int, int) { *v = 232448; return 0; }  // an H100's
+// an H100's shared memory a block; a card of one SM, so that a tiny grid
+// reaches the plans a kernel keeps for grids that fill the card
+constexpr int cudaDevAttrMultiProcessorCount = 16;
+inline int cudaDeviceGetAttribute(int* v, int attr, int) {
+  *v = attr == cudaDevAttrMultiProcessorCount ? 1 : 232448;
+  return 0;
+}
 
 struct EmuCluster {
   std::barrier<>* bar;
@@ -137,6 +151,8 @@ struct EmuBlock {
   std::vector<float> shfl;
   std::vector<unsigned> words;     // 32 lanes x 6 words a warp (mma operands)
   std::vector<const void*> ptrs;   // 32 lanes a warp (ldmatrix row addresses)
+  std::vector<std::unique_ptr<std::barrier<>>> wg_bars;  // a warpgroup's (wgmma operands)
+  std::vector<unsigned> wg_words;  // 4 words a thread (wgmma A fragments)
   float* smem;
   EmuCluster* cluster;
   unsigned rank;
@@ -226,6 +242,137 @@ inline void emu_cp_async_wait(int n) {
   }
 }
 
+// ---- Hopper (hopper.cuh): shared addresses, mbarriers, TMA, wgmma ----
+#define __grid_constant__
+inline unsigned emu_smem_addr(const void* p) {
+  return unsigned(static_cast<const char*>(p) - reinterpret_cast<const char*>(emu_block->smem));
+}
+// the 64-byte swizzle of a shared address: bits [4, 6) XOR bits [7, 9)
+inline unsigned emu_swizzle64(unsigned addr) { return addr ^ (((addr >> 7) & 3u) << 4); }
+inline uint16_t emu_smem_u16(unsigned addr) {
+  uint16_t v;
+  std::memcpy(&v, reinterpret_cast<const char*>(emu_block->smem) + addr, 2);
+  return v;
+}
+
+// an mbarrier in its 8 bytes of shared memory: pending arrivals [0, 20),
+// expected arrivals [20, 40), transaction bytes + 2^22 [40, 63), phase bit 63;
+// a phase completes when no arrival and no byte is pending
+constexpr int64_t EMU_TX0 = int64_t(1) << 22;
+inline uint64_t emu_mbar_pack(uint64_t pend, uint64_t expect, int64_t tx, uint64_t phase) {
+  return pend | (expect << 20) | (uint64_t(tx + EMU_TX0) << 40) | (phase << 63);
+}
+inline void emu_mbar_init(uint64_t* bar, unsigned count) { *bar = emu_mbar_pack(count, count, 0, 0); }
+inline void emu_mbar_update(uint64_t* bar, unsigned arrivals, int64_t tx) {
+  std::atomic_ref<uint64_t> a(*bar);
+  uint64_t v = a.load(), nv;
+  do {
+    uint64_t pend = v & 0xfffff, expect = (v >> 20) & 0xfffff, phase = v >> 63;
+    int64_t bytes = int64_t((v >> 40) & 0x7fffff) - EMU_TX0 + tx;
+    if (arrivals > pend) { std::fprintf(stderr, "emulation: mbarrier over-arrived\n"); std::abort(); }
+    pend -= arrivals;
+    if (pend == 0 && bytes == 0) { pend = expect; phase ^= 1; }
+    nv = emu_mbar_pack(pend, expect, bytes, phase);
+  } while (!a.compare_exchange_weak(v, nv));
+}
+// until the phase of this parity has completed (the phase bit differs from it)
+inline void emu_mbar_wait(uint64_t* bar, unsigned parity) {
+  std::atomic_ref<uint64_t> a(*bar);
+  const auto deadline = std::chrono::steady_clock::now() + std::chrono::seconds(120);
+  for (int spin = 0; (a.load() >> 63) == parity; ++spin) {
+    if (spin < 64) { std::this_thread::yield(); continue; }
+    std::this_thread::sleep_for(std::chrono::microseconds(20));
+    if (std::chrono::steady_clock::now() > deadline) {
+      std::fprintf(stderr, "emulation: mbarrier wait never completed (a deadlock)\n");
+      std::abort();
+    }
+  }
+}
+
+// a tensor map: a 3-D bf16 tensor (dims innermost first) in boxes of
+// (dim0, box_rows, 1), 64-byte swizzled, rows past the tensor read as zeros
+struct CUtensorMap { const char* base; long long dims[3]; int box_rows; };
+inline int emu_encode_tile_map(CUtensorMap* m, const void* base, int d0, int d1, int d2,
+                               int box_rows) {
+  if (d0 * 2 != 64) return 1;  // the box's row is the swizzle's width
+  *m = {static_cast<const char*>(base), {d0, d1, d2}, box_rows};
+  return 0;
+}
+// the box lands in shared memory when issued, swizzled, and completes its bytes
+inline void emu_tma_load_3d(void* dst, const CUtensorMap* m, int c0, int c1, int c2, uint64_t* bar) {
+  char* sm = reinterpret_cast<char*>(emu_block->smem);
+  const unsigned d = emu_smem_addr(dst);
+  const int row_bytes = int(m->dims[0]) * 2;
+  for (int r = 0; r < m->box_rows; ++r) {
+    const long long y = c1 + r;
+    const bool in = c0 == 0 && y < m->dims[1] && c2 < m->dims[2];
+    for (int b = 0; b < row_bytes; ++b)
+      sm[emu_swizzle64(d + r * row_bytes + b)] =
+          in ? m->base[(c2 * m->dims[1] + y) * row_bytes + b] : 0;
+  }
+  emu_mbar_update(bar, 0, -int64_t(m->box_rows) * row_bytes);
+}
+inline void emu_bulk_load(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
+  std::memcpy(dst, src, bytes);
+  emu_mbar_update(bar, 0, -int64_t(bytes));
+}
+
+// the shared address of element (mn, k) of a k-step through a wgmma
+// descriptor, K-major or MN-major, after the PTX ISA's canonical layouts
+// with the 64-byte swizzle (layout type 2; any other type aborts)
+inline unsigned emu_desc_addr(uint64_t desc, int mn, int k, bool mn_major) {
+  const unsigned start = unsigned(desc & 0x3fff) << 4, lbo = unsigned((desc >> 16) & 0x3fff) << 4;
+  const unsigned sbo = unsigned((desc >> 32) & 0x3fff) << 4;
+  if ((desc >> 62) != 2) { std::fprintf(stderr, "emulation: a descriptor's swizzle is not 64-byte\n"); std::abort(); }
+  const unsigned off =
+      mn_major ? 2 * (mn % 32) + (mn / 32) * lbo + (k & 7) * 64 + (k >> 3) * sbo  // mn along 64-byte rows, atoms LBO apart; k rows, 8 a group
+               : (mn & 7) * 64 + (mn >> 3) * sbo + 2 * k;                          // rows of mn, 8 a group SBO apart; k along the row
+  return emu_swizzle64(start + off);
+}
+inline float emu_bf16(unsigned addr) { return __uint_as_float(unsigned(emu_smem_u16(addr)) << 16); }
+
+// wgmma.mma_async m64nNk16: a thread's part of the product (its D
+// fragment), queued when issued and run at the wait_group that retires it
+struct EmuWgmma {
+  float* d; int n, trans_b, scale_d, row0; uint64_t db; float a[2][16];
+};
+inline thread_local std::vector<EmuWgmma> emu_wg_open;
+inline thread_local std::vector<std::vector<EmuWgmma>> emu_wg_groups;
+inline void emu_wgmma(float* d, int n, const unsigned* a, uint64_t db, int trans_b, int scale_d) {
+  const int tid = threadIdx.x & 127, lane = tid & 31, warp = tid >> 5, g = lane >> 2;
+  EmuWgmma op{d, n, trans_b, scale_d, warp * 16 + g, db, {}};
+  // rows g, g + 8 of the warp's 16 from the lanes holding them (m16n8k16 A layout)
+  std::barrier<>& bar = *emu_block->wg_bars.at(threadIdx.x >> 7);
+  unsigned* buf = emu_block->wg_words.data() + (threadIdx.x >> 7) * 512;
+  for (int i = 0; i < 4; ++i) buf[tid * 4 + i] = a[i];
+  bar.arrive_and_wait();
+  for (int r = 0; r < 2; ++r)
+    for (int k = 0; k < 16; ++k) {
+      const unsigned w = buf[(warp * 32 + g * 4 + (k & 7) / 2) * 4 + r + 2 * (k >> 3)];
+      op.a[r][k] = __uint_as_float((k & 1) ? w & 0xffff0000u : w << 16);
+    }
+  bar.arrive_and_wait();
+  emu_wg_open.push_back(op);
+}
+inline void emu_wgmma_run(const EmuWgmma& op) {
+  const int t = (threadIdx.x & 127) & 3;
+  for (int i = 0; i < op.n / 2; ++i) {
+    const int r = (i >> 1) & 1, row = op.row0 + 8 * r, col = 8 * (i >> 2) + 2 * t + (i & 1);
+    float acc = op.scale_d ? op.d[i] : 0.f;
+    for (int k = 0; k < 16; ++k) {
+      acc += op.a[r][k] * emu_bf16(emu_desc_addr(op.db, col, k, op.trans_b));
+    }
+    op.d[i] = acc;
+  }
+}
+inline void emu_wgmma_commit() { emu_wg_groups.push_back(std::move(emu_wg_open)); emu_wg_open.clear(); }
+inline void emu_wgmma_wait(int n) {
+  while (static_cast<int>(emu_wg_groups.size()) > n) {
+    for (const EmuWgmma& op : emu_wg_groups.front()) emu_wgmma_run(op);
+    emu_wg_groups.erase(emu_wg_groups.begin());
+  }
+}
+
 namespace cooperative_groups {
 struct cluster_group {
   unsigned block_rank() const { return emu_block->rank; }
@@ -258,6 +405,8 @@ template <class F> void emu_launch_cluster(int grid, int block, size_t smem, int
       eb[r].shfl.assign(block, 0.f);
       eb[r].words.assign(block * 6, 0u);
       eb[r].ptrs.assign(block, nullptr);
+      for (int w = 0; w < block / 128; ++w) eb[r].wg_bars.emplace_back(new std::barrier<>(128));
+      eb[r].wg_words.assign(block * 4, 0u);
       eb[r].smem = sm[r].data();
       eb[r].cluster = &cl;
       eb[r].rank = r;
@@ -340,7 +489,8 @@ def _emulation_dir(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to compile the kernels for the CPU emulation")
     out = tmp_path_factory.mktemp("cuda_emulation")
-    for name in ("cuda_emu.h", "cuda_bf16.h", "cuda_runtime.h", "cooperative_groups.h"):
+    for name in ("cuda_emu.h", "cuda_bf16.h", "cuda_runtime.h", "cooperative_groups.h",
+                 "cuda.h"):
         (out / name).write_text(EMULATION_HEADER if name == "cuda_emu.h"
                                 else '#include "cuda_emu.h"\n')
     return out
@@ -425,6 +575,94 @@ def test_emulated_mma_matches_matmul(tile_mma, via_ldmatrix):
     tile_mma(a.view(torch.int16).data_ptr(), b.view(torch.int16).data_ptr(), c.data_ptr(),
              int(via_ldmatrix))
     torch.testing.assert_close(c, a.float() @ b.float(), atol=1e-5, rtol=1e-6)
+
+
+# One warpgroup computes A (64 x K) B (K x N) by hopper.cuh's wgmma
+# m64nNk16, K / 16 k-steps, in the two forms K4's backward uses: A from
+# registers (loaded after the A fragment layout), and B a tile of rows of
+# 32 bf16 loaded by TMA with the 64-byte swizzle (one mbarrier, the tile's
+# bytes), read through the kernel's descriptors.  K-major: B^T stored row
+# by row, K = 32, N = the streamed tile's rows (S = Q K^T).  MN-major: B
+# stored row by row (the transpose bit), N = 32, K = the tile's rows
+# (dQ = dS K).  D is stored after the accumulator layout.
+TILE_WGMMA_SOURCE = r"""
+#include "hopper.cuh"
+using namespace calo;
+template <int N, int K, int MN>
+void run(const uint16_t* a, const uint16_t* b_rows, float* c) {
+  constexpr int S = SWIZZLE_BYTES, ROWS = MN ? K : N;  // the tile's rows of 32
+  CUtensorMap mb;
+  if (encode_tile_map(&mb, b_rows, 32, ROWS, 1, ROWS)) std::abort();
+  emu_launch(1, 128, 1024 + ROWS * S + 8, [&] {
+    char* tile = align_smem_1024(emu_block->smem);
+    uint64_t* bar = reinterpret_cast<uint64_t*>(tile + ROWS * S);
+    if (threadIdx.x == 0) {
+      mbar_init(bar, 1);
+      mbar_arrive_expect_tx(bar, ROWS * S);
+      tma_load_3d(tile, &mb, 0, 0, 0, bar);
+    }
+    __syncthreads();
+    mbar_wait(bar, 0);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    float d[N / 2];
+    wgmma_fence();
+    for (int kk = 0; kk < K / 16; ++kk) {
+      const uint64_t db = MN ? smem_desc(tile + 16 * S * kk, 8 * S, 8 * S)
+                             : smem_desc(tile + 32 * kk, 16, 8 * S);
+      unsigned af[4];
+      for (int i = 0; i < 4; ++i) {
+        const int row = warp * 16 + g + 8 * (i & 1), col = 16 * kk + 8 * (i >> 1) + 2 * t;
+        af[i] = unsigned(a[row * K + col]) | (unsigned(a[row * K + col + 1]) << 16);
+      }
+      Wgmma<N, MN>::rs(d, af, db, kk);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    for (int i = 0; i < N / 2; ++i)
+      c[(warp * 16 + g + 8 * ((i >> 1) & 1)) * N + 8 * (i >> 2) + 2 * t + (i & 1)] = d[i];
+  });
+}
+extern "C" void tile_wgmma(const uint16_t* a, const uint16_t* b_rows, float* c, int tile,
+                           int mn_major) {
+  if (mn_major) (tile == 64 ? run<32, 64, 1> : run<32, 128, 1>)(a, b_rows, c);
+  else (tile == 64 ? run<64, 32, 0> : run<128, 32, 0>)(a, b_rows, c);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def tile_wgmma(tmp_path_factory):
+    out = _emulation_dir(tmp_path_factory)
+    cpp, so = out / "tile_wgmma.cpp", out / "tile_wgmma.so"
+    cpp.write_text(TILE_WGMMA_SOURCE)
+    cmd = ["g++", "-std=c++20", "-O1", "-fno-strict-aliasing", "-shared", "-fPIC", "-pthread",
+           f"-I{out}", f"-I{cuda_build.CSRC_DIR}", "-DCALO_EMULATION", "-DCALO_BF16=1",
+           "-o", str(so), str(cpp)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    fn = ctypes.CDLL(str(so)).tile_wgmma
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+    return fn
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("b_major", ["k", "mn"])
+def test_emulated_wgmma_matches_matmul(tile_wgmma, b_major, tile):
+    """The emulated wgmma (register A, B from TMA's 64-byte-swizzled tile
+    and an mbarrier) against a float64 product on a random tile, in each
+    form K4's backward uses at each tile of its plans: the products of bf16
+    inputs are exact, so the f32 sums of K terms lie within K 2^-24 sum |a||b|."""
+    k, n = (tile, 32) if b_major == "mn" else (32, tile)
+    rng = np.random.default_rng(tile + (b_major == "mn"))
+    a = torch.from_numpy(rng.standard_normal((64, k)).astype(np.float32)).bfloat16()
+    b = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)).bfloat16()
+    b_rows = b if b_major == "mn" else b.t().contiguous()
+    c = torch.full((64, n), float("nan"))
+    tile_wgmma(a.view(torch.int16).data_ptr(), b_rows.view(torch.int16).data_ptr(), c.data_ptr(),
+               tile, int(b_major == "mn"))
+    want = a.double() @ b.double()
+    bound = k * 2.0 ** -24 * (a.double().abs() @ b.double().abs())
+    assert ((c.double() - want).abs() <= bound).all()
 
 
 def _args(B, N, C, dtype, seed):
@@ -779,8 +1017,13 @@ def _attention_backward(libs, q, k, v, dout):
 
 
 # one key; N short of one 64-row tile; N past two tiles of 64 and one of
-# 128, with B*H = 2; q x 8 (a peaked softmax, where dS cancels) at N = 63 and 130
-K4B_CASES = [(1, 1, 1, 1), (1, 1, 63, 1), (2, 1, 130, 1), (1, 2, 63, 8), (1, 1, 130, 8)]
+# 128, with B*H = 2; q x 8 (a peaked softmax, where dS cancels) at N = 63 and
+# 130; N = 129 and 257, a CTA of one row or one row past two streamed
+# tiles, a ring stage holding one row before TMA's zeros.  The bf16 kernel's
+# large-grid plan (192-row CTAs, 64-row tiles) runs where B*H*ceil(N/192)
+# >= 4 on the emulation's card of one SM: N = 257 and (2, 2, 200).
+K4B_CASES = [(1, 1, 1, 1), (1, 1, 63, 1), (2, 1, 130, 1), (1, 2, 63, 8), (1, 1, 130, 8),
+             (1, 1, 129, 1), (1, 2, 257, 1), (2, 2, 200, 8)]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)

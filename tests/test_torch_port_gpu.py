@@ -333,13 +333,18 @@ def _plain_rows(B, H, N):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
-@pytest.mark.parametrize("B,H,N", [(1, 2, 1), (2, 1, 100), (1, 2, 736), (1, 8, 4096),
-                                   (1, 2, 4097)])
+@pytest.mark.parametrize("B,H,N", [(1, 2, 1), (1, 2, 64), (2, 1, 100), (1, 2, 128), (2, 1, 129),
+                                   (1, 2, 736), (1, 8, 4096), (1, 2, 4097), (1, 2, 8192),
+                                   (4, 4, 8190)])
 @pytest.mark.parametrize("q_gain", [1, 8])
 def test_blockwise_attention_backward_kernel_matches_plain(B, H, N, q_gain, dtype):
     """K4's backward (from its forward's out and lse) against
     attention_backward_reference, max-norm relative within K4B_TOL; where the
-    plain gradient is zero (N = 1), relative to dv's largest entry."""
+    plain gradient is zero (N = 1), relative to dv's largest entry.  N = 64
+    and 128: one streamed tile, one 128-row CTA; 129: a ragged CTA and a
+    ring stage partly past N; 8192: many trips round the ring; (4, 4, 8190):
+    a grid of 192-row CTAs that fills a 132-SM card four times over, so the
+    bf16 kernel takes its large-grid plan, ragged in its last CTA."""
     q, k, v = _qkv(B, H, N, dtype, seed=B + H + N + q_gain)
     q = (q.float() * q_gain).to(dtype)
     dout = _qkv(B, H, N, dtype, seed=N + 7)[0]
