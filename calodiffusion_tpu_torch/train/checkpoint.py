@@ -48,8 +48,19 @@ def save_arrays(path: str, tree: Any) -> None:
             os.unlink(tmp)
 
 
+class ForeignCheckpointError(ValueError):
+    """The checkpoint is the JAX package's (an Orbax directory), not the port's."""
+
+
 def load_arrays(path: str, map_location=None) -> Any:
-    return torch.load(_abspath(path), map_location=map_location, weights_only=True)
+    path = _abspath(path)
+    if os.path.isdir(path):
+        raise ForeignCheckpointError(
+            f"{path} is a directory: a checkpoint of the JAX package (Orbax), "
+            "which calodiffusion_tpu_torch does not read; converting one is "
+            "ROADMAP M15"
+        )
+    return torch.load(path, map_location=map_location, weights_only=True)
 
 
 def save_checkpoint(

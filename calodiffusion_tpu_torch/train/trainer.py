@@ -9,10 +9,11 @@ PyTorch runs eagerly: one train step is the sigma draw, noising, forward,
 loss, ``backward`` and the Adam update on the model's own parameters
 (``torch.optim.Adam`` with optax's defaults: betas 0.9/0.999, eps 1e-8).
 The plateau LR is set on the optimizer's param_groups.  Batches come from
-``loader_train``/``loader_val``, iterables of numpy ``(E, layers, data)``;
-randomness comes from a ``torch.Generator`` on the card seeded from
-``flags.seed``.  Not ported yet: the data loader (``load_data``), cold
-diffusion and scale-out over several cards.
+``data/loader.load_data(flags, config)``, or from the ``loader_train`` /
+``loader_val`` a caller passes: iterables of numpy ``(E, layers, data)``.
+Randomness comes from a ``torch.Generator`` on the card seeded from
+``flags.seed``.  Not ported yet: cold diffusion and scale-out over several
+cards.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from calodiffusion_tpu_torch.data.loader import load_data as load_data_fn
 from calodiffusion_tpu_torch.models.diffusion import CaloDiffusion
 from calodiffusion_tpu_torch.samplers.base import randn
 from calodiffusion_tpu_torch.train import checkpoint as ckpt_io
@@ -51,13 +53,17 @@ def _copy(state: dict) -> dict:
 
 
 class Train:
-    def __init__(self, flags, config, loader_train=None, loader_val=None,
-                 save_model: bool = True, device=None):
+    def __init__(self, flags, config, load_data: bool = True, save_model: bool = True,
+                 device=None, loader_train=None, loader_val=None):
+        """``load_data``: build the loaders with ``load_data(flags, config)``,
+        unless ``loader_train`` or ``loader_val`` is given: those win."""
         self.flags = flags
         self.config = config
         self.save_model = save_model
         self.batch_size = config.get("BATCH", 256)
         self.device = resolve_device(device)
+        if load_data and loader_train is None and loader_val is None:
+            loader_train, loader_val = load_data_fn(flags, config)
         self.loader_train, self.loader_val = loader_train, loader_val
 
         # checkpoint-dir naming parity (reference train.py:23-41)

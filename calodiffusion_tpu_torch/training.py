@@ -1,0 +1,80 @@
+"""``calodif-train`` CLI on PyTorch (port of ``calodiffusion_tpu/training.py``).
+
+    python -m calodiffusion_tpu_torch.training -c config.json -d DATA/ \\
+        --checkpoint CKPT diffusion
+
+The JAX CLI's group flags, defaults and subcommands, in argparse, plus
+``--device`` (default ``cuda``; ``--device cpu`` trains on the CPU).  The
+checkpoints land in ``<checkpoint>/<CHECKPOINT_NAME>_Diffusion/`` as the JAX
+trainer names them (``checkpoint``, ``best_val`` and ``final`` ``.ckpt``,
+``torch.save`` files).
+
+Not ported yet: ``layer`` (ROADMAP M9) and ``distill`` (M13).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from calodiffusion_tpu_torch.utils.config import LoadJson, dotdict
+
+
+def train_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(prog="calodif-train", description=__doc__.split("\n")[0])
+    parser.add_argument("-d", "--data-folder", dest="data_folder", default="../data/",
+                        help="Folder containing data and MC files")
+    parser.add_argument("-c", "--config", default="configs/test.json",
+                        help="Config file with training parameters")
+    parser.add_argument("--checkpoint", dest="checkpoint_folder", default="../models",
+                        help="Folder with checkpoints")
+    parser.add_argument("-n", "--nevts", type=int, default=-1, help="Number of events to load")
+    parser.add_argument("--frac", type=float, default=0.85,
+                        help="Fraction of total events used for training")
+    parser.add_argument("--load", action="store_true", default=False,
+                        help="Load pretrained weights to continue the training")
+    parser.add_argument("--seed", type=int, default=1234, help="PRNG seed")
+    parser.add_argument("--reclean", action=argparse.BooleanOptionalAction, default=False,
+                        help="Reclean data")
+    parser.add_argument("--reset_training", action="store_true", default=False,
+                        help="Retrain")
+    parser.add_argument("--hgcal", action=argparse.BooleanOptionalAction, default=None,
+                        help="Use HGCal settings (overwrites config)")
+    parser.add_argument("--model-loc", dest="model_loc", default=None,
+                        help="Specify existing model to load")
+    parser.add_argument("--device", default="cuda",
+                        help="Torch device to train on (cpu for the CPU)")
+    commands = parser.add_subparsers(dest="command", required=True)
+    commands.add_parser("diffusion")
+    distill = commands.add_parser("distill")
+    distill.add_argument("--teacher-loc", dest="teacher_loc", default=None,
+                         help="Trained diffusion checkpoint to distill from")
+    layer = commands.add_parser("layer")
+    layer.add_argument("--layer-model-loc", dest="layer_model_loc", default=None,
+                       help="Specify existing layer model to load")
+    return parser
+
+
+def main(argv=None):
+    """Run one command line; returns the trainer."""
+    flags = dotdict(vars(train_parser().parse_args(argv)))
+    flags.config = LoadJson(flags.config)
+    if flags.hgcal is not None:
+        flags.config["HGCAL"] = flags.hgcal
+    else:
+        flags.hgcal = flags.config.get("HGCAL", False)
+
+    if flags.command == "distill":
+        raise NotImplementedError("distill is not yet ported to calodiffusion_tpu_torch "
+                                  "(ROADMAP M13)")
+    if flags.command == "layer":
+        raise NotImplementedError("the layer model is not yet ported to "
+                                  "calodiffusion_tpu_torch (ROADMAP M9)")
+    from calodiffusion_tpu_torch.train.trainer import TrainDiffusion
+
+    trainer = TrainDiffusion(flags, flags.config, device=flags.device)
+    trainer.train()
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

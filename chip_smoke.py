@@ -13,7 +13,8 @@ prints no result:
             HGMMA (wgmma) instructions in K4's bf16 backward library
             (cuobjdump -sass), which must not be 0
 3. kernels  K1 and K2 against their plain PyTorch versions on the card at the
-            shapes of the ds2 paths (batch 128), in bf16 and f32, with their
+            shapes of the ds2 paths (batch 128) and of the ds3 paths (K1 at
+            batch 128, K2 at batch 64), in bf16 and f32, with their
             times (CUDA events around a call, and the device time with the
             card kept busy while the host launches), the plain versions'
             times and the card's bound: K1 (forward) against
@@ -35,7 +36,22 @@ prints no result:
             over the steps; one f32 step's loss and every parameter gradient
             agree on the card and on the CPU from the same weights, batch,
             noise and sigma draws.
-6. variants the entries that run the other three kernels, in bf16 and f32:
+6. cli      the data loader and the train and sample CLIs on ds2 and ds3, in a
+            temporary directory, with no h5py, click, yaml or matplotlib
+            needed: the npz caches _preprocess_one would write (synthetic
+            raw showers through preprocessing.preprocess_shower), copies of
+            configs/config_dataset{2,3}.json at full width and depth cut to
+            one epoch; training.main (ds2: 4 steps of 128 and a val batch;
+            ds3: 4 steps of 64), its losses finite, final.ckpt, best_val.ckpt
+            and config.json written, K1 and K2 launched 7 times a step
+            (counts reset just before), train samples/s from the steps after
+            the first; then the sample CLI's parsing, loading and generation
+            (inference.parse_flags + generate_showers) of 128 showers with
+            400-step DDim, finite, >= 0, (128, 6480) or (128, 40500), K1
+            launched 7 times a step and K2 never, showers/s with the first
+            (cold) denoise apart; write_out and a read back where h5py is
+            installed, else a line saying it did not run
+7. variants the entries that run the other three kernels, in bf16 and f32:
             K3 (LinearAttention alone) against linear_attention_reference at
             every ds2 (C, N), B = 128, and at dataset 3's full grid (B = 64,
             N = 45*50*18 = 40,500, C = 32), with its device time and plan;
@@ -59,12 +75,13 @@ prints no result:
             once each; output and f32 gradients against the plain module's,
             the bf16 gradients finite) and groupnorm_silu at the three
             shapes (K5 three times).
-7. result   {"kernels": [...]} and, last, {"ok": true, "device": {...}}
+8. result   {"kernels": [...]} and, last, {"ok": true, "device": {...}}
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import statistics
 import subprocess
@@ -101,6 +118,10 @@ EXP_PER_S = 132 * 16 * 1.98e9
 # call, in call order: down levels, middle, up levels
 DS2_ATTENTION_BLOCKS = [(32, 6480), (64, 736), (32, 96), (32, 96), (64, 96), (32, 736),
                         (32, 6480)]
+# and of one ds3 U-Net call (configs/config_dataset3.json: 45 x 50 x 18,
+# widths [32, 32, 32, 32])
+DS3_ATTENTION_BLOCKS = [(32, 40500), (32, 5175), (32, 576), (32, 576), (32, 576), (32, 5175),
+                        (32, 40500)]
 BATCH = 128
 D = 32  # dim_head
 
@@ -292,30 +313,35 @@ def dtype_name(dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
-def check_attention_kernel(attn):
-    """K1 vs plain version at every ds2 (C, N), B=128, bf16 and f32."""
+# fewer timed calls where a call takes milliseconds (ds3's N = 40,500)
+BIG_N_REPS = dict(warmup=2, reps=7)
+
+
+def check_attention_kernel(attn, blocks=DS2_ATTENTION_BLOCKS, B=BATCH, dataset="ds2"):
+    """K1 vs plain version at every (C, N) of ``blocks``, bf16 and f32."""
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
-        for C, N in sorted(set(DS2_ATTENTION_BLOCKS)):
-            args = block_inputs(BATCH, N, C, dtype, seed=C + N)
+        for C, N in sorted(set(blocks)):
+            args = block_inputs(B, N, C, dtype, seed=C + N)
             got = attn.fused_attention_block(*args)
             torch.cuda.synchronize()
             want = attn.attention_block_reference(*args)
             atol, rtol = K1_TOL[dtype]
             err = elementwise_err("fused_attention_block", got, want, K1_TOL[dtype],
                                   f"C={C}, N={N}, {dtype}")
-            k_ms = time_ms(lambda: attn.fused_attention_block(*args))
-            d_ms = device_ms(lambda: attn.fused_attention_block(*args))
-            p_ms = time_ms(lambda: attn.attention_block_reference(*args))
-            b_ms, b_by, _ = attention_bound(BATCH, N, C, dtype)
+            reps = BIG_N_REPS if N > 8192 else {}
+            k_ms = time_ms(lambda: attn.fused_attention_block(*args), **reps)
+            d_ms = device_ms(lambda: attn.fused_attention_block(*args), reps=5 if reps else 10)
+            p_ms = time_ms(lambda: attn.attention_block_reference(*args), **reps)
+            b_ms, b_by, _ = attention_bound(B, N, C, dtype)
             plan = attn.cluster_plan(args[0])
             cases.append(dict(
-                name="fused_attention_block", shape=[BATCH, N, C], dtype=dtype_name(dtype),
-                max_abs_err=err, tol={"atol": atol, "rtol": rtol}, kernel_ms=k_ms,
-                device_ms=d_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                launches_per_call=DS2_ATTENTION_BLOCKS.count((C, N)), cluster_plan=plan,
+                name="fused_attention_block", dataset=dataset, shape=[B, N, C],
+                dtype=dtype_name(dtype), max_abs_err=err, tol={"atol": atol, "rtol": rtol},
+                kernel_ms=k_ms, device_ms=d_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                launches_per_call=blocks.count((C, N)), cluster_plan=plan,
             ))
-            print(f"kernel fused_attention_block B={BATCH} N={N} C={C} {cases[-1]['dtype']}: "
+            print(f"kernel fused_attention_block B={B} N={N} C={C} {cases[-1]['dtype']}: "
                   f"max_abs_err {err:.3g} (tol {atol} + {rtol} * |plain|), kernel {k_ms:.4f} ms "
                   f"(device {d_ms:.4f}), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
                   f"{plan_text(plan)}", flush=True)
@@ -334,13 +360,13 @@ GRAD_NAMES = ("dx", "d_gn_pre_scale", "d_gn_pre_bias", "d_w_qkv", "d_w_out", "d_
               "d_gn_post_scale", "d_gn_post_bias")
 
 
-def check_backward_kernel(attn):
-    """K2 vs plain backward at every ds2 (C, N), B=128, bf16 and f32."""
+def check_backward_kernel(attn, blocks=DS2_ATTENTION_BLOCKS, B=BATCH, dataset="ds2"):
+    """K2 vs plain backward at every (C, N) of ``blocks``, bf16 and f32."""
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
-        for C, N in sorted(set(DS2_ATTENTION_BLOCKS)):
-            args = block_inputs(BATCH, N, C, dtype, seed=C + N + 1)
-            g = torch.randn(BATCH, N, C, generator=torch.Generator().manual_seed(N - C))
+        for C, N in sorted(set(blocks)):
+            args = block_inputs(B, N, C, dtype, seed=C + N + 1)
+            g = torch.randn(B, N, C, generator=torch.Generator().manual_seed(N - C))
             g = g.cuda().to(dtype)
             got = attn.attention_block_backward(*args, g)
             torch.cuda.synchronize()
@@ -357,27 +383,31 @@ def check_backward_kernel(attn):
                      f"the plain backward by {rel[worst]:.3g} (max-norm relative) > "
                      f"{K2_TOL[dtype]}")
             abs_dx = (got[0].float() - want[0].float()).abs().max().item()
-            k_ms = time_ms(lambda: attn.attention_block_backward(*args, g))
-            d_ms = device_ms(lambda: attn.attention_block_backward(*args, g))
-            p_ms = time_ms(lambda: attn.attention_block_backward_reference(*args, g))
-            b_ms, b_by, _ = backward_bound(BATCH, N, C, dtype)
+            reps = BIG_N_REPS if N > 8192 else {}
+            k_ms = time_ms(lambda: attn.attention_block_backward(*args, g), **reps)
+            d_ms = device_ms(lambda: attn.attention_block_backward(*args, g),
+                             reps=5 if reps else 10)
+            p_ms = time_ms(lambda: attn.attention_block_backward_reference(*args, g), **reps)
+            b_ms, b_by, _ = backward_bound(B, N, C, dtype)
             plan = attn.cluster_plan(args[0], name=attn.BACKWARD_KERNEL)
             cases.append(dict(
-                name="attention_block_backward", shape=[BATCH, N, C], dtype=dtype_name(dtype),
-                max_abs_err=abs_dx, max_norm_rel_err=rel, tol_max_norm_rel=K2_TOL[dtype],
-                kernel_ms=k_ms, device_ms=d_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                launches_per_call=DS2_ATTENTION_BLOCKS.count((C, N)), cluster_plan=plan,
+                name="attention_block_backward", dataset=dataset, shape=[B, N, C],
+                dtype=dtype_name(dtype), max_abs_err=abs_dx, max_norm_rel_err=rel,
+                tol_max_norm_rel=K2_TOL[dtype], kernel_ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
+                bound_ms=b_ms, bound_by=b_by, launches_per_call=blocks.count((C, N)),
+                cluster_plan=plan,
             ))
-            print(f"kernel attention_block_backward B={BATCH} N={N} C={C} {cases[-1]['dtype']}: "
+            print(f"kernel attention_block_backward B={B} N={N} C={C} {cases[-1]['dtype']}: "
                   f"max-norm rel err {rel[worst]:.3g} ({worst}; tol {K2_TOL[dtype]}), dx "
                   f"max_abs_err {abs_dx:.3g}, kernel {k_ms:.4f} ms (device {d_ms:.4f}), plain "
                   f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); {plan_text(plan)}", flush=True)
     return cases
 
 
-def per_call(cases, key, dtype="bfloat16"):
+def per_call(cases, key, dtype="bfloat16", dataset="ds2"):
     """Sum of a per-launch number over the 7 attention blocks of one U-Net call."""
-    return sum(c[key] * c["launches_per_call"] for c in cases if c["dtype"] == dtype)
+    return sum(c[key] * c["launches_per_call"] for c in cases
+               if c["dtype"] == dtype and c["dataset"] == dataset)
 
 
 def synthetic_loader(batches, n_layers, seed):
@@ -555,7 +585,224 @@ def run_training(cfg, args, attn, card):
 
 
 # ---------------------------------------------------------------------------
-# 6. variants: K3, K4, K5 and the entries that run them
+# 6. cli: the data loader and the train and sample CLIs, ds2 and ds3
+# ---------------------------------------------------------------------------
+
+# Events of each npz cache the cli phase writes: a few train steps at each
+# config's BATCH (128 for ds2, 64 for ds3), one val batch for ds2, and one
+# sampling batch of 128 (ds3's EVAL is two files of 64: the batcher carries
+# the first file's events over into the second's batch)
+CLI_DATA = {
+    "ds2": dict(config="config_dataset2.json", voxels=6480, batch=128,
+                files={"dataset_2_1.hdf5": 512, "dataset_2_val.hdf5": 128,
+                       "dataset_2_2.hdf5": 128},
+                overrides=dict(VAL_FILES=["dataset_2_val.hdf5"])),
+    "ds3": dict(config="config_dataset3.json", voxels=40500, batch=64,
+                files={"dataset_3_1.hdf5": 128, "dataset_3_2.hdf5": 128,
+                       "dataset_3_3.hdf5": 64, "dataset_3_4.hdf5": 64},
+                overrides={}),
+}
+CLI_SAMPLE_BATCH = 128
+
+
+def raw_showers(rng, n, voxels):
+    """Showers as a CaloChallenge h5 file holds them (MeV): exponential
+    deposits, 80 % of the voxels zero; incident energies 1 GeV - 1 TeV."""
+    showers = rng.exponential(1.0, (n, voxels)).astype(np.float32)
+    showers[rng.uniform(size=showers.shape) < 0.8] = 0
+    return showers, rng.uniform(1e3, 1e6, (n, 1)).astype(np.float32)
+
+
+def write_cache(path, showers, energies, cfg):
+    """The npz cache data/loader._preprocess_one writes for an h5 file of
+    these showers and incident energies: load_calochallenge_h5's scaling,
+    preprocessing.preprocess_shower and its logE normalisation, then the
+    loader's layers and SHAPE_PAD layout."""
+    from calodiffusion_tpu_torch.utils import preprocessing
+
+    scale = cfg.get("SHOWERSCALE", 200.0)  # the loader's default, as it reads it
+    e = np.reshape(energies.astype(np.float32) * scale, (-1, 1))
+    shower, layers = preprocessing.preprocess_shower(
+        showers.astype(np.float32) * scale, e, cfg.get("SHAPE_PAD") or cfg.get("SHAPE_FINAL"),
+        cfg.get("BIN_FILE", ""), cfg["SHOWERMAP"], dataset_num=cfg.get("DATASET_NUM", 2),
+        orig_shape=False, ecut=0, max_deposit=cfg["MAXDEP"])
+    emin, emax = cfg["EMIN"], cfg["EMAX"]
+    E = (np.log10(e / emin) / np.log10(emax / emin) if cfg["logE"]
+         else (e - emin) / (emax - emin))
+    layers = (np.reshape(layers, (layers.shape[0], -1)) if layers is not None
+              else np.zeros((shower.shape[0], 1), np.float32))
+    np.savez_compressed(path, E=E, layers=layers, showers=np.reshape(shower, cfg["SHAPE_PAD"]))
+
+
+def make_cli_data(root: Path, name: str, seed: int):
+    """The caches and the config of one dataset under ``root``: the
+    shipped config at full width and depth, its training cut to one epoch."""
+    spec = CLI_DATA[name]
+    cfg = json.loads((ROOT / "configs" / spec["config"]).read_text())
+    cfg.update(spec["overrides"], MAXEPOCH=1)
+    data = root / name / "data"
+    data.mkdir(parents=True)
+    rng = np.random.default_rng(seed)
+    for fname, n in spec["files"].items():
+        write_cache(data / f"{fname}.npz", *raw_showers(rng, n, spec["voxels"]), cfg)
+    cfg_path = root / name / "config.json"
+    cfg_path.write_text(json.dumps(cfg))
+    return cfg, str(cfg_path), str(data) + "/"
+
+
+def run_cli(name, cfg, cfg_path, data, ckpt, seed, attn, card):
+    """training.main, then the sample CLI's parsing, loading and generation
+    (inference.parse_flags + generate_showers: all but the h5 write), on one
+    dataset; K1 and K2 counts reset just before each and read just after."""
+    from unittest import mock
+
+    from calodiffusion_tpu_torch import inference, training
+    from calodiffusion_tpu_torch.models.diffusion import CaloDiffusion
+    from calodiffusion_tpu_torch.train.trainer import TrainDiffusion
+
+    n_blocks = len(DS2_ATTENTION_BLOCKS if name == "ds2" else DS3_ATTENTION_BLOCKS)
+    spec = CLI_DATA[name]
+    train_step = TrainDiffusion.train_step
+    steps = []
+
+    def recorded(self, data, E, layers):
+        k1, k2 = attn.fused_attention_block.launches, attn.attention_block_backward.launches
+        t0 = time.perf_counter()
+        loss = train_step(self, data, E, layers)
+        torch.cuda.synchronize()
+        steps.append(dict(loss=loss.item(), s=time.perf_counter() - t0,
+                          k1=attn.fused_attention_block.launches - k1,
+                          k2=attn.attention_block_backward.launches - k2))
+        return loss
+
+    common = ["-c", cfg_path, "-d", data, "--seed", str(seed)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attn.fused_attention_block.launches = attn.attention_block_backward.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(TrainDiffusion, "train_step", recorded):
+        trainer = training.main(common + ["--checkpoint", ckpt, "diffusion"])
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    k1, k2 = attn.fused_attention_block.launches, attn.attention_block_backward.launches
+    train_mem = torch.cuda.max_memory_allocated() / 2**30
+    folder = Path(trainer.checkpoint_folder)
+
+    n_train = sum(n for f, n in spec["files"].items() if f in cfg["FILES"])
+    n_val = sum(n for f, n in spec["files"].items() if f in cfg.get("VAL_FILES", []))
+    want_steps, val_batches = n_train // spec["batch"], -(-n_val // spec["batch"])
+    if len(steps) != want_steps:
+        fail(f"cli {name}: train ran {len(steps)} steps, expected {want_steps}")
+    if not all(np.isfinite(s["loss"]) for s in steps):
+        fail(f"cli {name}: train losses not finite: {[s['loss'] for s in steps]}")
+    bad = [i for i, s in enumerate(steps) if (s["k1"], s["k2"]) != (n_blocks, n_blocks)]
+    if bad:
+        fail(f"cli {name}: train step {bad[0]} launched K1 {steps[bad[0]]['k1']} and K2 "
+             f"{steps[bad[0]]['k2']} times, expected {n_blocks} each")
+    if (k1, k2) != (n_blocks * (want_steps + val_batches), n_blocks * want_steps):
+        fail(f"cli {name}: train launched K1 {k1} and K2 {k2} times")
+    for fname in ("final.ckpt", "best_val.ckpt", "config.json"):
+        if not (folder / fname).exists():
+            fail(f"cli {name}: train wrote no {folder / fname}")
+    steady = statistics.mean(s["s"] for s in steps[1:])
+    train = dict(steps=len(steps), losses=[s["loss"] for s in steps], cold_step_s=steps[0]["s"],
+                 steady_step_s=steady, samples_per_s=spec["batch"] / steady, wall_s=train_wall,
+                 k1=k1, k2=k2, max_memory_gib=train_mem)
+    print(f"cli {name} train: training.main, {len(steps)} steps of {spec['batch']}, bf16, full "
+          f"width: first (cold) step {steps[0]['s']:.3f} s, steady {1e3 * steady:.2f} ms/step, "
+          f"{train['samples_per_s']:.1f} train samples/s on {card}; training.main {train_wall:.2f} "
+          f"s; K1 {k1}, K2 {k2} launches ({n_blocks} each a step, K1 {n_blocks} a val batch); "
+          f"peak memory {train_mem:.2f} GiB; losses {[round(s['loss'], 4) for s in steps]}",
+          flush=True)
+
+    # sample: parse, load the EVAL caches and the weights, generate
+    flags = inference.parse_flags(common + ["-n", "-1", "sample", "--batch-size",
+                                            str(CLI_SAMPLE_BATCH), "--sample-steps", "400",
+                                            "--model-loc", str(folder / "final.ckpt"),
+                                            "diffusion"])
+    denoise, generate = CaloDiffusion.denoise, CaloDiffusion.generate
+    first, gen_s = [], []
+
+    def timed_denoise(self, *a, **kw):  # the first call synchronised: the cold start
+        if first:
+            return denoise(self, *a, **kw)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = denoise(self, *a, **kw)
+        torch.cuda.synchronize()
+        first.append(time.perf_counter() - t)
+        return out
+
+    def timed_generate(self, *a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = generate(self, *a, **kw)
+        torch.cuda.synchronize()
+        gen_s.append(time.perf_counter() - t)
+        return out
+
+    torch.cuda.synchronize()
+    attn.fused_attention_block.launches = attn.attention_block_backward.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(CaloDiffusion, "denoise", timed_denoise), \
+            mock.patch.object(CaloDiffusion, "generate", timed_generate):
+        showers, energies, fout = inference.generate_showers(flags, flags.config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1s, k2s = attn.fused_attention_block.launches, attn.attention_block_backward.launches
+    n, voxels = CLI_SAMPLE_BATCH, spec["voxels"]
+    if showers.shape != (n, voxels) or energies.shape != (n, 1):
+        fail(f"cli {name}: showers {showers.shape}, energies {energies.shape}; expected "
+             f"({n}, {voxels}), ({n}, 1)")
+    if not np.isfinite(showers).all() or (showers < 0).any():
+        fail(f"cli {name}: showers are not finite and >= 0")
+    if (k1s, k2s) != (n_blocks * 400, 0):
+        fail(f"cli {name}: sampling launched K1 {k1s} times (expected {n_blocks * 400}) and "
+             f"K2 {k2s} (expected 0)")
+    steady_gen = (gen_s[0] - first[0]) * 400 / 399
+    sample = dict(wall_s=wall, setup_s=wall - gen_s[0], generate_s=gen_s[0],
+                  first_denoise_s=first[0], showers_per_s=n / gen_s[0],
+                  showers_per_s_after_first_step=n / steady_gen, k1=k1s, k2=k2s)
+    print(f"cli {name} sample: inference CLI, {n} showers, 400-step DDim, bf16, batch "
+          f"{CLI_SAMPLE_BATCH}: generate {gen_s[0]:.2f} s, {sample['showers_per_s']:.3f} "
+          f"showers/s on {card} (first, cold denoise {first[0]:.3f} s; the other 399 steps at "
+          f"{sample['showers_per_s_after_first_step']:.3f} showers/s); loading data and "
+          f"weights {sample['setup_s']:.2f} s; K1 launches {k1s} ({n_blocks} a step), K2 {k2s}",
+          flush=True)
+
+    if importlib.util.find_spec("h5py") is None:
+        print(f"cli {name} sample: write_out (the h5 file) not run: this machine has no h5py; "
+              "the CPU tests cover it (tests/test_torch_port_cli.py)", flush=True)
+    else:
+        import h5py
+
+        out = str(Path(ckpt) / f"generated_{name}.h5")
+        inference.write_out(out, flags, flags.config, showers, energies)
+        with h5py.File(out, "r") as f:
+            shapes = (f["showers"].shape, f["incident_energies"].shape)
+        if shapes != ((n, voxels), (n, 1)):
+            fail(f"cli {name}: the h5 file holds {shapes}")
+        print(f"cli {name} sample: write_out wrote {out}: {shapes}", flush=True)
+    return dict(train=train, sample=sample)
+
+
+def run_cli_phase(seed, attn, card):
+    """The cli phase on ds2 and ds3 in a temporary directory."""
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        made = {name: make_cli_data(root, name, seed + i) for i, name in enumerate(CLI_DATA)}
+        print(f"cli: npz caches of {sum(sum(s['files'].values()) for s in CLI_DATA.values())} "
+              f"synthetic showers written in {time.perf_counter() - t0:.1f} s", flush=True)
+        for i, (name, (cfg, cfg_path, data)) in enumerate(made.items()):
+            results[name] = run_cli(name, cfg, cfg_path, data, str(root / name / "ckpt"),
+                                    seed + 10 + i, attn, card)
+    return results
+
+
+# ---------------------------------------------------------------------------
+# 7. variants: K3, K4, K5 and the entries that run them
 # ---------------------------------------------------------------------------
 
 def elementwise_err(name, got, want, tol, what):
@@ -953,6 +1200,9 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     k1_cases = check_attention_kernel(attn)
     k2_cases = check_backward_kernel(attn)
+    # dataset 3's shapes: K1 at the sampling batch, K2 at the train batch
+    k1_cases += check_attention_kernel(attn, DS3_ATTENTION_BLOCKS, CLI_SAMPLE_BATCH, "ds3")
+    k2_cases += check_backward_kernel(attn, DS3_ATTENTION_BLOCKS, DS3_BATCH, "ds3")
 
     # 4. main path: generation
     cfg = load_config(str(CONFIG))
@@ -986,7 +1236,12 @@ def main() -> None:
     train = run_training(cfg, args, attn, card)
     step_check = check_train_step_card_vs_cpu(cfg, train.pop("state_dict"), args.seed + 5, attn)
 
-    # 6. variants
+    # 6. cli
+    t0 = time.perf_counter()
+    cli = run_cli_phase(args.seed + 20, attn, card)
+    print(f"cli: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 7. variants
     t0 = time.perf_counter()
     k3_cases = check_linear_kernel(attn)
     k4_cases = check_blockwise_kernel(att)
@@ -995,19 +1250,23 @@ def main() -> None:
     var_launches, var_results = run_variants_path(args.seed + 6, attn, att, gn, nn_modules)
     print(f"variants: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 7. result
+    # 8. result
     launches = {"fused_attention_block": (gen_launches[0], train["k1"]),
                 "attention_block_backward": (gen_launches[1], train["k2"])}
     kernels = []
-    for name, cases in (("fused_attention_block", k1_cases),
-                        ("attention_block_backward", k2_cases)):
+    for name, cases, key in (("fused_attention_block", k1_cases, "k1"),
+                             ("attention_block_backward", k2_cases, "k2")):
         bf16 = [c for c in cases if c["dtype"] == "bfloat16"]
+        by_path = {"generate": launches[name][0], "train": launches[name][1]}
+        for ds, res in cli.items():
+            by_path.update({f"cli_{ds}_train": res["train"][key],
+                            f"cli_{ds}_sample": res["sample"][key]})
+        by_path["variants"] = var_launches[name]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            # launches on this slice's path, TrainDiffusion.train
-            launches=launches[name][1],
-            launches_by_path={"generate": launches[name][0], "train": launches[name][1],
-                              "variants": var_launches[name]},
+            # launches on this slice's path: the train and sample CLIs, ds2 and ds3
+            launches=sum(v for k, v in by_path.items() if k.startswith("cli_")),
+            launches_by_path=by_path,
             max_abs_err=max(c["max_abs_err"] for c in bf16),
             # times of the 7 launches of one ds2 U-Net call, B=128, bf16
             ms=per_call(cases, "kernel_ms"), plain_ms=per_call(cases, "plain_ms"),
@@ -1015,7 +1274,13 @@ def main() -> None:
             bound_ms=per_call(cases, "bound_ms"),
             bound_by="bytes" if all(c["bound_by"] == "bytes" for c in bf16) else "operations",
             library_ms=None, launches_per_call=len(DS2_ATTENTION_BLOCKS),
-            launches_per_train_step=len(DS2_ATTENTION_BLOCKS), cases=cases,
+            launches_per_train_step=len(DS2_ATTENTION_BLOCKS),
+            # and of one ds3 U-Net call: K1 at the sampling batch (128), K2 at
+            # the train batch (64)
+            ds3={k: per_call(cases, k, dataset="ds3")
+                 for k in ("kernel_ms", "device_ms", "plain_ms", "bound_ms")}
+            | {"batch": cases[-1]["shape"][0]},
+            cases=cases,
         ))
     # K3-K5 and K4's backward: the times of their launches in one bf16 run
     # of the variants path
@@ -1049,7 +1314,7 @@ def main() -> None:
     print(json.dumps({"train": {k: v for k, v in train.items() if k != "steps"},
                       "train_step_losses": [s["loss"] for s in train["steps"]],
                       "train_step_s": [s["s"] for s in train["steps"]],
-                      "card_vs_cpu_step": step_check, "variants": var_results,
+                      "card_vs_cpu_step": step_check, "cli": cli, "variants": var_results,
                       "card": card}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
-"""Where the time of dataset-2 generation and training goes, on one CUDA card.
+"""Where the time of dataset-2 (or dataset-3) generation and training goes,
+on one CUDA card.
 
-    python3 scripts/torch_profile_ds2.py [--calls 10] [--generate-reps 3] [--train-steps 10]
+    python3 scripts/torch_profile_ds2.py [--dataset 2] [--calls 10] [--generate-reps 3]
+                                         [--generate-batches 2] [--train-steps 10]
                                          [--seed 0] [--out FILE]
 
 Builds calodiffusion_tpu_torch's CaloDiffusion at the full width of
-configs/config_dataset2.json (bf16, batch 128, seeded random weights).
-First, while the process is cold, times ``generate`` over 2 batches of 128
-with 400-step DDim ``--generate-reps`` times (host clock, synchronised), as
-chip_smoke.py times it once.  Then warms up, times ``--calls`` denoise calls
+configs/config_dataset2.json (``--dataset 3``: config_dataset3.json; bf16,
+seeded random weights).  First, while the process is cold, times
+``generate`` over ``--generate-batches`` batches of 128 with 400-step DDim
+``--generate-reps`` times (host clock, synchronised), as chip_smoke.py
+times it once.  Then warms up, times ``--calls`` denoise calls at batch 128
 with CUDA events, traces the same calls with torch.profiler and sums device
 time by kernel family.  Then does the same for ``--train-steps`` steps of
-``TrainDiffusion.train_step`` (forward, backward, Adam) on one batch of 128.
-Prints the top kernels and one JSON line; ``--out`` also writes them to a
-JSON file.
+``TrainDiffusion.train_step`` (forward, backward, Adam) on one batch of the
+config's BATCH (128 for ds2, 64 for ds3).  Prints the top kernels and one
+JSON line; ``--out`` also writes them to a JSON file.
 """
 
 from __future__ import annotations
@@ -41,6 +44,8 @@ FAMILIES = (  # first match wins; matched against lower-case kernel names
     ("fused_attention_block", ("attention_block_kernel",)),
     ("attention_block_backward", ("attention_block_bwd_kernel",)),
     ("optimizer", ("multi_tensor", "foreach", "adam")),
+    # cuDNN's transposes of NCDHW activations to NHWC and back
+    ("layout_transpose", ("nchwtonhwc", "nhwctonchw")),
     ("convolution", ("conv", "xmma", "implicit", "cudnn", "sm90", "dgrad", "wgrad")),
     ("group_norm", ("group_norm", "groupnorm", "welford", "rowwisemoments")),
     ("copy_cast_pad", ("copy", "cast", "pad", "cat", "fill")),
@@ -49,7 +54,9 @@ FAMILIES = (  # first match wins; matched against lower-case kernel names
 
 
 def family(name: str) -> str:
-    low = name.lower()
+    # PyTorch names most elementwise kernels "gpu_kernel_impl_nocast<...>":
+    # that "cast" says nothing of what the kernel does
+    low = name.lower().replace("_nocast", "")
     for fam, keys in FAMILIES:
         if any(k in low for k in keys):
             return fam
@@ -110,8 +117,10 @@ def summary(event_ms, wall_ms, by_kernel, unit):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dataset", type=int, choices=(2, 3), default=2)
     ap.add_argument("--calls", type=int, default=10)
     ap.add_argument("--generate-reps", type=int, default=3)
+    ap.add_argument("--generate-batches", type=int, default=2)
     ap.add_argument("--train-steps", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=Path, help="JSON file for the result and the top kernels")
@@ -124,14 +133,15 @@ def main() -> None:
         capture_output=True, text=True, timeout=60,
     ).stdout.strip()
     linear_attention.build_all()  # the kernels' build is set-up, not generation
-    cfg = load_config(str(ROOT / "configs" / "config_dataset2.json"))
+    cfg = load_config(str(ROOT / "configs" / f"config_dataset{args.dataset}.json"))
     model = CaloDiffusion(cfg, generator=torch.Generator().manual_seed(args.seed))
     g = torch.Generator(device="cuda").manual_seed(args.seed)
     B, n_layers = 128, cfg["SHAPE_FINAL"][2] + 1
+    shape, nb = tuple(cfg["SHAPE_PAD"][1:]), args.generate_batches
 
     rng = np.random.default_rng(args.seed)
     loader = [(rng.uniform(0.0, 1.0, (B, 1)).astype(np.float32),
-               rng.standard_normal((B, n_layers)).astype(np.float32), None) for _ in range(2)]
+               rng.standard_normal((B, n_layers)).astype(np.float32), None) for _ in range(nb)]
     generate_s = []
     for rep in range(args.generate_reps):
         torch.cuda.synchronize()
@@ -139,11 +149,12 @@ def main() -> None:
         model.generate(loader, 400, generator=torch.Generator(device="cuda").manual_seed(rep))
         torch.cuda.synchronize()
         generate_s.append(time.perf_counter() - t0)
-        print(f"generate {rep}: {2 * B} showers in {generate_s[-1]:.3f} s", flush=True)
+        print(f"generate {rep}: {nb * B} showers in {generate_s[-1]:.3f} s", flush=True)
 
-    x = torch.randn(B, 1, 45, 16, 9, generator=g, device="cuda")
+    x = torch.randn(B, *shape, generator=g, device="cuda")
     E = torch.rand(B, 1, generator=g, device="cuda")
-    layers = torch.randn(B, n_layers, generator=g, device="cuda")
+    layers = (torch.randn(B, n_layers, generator=g, device="cuda") if model.layer_cond
+              else None)
     sigma = torch.full((B, 1, 1, 1, 1), 0.7, device="cuda")
 
     def call():
@@ -154,12 +165,15 @@ def main() -> None:
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:25]
     denoise = summary(event_ms, wall_ms, by_kernel, "call")
 
-    trainer = TrainDiffusion(default_flags(seed=args.seed), cfg, save_model=False)
+    trainer = TrainDiffusion(default_flags(seed=args.seed), cfg, load_data=False,
+                             save_model=False)
     trainer.init_model()
     trainer.make_optimizer(float(cfg["LR"]))
-    data = torch.randn(B, 1, 45, 16, 9, generator=g, device="cuda")
+    TB = cfg["BATCH"]
+    data = torch.randn(TB, *shape, generator=g, device="cuda")
     t_event, t_wall, t_kernels = time_and_profile(
-        lambda: trainer.train_step(data, E, layers), args.train_steps)
+        lambda: trainer.train_step(data, E[:TB], None if layers is None else layers[:TB]),
+        args.train_steps)
     train = summary(t_event, t_wall, t_kernels, "step")
     train["clocks_power_after"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
@@ -168,18 +182,19 @@ def main() -> None:
     train_top = sorted(t_kernels.items(), key=lambda kv: -kv[1][0])[:25]
 
     result = {
-        "card": card, "batch": B, "calls": args.calls,
+        "card": card, "dataset": args.dataset, "batch": B, "train_batch": TB,
+        "calls": args.calls,
         "denoise_ms_events": event_ms, "denoise_ms_host_wall": wall_ms,
         "profiled_device_ms_per_call": denoise["profiled_device_ms_per_call"],
         "device_idle_share": denoise["call_device_idle_share"],
         "kernels_per_call": denoise["kernels_per_call"],
         "generate_s": generate_s,
-        "generate_showers_per_s": [2 * B / t for t in generate_s],
-        # generate's wall time beyond its 800 denoise calls at the steady rate
-        "generate_beyond_denoise_s": [t - 800 * event_ms / 1e3 for t in generate_s],
+        "generate_showers_per_s": [nb * B / t for t in generate_s],
+        # generate's wall time beyond its denoise calls at the steady rate
+        "generate_beyond_denoise_s": [t - nb * 400 * event_ms / 1e3 for t in generate_s],
         "families_ms_per_call": denoise["families_ms_per_call"],
         "train_steps": args.train_steps,
-        "train_samples_per_s": B / (t_event / 1e3),
+        "train_samples_per_s": TB / (t_event / 1e3),
         "train": train,
     }
     if args.out:

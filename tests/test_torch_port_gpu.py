@@ -30,6 +30,9 @@ pytestmark = pytest.mark.gpu
 # partial tile, one past a whole tile of 256
 SHAPES = [(4, 6480, 32), (4, 736, 64), (4, 736, 32), (4, 96, 32), (4, 96, 64), (3, 1, 32),
           (1, 257, 64), (2, 300, 32)]
+# dataset 3's (C, N) (configs/config_dataset3.json: 45 x 50 x 18 and two
+# downsamplings), at B = 2
+DS3_SHAPES = [(2, 40500, 32), (2, 5175, 32), (2, 576, 32)]
 
 
 @pytest.fixture(autouse=True)
@@ -57,7 +60,7 @@ def _block_args(B, N, C, dtype, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
-@pytest.mark.parametrize("B,N,C", SHAPES)
+@pytest.mark.parametrize("B,N,C", SHAPES + DS3_SHAPES)
 def test_attention_block_kernel_matches_plain(B, N, C, dtype):
     args = _block_args(B, N, C, dtype, seed=B + N + C)
     before = tattn.fused_attention_block.launches
@@ -129,7 +132,7 @@ def test_denoise_on_card_matches_cpu():
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
-@pytest.mark.parametrize("B,N,C", SHAPES)
+@pytest.mark.parametrize("B,N,C", SHAPES + DS3_SHAPES)
 def test_attention_block_backward_kernel_matches_plain(B, N, C, dtype):
     args = _block_args(B, N, C, dtype, seed=B + N + C + 1)
     g = torch.from_numpy(np.random.default_rng(N).standard_normal((B, N, C)).astype(np.float32))
@@ -181,6 +184,31 @@ def test_attention_block_backward_keeps_ds2_samples_on_chip():
                                   name=tattn.BACKWARD_KERNEL)
         assert plan["G"] == G, (C, N, plan)
         assert all(plan[f"{k}_resident"] for k in ("x", "g", "y", "dxn")), (C, N, plan)
+
+
+# K1's and K2's plans at dataset 3's (C, N): (G, what stays on chip).  At
+# N = 40,500 K1 re-reads x and keeps y in a device scratch; K2 keeps only x
+# on chip in bf16 and nothing in f32.
+DS3_PLANS = {
+    ("forward", torch.bfloat16): {40500: (8, ()), 5175: (8, ("x", "y")), 576: (1, ("x", "y"))},
+    ("forward", torch.float32): {40500: (8, ()), 5175: (8, ("x", "y")), 576: (1, ("x", "y"))},
+    ("backward", torch.bfloat16): {40500: (16, ("x",)), 5175: (16, ("x", "g", "y", "dxn")),
+                                   576: (2, ("x", "g", "y", "dxn"))},
+    ("backward", torch.float32): {40500: (8, ()), 5175: (8, ("x",)),
+                                  576: (4, ("x", "g", "y", "dxn"))},
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("kind", ["forward", "backward"])
+def test_attention_block_plans_at_ds3_shapes(kind, dtype):
+    """The plans chip_smoke.py prints at dataset 3's shapes."""
+    name = tattn.FORWARD_KERNEL if kind == "forward" else tattn.BACKWARD_KERNEL
+    keys = ("x", "y") if kind == "forward" else ("x", "g", "y", "dxn")
+    for N, (G, kept) in DS3_PLANS[(kind, dtype)].items():
+        plan = tattn.cluster_plan(torch.empty(1, N, 32, device="cuda", dtype=dtype), name=name)
+        got = tuple(k for k in keys if plan[f"{k}_resident"])
+        assert (plan["G"], got) == (G, kept), (kind, dtype, N, plan)
 
 
 def test_fused_attention_block_differentiates_through_the_kernels():
@@ -464,3 +492,40 @@ def _gn_inputs(shape, dtype, seed):
     return ((torch.randn(*shape, generator=g) + 0.5).to("cuda", dtype),
             (1.0 + 0.1 * torch.randn(C, generator=g)).cuda(),
             (0.1 * torch.randn(C, generator=g)).cuda())
+
+
+def test_train_and_sample_clis_on_card(tmp_path):
+    """The train CLI (one epoch of two steps and a val batch) and the sample
+    CLI's loading and generation (2-step DDim) on the card, from npz caches
+    (the card machine has no h5py), at a tiny config whose attention blocks
+    take C = 32: K1 runs 7 times a U-Net call, K2 7 times a train step."""
+    import json
+
+    from calodiffusion_tpu_torch import inference, training
+
+    rng = np.random.default_rng(0)
+    data = tmp_path / "data"
+    data.mkdir()
+    for name, n in (("dataset_2_1.hdf5", 8), ("dataset_2_2.hdf5", 4)):
+        np.savez_compressed(data / f"{name}.npz",
+                            E=rng.uniform(0, 1, (n, 1)).astype(np.float32),
+                            layers=rng.standard_normal((n, 46)).astype(np.float32),
+                            showers=rng.standard_normal((n, 1, 45, 16, 9)).astype(np.float32))
+    cfg = dict(load_config(str(CONFIG)), LAYER_SIZE_UNET=[32, 32, 32, 32], COND_SIZE_UNET=32,
+               BATCH=4, MAXEPOCH=1, VAL_FILES=["dataset_2_2.hdf5"], EVAL=["dataset_2_2.hdf5"],
+               CHECKPOINT_NAME="card_cli")
+    (tmp_path / "config.json").write_text(json.dumps(cfg))
+    common = ["-c", str(tmp_path / "config.json"), "-d", str(data) + "/", "--seed", "1"]
+    k1, k2 = tattn.fused_attention_block, tattn.attention_block_backward
+    k1.launches = k2.launches = 0
+    trainer = training.main(common + ["--checkpoint", str(tmp_path / "ckpt"), "diffusion"])
+    assert (k1.launches, k2.launches) == (7 * 3, 7 * 2)
+    folder = Path(trainer.checkpoint_folder)
+    assert all((folder / f).exists() for f in ("final.ckpt", "best_val.ckpt", "config.json"))
+    flags = inference.parse_flags(common + ["sample", "--sample-steps", "2", "--model-loc",
+                                            str(folder / "final.ckpt"), "diffusion"])
+    k1.launches = k2.launches = 0
+    showers, energies, _ = inference.generate_showers(flags, flags.config)
+    assert (k1.launches, k2.launches) == (7 * 2, 0)
+    assert showers.shape == (4, 6480) and energies.shape == (4, 1)
+    assert np.isfinite(showers).all() and (showers >= 0).all()

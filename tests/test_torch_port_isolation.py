@@ -1,6 +1,7 @@
 """calodiffusion_tpu_torch stands alone: no module of the port, nor
 chip_smoke.py, imports JAX, flax or the JAX package, and the port imports
-and runs with those (and the packages the card machine lacks) blocked."""
+and runs with those (and the packages the card machine lacks: h5py, yaml,
+click, matplotlib) blocked, its train and sample CLIs from npz caches too."""
 
 import ast
 import os
@@ -41,7 +42,8 @@ def test_no_forbidden_imports(path):
 _BLOCKED_RUN = r"""
 import importlib, importlib.abc, pkgutil, sys
 
-BLOCKED = ("jax", "flax", "calodiffusion_tpu", "h5py", "yaml", "click", "orbax")
+BLOCKED = ("jax", "flax", "calodiffusion_tpu", "h5py", "yaml", "click", "orbax",
+           "matplotlib")
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -73,5 +75,58 @@ print("ok")
 def test_port_runs_with_jax_blocked():
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr
+
+
+_BLOCKED_CLI = _BLOCKED_RUN.split("import calodiffusion_tpu_torch\n")[0] + r"""
+import json, sys
+from calodiffusion_tpu_torch import inference, training
+
+cfg, data, ck = sys.argv[1:4]
+trainer = training.main(["-c", cfg, "-d", data, "--checkpoint", ck, "--seed", "2",
+                         "--device", "cpu", "diffusion"])
+flags = inference.parse_flags(["-c", cfg, "-d", data, "--device", "cpu", "--seed", "1",
+                               "sample", "--sample-steps", "2", "--model-loc",
+                               trainer.checkpoint_folder + "/final.ckpt", "diffusion"])
+showers, energies, fout = inference.generate_showers(flags, flags.config)
+assert showers.shape == (8, 6480) and energies.shape == (8, 1), (showers.shape, energies.shape)
+assert bool((showers >= 0).all()) and fout.endswith(".h5")
+print("ok")
+"""
+
+
+def test_cli_runs_from_npz_caches_with_h5py_click_matplotlib_blocked(tmp_path):
+    """The npz caches are made here; the h5 sources are then removed, and
+    the train CLI (one epoch) and the sample CLI's loading and generation
+    (2-step DDim) run with h5py, click, yaml and matplotlib blocked."""
+    import json
+
+    import h5py
+    import numpy as np
+
+    from calodiffusion_tpu_torch.data.loader import load_data
+    from calodiffusion_tpu_torch.utils.config import default_flags
+    from tests.utils_test import tiny_ds2_config
+
+    data = tmp_path / "data"
+    data.mkdir()
+    rng = np.random.default_rng(0)
+    for name in ("dataset_2_1.hdf5", "dataset_2_2.hdf5"):
+        with h5py.File(data / name, "w") as f:
+            f.create_dataset("showers", data=rng.exponential(1.0, (8, 6480)).astype(np.float32))
+            f.create_dataset("incident_energies",
+                             data=rng.uniform(1e3, 1e6, (8, 1)).astype(np.float32))
+    cfg = tiny_ds2_config(BATCH=4, MAXEPOCH=1, LAYER_SIZE_UNET=[8, 8, 8, 8],
+                          COND_SIZE_UNET=16, CHECKPOINT_NAME="blocked")
+    flags = default_flags(data_folder=str(data) + "/")
+    load_data(flags, cfg)
+    load_data(flags, cfg, eval=True)
+    for name in ("dataset_2_1.hdf5", "dataset_2_2.hdf5"):
+        (data / name).unlink()
+    (tmp_path / "config.json").write_text(json.dumps(cfg))
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_CLI, str(tmp_path / "config.json"),
+                           str(data) + "/", str(tmp_path / "ckpt")], cwd=tmp_path, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr

@@ -41,7 +41,7 @@ def _few_threads():
 
 def _trainer(tmp_path, cfg, **flags):
     t = TrainDiffusion(default_flags(checkpoint_folder=str(tmp_path), seed=3, **flags), cfg,
-                       device="cpu")
+                       load_data=False, device="cpu")
     t.init_model()
     return t
 
@@ -298,7 +298,7 @@ def test_checkpoint_round_trip(tmp_path):
     assert t.swa_n == 2
 
     r = TrainDiffusion(default_flags(checkpoint_folder=str(tmp_path), seed=9, load=True), cfg,
-                       device="cpu")
+                       load_data=False, device="cpu")
     r.init_model()
     r.make_optimizer(1.0)
     scheduler = tsched.ReduceLROnPlateau(1.0)
@@ -338,7 +338,7 @@ def test_load_for_inference_prefers_swa_then_ema(tmp_path, swa_n, keys, want):
                             ema_params=trees.get("ema_params"),
                             swa_params=trees.get("swa_params"), swa_n=swa_n)
     r = TrainDiffusion(default_flags(model_loc=str(tmp_path / "run.ckpt")), cfg,
-                       save_model=False, device="cpu")
+                       load_data=False, save_model=False, device="cpu")
     model = r.load_for_inference()
     for n, v in model.state_dict().items():
         torch.testing.assert_close(v, trees[want][n], rtol=0, atol=0)
