@@ -4,7 +4,8 @@
         sample --model-loc CKPT/final.ckpt -g gen.h5 diffusion
     python -m calodiffusion_tpu_torch.inference -c config.json -d DATA/ plot -g gen.h5
 
-``sample diffusion`` generates showers with a registered sampler and writes
+``sample diffusion`` generates showers with any of the 16 registered
+samplers (``--sample-algo``) and writes
 reference-compatible HDF5 (gzip ``showers`` + ``incident_energies``);
 ``plot`` runs the histogram/separation-power evaluation suite.  The flags,
 subcommands and defaults are the JAX CLI's, in argparse; ``--device``
@@ -13,11 +14,11 @@ Sampling draws from a ``torch.Generator`` on the model's device seeded from
 ``--seed``, so its showers differ from the JAX package's for one seed.
 
 ``h5py`` and ``matplotlib`` are imported only by the functions that read
-or write h5 or draw, so sampling from npz caches needs neither.
+or write h5 or draw (``--debug``'s trajectory plots among them), so
+sampling from npz caches needs neither.
 
-Not ported yet: ``sample layer`` (ROADMAP M9), samplers other than DDim and
-DDPM (M8), ``--int8`` (M12), ``--sparse-decoding`` and HGCal (M10), and
-``--debug``'s trajectory plots.
+Not ported yet: ``sample layer`` (ROADMAP M9), ``--int8`` (M12),
+``--sparse-decoding`` and HGCal (M10).
 """
 
 from __future__ import annotations
@@ -388,19 +389,14 @@ def generate_showers(flags, config):
     import torch
 
     from calodiffusion_tpu_torch.data.loader import load_data
-    from calodiffusion_tpu_torch.samplers import SAMPLER_REGISTRY
+    from calodiffusion_tpu_torch.samplers import get_sampler
     from calodiffusion_tpu_torch.train.trainer import TrainDiffusion
 
-    if flags.sample_algo not in SAMPLER_REGISTRY:
-        raise _not_ported(f"sampler {flags.sample_algo!r}", "M8")
+    get_sampler(flags.sample_algo)  # an unknown name raises before anything loads
     if config.get("QUANT_INT8", False):
         raise _not_ported("int8 sampling (--int8, QUANT_INT8)", "M12")
     if flags.sparse_decoding or flags.sparse_per_batch:
         raise _not_ported("sparse decoding", "M10")
-    if flags.debug:
-        raise NotImplementedError(
-            "--debug (the sampling trajectory plots) is not yet ported to "
-            "calodiffusion_tpu_torch")
 
     data_loader, _ = load_data(flags, config, eval=True)
     trainer = TrainDiffusion(flags, config, load_data=False, device=flags.device)
@@ -423,7 +419,7 @@ def generate_showers(flags, config):
     generator = torch.Generator(device=model.device).manual_seed(int(flags.seed))
     generated, energies = model.generate(
         data_loader, sample_steps, generator=generator,
-        sample_offset=flags.sample_offset,
+        sample_offset=flags.sample_offset, debug=flags.debug,
     )
     return generated, energies, fout
 

@@ -212,23 +212,34 @@ class CaloDiffusion:
 
     def generate(self, data_loader: Iterable, sample_steps: int,
                  generator: Optional[torch.Generator] = None,
-                 sample_offset: int = 0, sampler=None) -> tuple[Any, Any]:
+                 sample_offset: int = 0, sampler=None,
+                 debug: bool = False) -> tuple[Any, Any]:
         """Sample every ``(E, layers, batch)`` of ``data_loader`` and invert
         the preprocessing (reference diffusion.py:118-197).  Returns numpy
-        (showers of SHAPE_ORIG, energies)."""
+        (showers of SHAPE_ORIG, energies).  With ``debug`` the first batch's
+        reverse trajectory is plotted against the loader's showers
+        (``_debug_sample_plot``)."""
         c = self.config
         if sampler is None:
             sampler = self.make_sampler()
 
+        def to_numpy(t):
+            return None if t is None else t.float().cpu().numpy()
+
         generated, energies, layers_all = [], [], []
-        for E, layers_, _ in data_loader:
+        for i, (E, layers_, d_batch) in enumerate(data_loader):
             E_t = torch.as_tensor(np.asarray(E, np.float32), device=self.device)
             lay = (torch.as_tensor(np.asarray(layers_, np.float32), device=self.device)
                    if self.layer_cond else None)
             out = self.sample(E_t, layers=lay, num_steps=sample_steps,
                               generator=generator, sample_offset=sample_offset,
-                              sampler=sampler)
-            generated.append(out.float().cpu().numpy())
+                              sampler=sampler, debug=debug)
+            if debug:
+                out, xs, x0s = out
+                if i == 0 and xs is not None:  # some samplers expose no trajectory
+                    self._debug_sample_plot(to_numpy(xs), to_numpy(x0s),
+                                            np.asarray(d_batch))
+            generated.append(to_numpy(out))
             energies.append(np.asarray(E, np.float32))
             if self.layer_cond:
                 layers_all.append(np.asarray(layers_, np.float32))
@@ -248,3 +259,35 @@ class CaloDiffusion:
         generated = generated.reshape(c["SHAPE_ORIG"])
         energies = np.reshape(energies, (energies.shape[0], -1))
         return generated, energies
+
+    def _debug_sample_plot(self, xs, x0s, data_batch, plot_folder: str = "./plots/"):
+        """Histogram the normalized-voxel distribution at checkpoints along
+        the reverse trajectory vs Geant (reference diffusion.py:199-235)."""
+        import os
+
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        os.makedirs(plot_folder, exist_ok=True)
+        n = xs.shape[0]
+        steps = sorted(set([0, n // 4, n // 2, 3 * n // 4, 9 * n // 10,
+                            max(n - 10, 0), max(n - 5, 0), n - 1]))
+        name = self.config.get("CHECKPOINT_NAME", "debug")
+        for j in steps:
+            series = [("gen", xs[j])]
+            if x0s is not None:  # some samplers expose no x0 trajectory
+                series.append(("x0", x0s[j]))
+            for tag, arr in series:
+                fig = plt.figure(figsize=(8, 6))
+                plt.hist(arr.reshape(-1), bins=40, density=True,
+                         histtype="step", color="blue", label="Diffu")
+                plt.hist(data_batch.reshape(-1), bins=40, density=True,
+                         histtype="step", color="black", label="Geant4")
+                plt.xlabel("Normalized Voxel Energy")
+                plt.legend()
+                fig.savefig(os.path.join(
+                    plot_folder, f"{name}_norm_voxels_{tag}_step{j}.png"
+                ))
+                plt.close(fig)

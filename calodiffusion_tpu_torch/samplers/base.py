@@ -25,6 +25,11 @@ def randn(shape, generator: torch.Generator | None, device) -> torch.Tensor:
     return torch.randn(shape, generator=generator, device=gen_device).to(device)
 
 
+def sigma_like(x, sigma) -> torch.Tensor:
+    """A per-sample (B, 1, ..., 1) f32 sigma of value ``sigma`` on x's device."""
+    return torch.full(bshape(x), float(sigma), dtype=torch.float32, device=x.device)
+
+
 class Sample:
     def __init__(self, config: dict) -> None:
         self.config = config
@@ -59,6 +64,11 @@ class Sample:
         rows = self._noise_table[self._noise_cursor:end].reshape((n, *shape))
         self._noise_cursor = end
         return torch.from_numpy(rows).to(device)
+
+    def noise(self, inj, i, shape, generator, device) -> torch.Tensor:
+        """Row ``i`` of ``inj`` (from ``take_noise``), else a fresh standard
+        normal from ``generator``."""
+        return inj[i] if inj is not None else randn(shape, generator, device)
 
     def make_denoise_fn(self, model, energy, layers):
         def denoise(x, sigma):

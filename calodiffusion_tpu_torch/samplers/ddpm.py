@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from calodiffusion_tpu_torch.samplers import schedules
-from calodiffusion_tpu_torch.samplers.base import Sample, bshape, randn
+from calodiffusion_tpu_torch.samplers.base import Sample, sigma_like
 
 
 class DDim(Sample):
@@ -54,7 +54,6 @@ class DDim(Sample):
         tabs = self._step_tables(num_steps, sample_offset)
         # f32 products, as the JAX sampler's f32 table rows multiply
         step_coeff = tabs["mask"] * tabs["sigma_prev"]
-        bs = bshape(start)
         dev = start.device
 
         x = start * float(tabs["sigma"][0])
@@ -65,12 +64,12 @@ class DDim(Sample):
         )
         xs, x0s = [], []
         for i in range(len(tabs["sigma"])):
-            sigma_b = torch.full(bs, float(tabs["sigma"][i]), device=dev)
+            sigma_b = sigma_like(x, tabs["sigma"][i])
             x0_pred = denoise(x, sigma_b)
             noise_pred = (x - x0_pred) / sigma_b
             step = x0_pred + float(step_coeff[i]) * noise_pred
             if stochastic:
-                noise = inj[i] if inj is not None else randn(x.shape, generator, dev)
+                noise = self.noise(inj, i, x.shape, generator, dev)
                 step = step + float(tabs["noise_coeff"][i]) * noise
             if debug:
                 xs.append(step)

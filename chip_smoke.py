@@ -49,9 +49,33 @@ prints no result:
             (inference.parse_flags + generate_showers) of 128 showers with
             400-step DDim, finite, >= 0, (128, 6480) or (128, 40500), K1
             launched 7 times a step and K2 never, showers/s with the first
-            (cold) denoise apart; write_out and a read back where h5py is
-            installed, else a line saying it did not run
-7. variants the entries that run the other three kernels, in bf16 and f32:
+            (cold) denoise apart; on ds2 once more with --sample-algo DPMPP2M
+            --sample-steps 20 (K1 7 times each of its 19 evaluations);
+            write_out and a read back where h5py is installed, else a line
+            saying it did not run
+7. samplers the rest of the sampler zoo on the card: the 13 samplers that
+            need no trained theta, in registry order, through
+            CaloDiffusion.generate at ds2's full width (bf16, one batch of
+            128, the phase-4 weights; 10 steps, Consistency 4; ETA 1 for the
+            three SDE samplers, so their noise paths run): showers finite,
+            >= 0, (128, 6480); network evaluations counted (the counts
+            tests/test_torch_port_samplers.py pins on the CPU; DPMAdaptive's
+            three a try, its accepted and rejected steps printed, and more
+            than 1000 evaluations fail the phase as a hang guard); K1 7 times
+            an evaluation and K2 never (counts reset before each sampler);
+            wall and showers/s printed.  Heun, LMS, DPMPP3MSDE (ETA 1) and
+            Consistency in f32 at batch 2, 4 steps, from the same weights,
+            start and noise table on the card and on the CPU (plain
+            versions): within evaluations x 2e-4 (docs/DESIGN.md:32).  Then
+            BespokeNonStationary at ds3's full width
+            (configs/config_dataset3.json, seeded weights; its "sigma" time
+            embed is defined at the negative sigmas the sampler draws, ds2's
+            "log" embed is NaN there in both packages): theta trained on the
+            card (4 steps, MAX_ITER 2, one batch of 8 synthetic showers),
+            finite and moved from its ones, K1 7 times a denoise and K2 7
+            times each denoise theta reaches (the first sees only the data);
+            then 128 ds3 showers sampled with it, finite, >= 0, (128, 40500)
+8. variants the entries that run the other three kernels, in bf16 and f32:
             K3 (LinearAttention alone) against linear_attention_reference at
             every ds2 (C, N), B = 128, and at dataset 3's full grid (B = 64,
             N = 45*50*18 = 40,500, C = 32), with its device time and plan;
@@ -75,7 +99,7 @@ prints no result:
             once each; output and f32 gradients against the plain module's,
             the bf16 gradients finite) and groupnorm_silu at the three
             shapes (K5 three times).
-8. result   {"kernels": [...]} and, last, {"ok": true, "device": {...}}
+9. result   {"kernels": [...]} and, last, {"ok": true, "device": {...}}
 """
 
 from __future__ import annotations
@@ -770,6 +794,11 @@ def run_cli(name, cfg, cfg_path, data, ckpt, seed, attn, card):
           f"weights {sample['setup_s']:.2f} s; K1 launches {k1s} ({n_blocks} a step), K2 {k2s}",
           flush=True)
 
+    results = dict(train=train, sample=sample)
+    if name == "ds2":
+        results["sample_dpmpp2m"] = run_cli_sampler(common, folder, attn, card, n_blocks,
+                                                    "DPMPP2M", 20, 19)
+
     if importlib.util.find_spec("h5py") is None:
         print(f"cli {name} sample: write_out (the h5 file) not run: this machine has no h5py; "
               "the CPU tests cover it (tests/test_torch_port_cli.py)", flush=True)
@@ -783,7 +812,36 @@ def run_cli(name, cfg, cfg_path, data, ckpt, seed, attn, card):
         if shapes != ((n, voxels), (n, 1)):
             fail(f"cli {name}: the h5 file holds {shapes}")
         print(f"cli {name} sample: write_out wrote {out}: {shapes}", flush=True)
-    return dict(train=train, sample=sample)
+    return results
+
+
+def run_cli_sampler(common, folder, attn, card, n_blocks, algo, steps, evals):
+    """The ds2 sample CLI's parsing, loading and generation once more with
+    ``--sample-algo algo --sample-steps steps``; ``evals`` network
+    evaluations, K1 7 times each, K2 never."""
+    from calodiffusion_tpu_torch import inference
+
+    flags = inference.parse_flags(common + ["-n", "-1", "sample", "--batch-size",
+                                            str(CLI_SAMPLE_BATCH), "--sample-steps", str(steps),
+                                            "--sample-algo", algo, "--model-loc",
+                                            str(folder / "final.ckpt"), "diffusion"])
+    torch.cuda.synchronize()
+    attn.fused_attention_block.launches = attn.attention_block_backward.launches = 0
+    t0 = time.perf_counter()
+    showers, energies, _ = inference.generate_showers(flags, flags.config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2 = attn.fused_attention_block.launches, attn.attention_block_backward.launches
+    n = CLI_SAMPLE_BATCH
+    if showers.shape != (n, 6480) or not np.isfinite(showers).all() or (showers < 0).any():
+        fail(f"cli ds2 --sample-algo {algo}: showers {showers.shape}, not all finite and >= 0")
+    if (k1, k2) != (n_blocks * evals, 0):
+        fail(f"cli ds2 --sample-algo {algo}: K1 {k1} launches (expected {n_blocks * evals}), "
+             f"K2 {k2} (expected 0)")
+    print(f"cli ds2 sample --sample-algo {algo} --sample-steps {steps}: {n} showers, "
+          f"{evals} evaluations, bf16: {wall:.2f} s with loading, {n / wall:.3f} showers/s on "
+          f"{card}; K1 launches {k1}, K2 {k2}", flush=True)
+    return dict(algo=algo, steps=steps, wall_s=wall, showers_per_s=n / wall, k1=k1, k2=k2)
 
 
 def run_cli_phase(seed, attn, card):
@@ -802,7 +860,216 @@ def run_cli_phase(seed, attn, card):
 
 
 # ---------------------------------------------------------------------------
-# 7. variants: K3, K4, K5 and the entries that run them
+# 7. samplers: the zoo at ds2's full width, Bespoke at ds3's
+# ---------------------------------------------------------------------------
+
+# The zoo run: (sampler, steps, SAMPLER_OPTIONS, network evaluations), in
+# registry order.  tests/test_torch_port_samplers.py pins these counts on
+# the CPU against the JAX package's; DPMAdaptive's depends on the data
+# (three a try, accepted or rejected).
+ZOO = [
+    ("DPM", 10, {}, 10),
+    ("DPMAdaptive", 10, {}, None),
+    ("DPMPP2S", 10, {}, 18),
+    ("DPMPPSDE", 10, {"ETA": 1.0}, 18),
+    ("DPMPP2M", 10, {}, 9),
+    ("DPMPP2MSDE", 10, {"ETA": 1.0}, 9),
+    ("DPMPP3MSDE", 10, {"ETA": 1.0}, 9),
+    ("LMS", 10, {}, 10),
+    ("Euler", 10, {}, 10),
+    ("Heun", 10, {}, 19),
+    ("DPM2", 10, {}, 19),
+    ("Restart", 10, {}, 76),
+    ("Consistency", 4, {}, 4),
+]
+# more network evaluations than this in one sampler's run fail the phase
+# (DPMAdaptive's loop ends only when its steps reach the last sigma)
+HANG_GUARD_EVALS = 1000
+# card (kernels) against CPU (plain versions), f32, batch 2, 4 steps
+SAMPLER_CARD_VS_CPU = [("Heun", {}, 7), ("LMS", {}, 4), ("DPMPP3MSDE", {"ETA": 1.0}, 3),
+                       ("Consistency", {}, 4)]
+# the Bespoke theta trainer on ds3: steps, Adam iterations, batch
+BNS_STEPS, BNS_ITERS, BNS_BATCH = 4, 2, 8
+
+
+class CountedDenoise:
+    """Counts a model's network evaluations (its ``denoise`` calls) while
+    installed; fails past HANG_GUARD_EVALS."""
+
+    def __init__(self, model):
+        self.model, self.evals, self.denoise = model, 0, model.denoise
+
+    def __call__(self, *a, **kw):
+        self.evals += 1
+        if self.evals > HANG_GUARD_EVALS:
+            fail(f"hang guard: more than {HANG_GUARD_EVALS} network evaluations in one "
+                 "sampler's run")
+        return self.denoise(*a, **kw)
+
+    def __enter__(self):
+        self.model.denoise = self
+        return self
+
+    def __exit__(self, *exc):
+        del self.model.denoise
+
+
+def run_sampler_zoo(model, cfg, seed, attn, card):
+    """The 13 samplers of ZOO through generate on one batch of 128."""
+    from calodiffusion_tpu_torch.samplers import get_sampler
+
+    n_blocks = len(DS2_ATTENTION_BLOCKS)
+    loader = list(synthetic_loader(1, cfg["SHAPE_FINAL"][2] + 1, seed))
+    results, totals = {}, [0, 0]
+    for name, steps, options, want_evals in ZOO:
+        sampler = get_sampler(name)(dict(cfg, SAMPLER_OPTIONS=options))
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        torch.cuda.synchronize()
+        attn.fused_attention_block.launches = attn.attention_block_backward.launches = 0
+        with CountedDenoise(model) as counted:
+            t0 = time.perf_counter()
+            showers, energies = model.generate(loader, steps, generator=gen, sampler=sampler)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        k1, k2 = attn.fused_attention_block.launches, attn.attention_block_backward.launches
+        evals = counted.evals
+        if showers.shape != (BATCH, 6480) or energies.shape != (BATCH, 1):
+            fail(f"samplers {name}: showers {showers.shape}, energies {energies.shape}")
+        if not np.isfinite(showers).all() or (showers < 0).any():
+            fail(f"samplers {name}: showers are not finite and >= 0")
+        extra = ""
+        if name == "DPMAdaptive":
+            accepted, rejected = sampler.last_steps
+            want_evals = 3 * (accepted + rejected)
+            extra = f" ({accepted} steps accepted, {rejected} rejected)"
+        if evals != want_evals:
+            fail(f"samplers {name}: {evals} network evaluations, expected {want_evals}")
+        if (k1, k2) != (n_blocks * evals, 0):
+            fail(f"samplers {name}: K1 {k1} launches (expected {n_blocks * evals}), K2 {k2} "
+                 "(expected 0)")
+        totals = [totals[0] + k1, totals[1] + k2]
+        results[name] = dict(steps=steps, options=options, evals=evals, wall_s=wall,
+                             showers_per_s=BATCH / wall, k1=k1, k2=k2)
+        if name == "DPMAdaptive":
+            results[name].update(accepted=accepted, rejected=rejected)
+        print(f"samplers {name}: {steps} steps, {evals} evaluations{extra}, {BATCH} ds2 "
+              f"showers, bf16, full width: {wall:.3f} s, {BATCH / wall:.3f} showers/s on {card} "
+              f"({1e3 * wall / evals:.2f} ms an evaluation with reverse_norm); K1 {k1}, "
+              f"K2 {k2}", flush=True)
+    return results, totals
+
+
+def check_samplers_card_vs_cpu(cfg, state_dict, seed):
+    """SAMPLER_CARD_VS_CPU in f32: the same weights, start, energies,
+    layers and injected noise table on the card and on the CPU."""
+    from calodiffusion_tpu_torch.models.diffusion import CaloDiffusion
+    from calodiffusion_tpu_torch.samplers import get_sampler
+
+    cfg = dict(cfg, PRECISION="f32")
+    rng = np.random.default_rng(seed)
+    start = rng.standard_normal((2, 1, 45, 16, 9)).astype(np.float32)
+    E = rng.uniform(0, 1, (2, 1)).astype(np.float32)
+    lay = rng.standard_normal((2, cfg["SHAPE_FINAL"][2] + 1)).astype(np.float32)
+    table = rng.standard_normal((16, *start.shape)).astype(np.float32)
+    models = {}
+    for dev in ("cuda", "cpu"):
+        models[dev] = CaloDiffusion(cfg, device=dev)
+        models[dev].load_state_dict(state_dict)
+    errs = {}
+    for name, options, evals in SAMPLER_CARD_VS_CPU:
+        outs, draws = [], []
+        for dev, m in models.items():
+            sampler = get_sampler(name)(dict(cfg, SAMPLER_OPTIONS=options))
+            sampler.set_noise_table(table)
+            with torch.inference_mode(), CountedDenoise(m) as counted:
+                out = sampler(m, *(torch.from_numpy(a).to(m.device) for a in (start, E, lay)),
+                              4, 0, None)
+            if counted.evals != evals:
+                fail(f"samplers card vs CPU {name} ({dev}): {counted.evals} evaluations, "
+                     f"expected {evals}")
+            outs.append(out.cpu())
+            draws.append(sampler.noise_draws)
+        err = (outs[0] - outs[1]).abs().max().item()
+        tol = evals * 2e-4  # the weight-transfer bound of docs/DESIGN.md:32, per evaluation
+        if not np.isfinite(err) or err > tol or draws[0] != draws[1]:
+            fail(f"samplers card vs CPU {name}: max_abs_err {err:.3g} > {tol:.3g} or noise "
+                 f"rows {draws}")
+        errs[name] = dict(max_abs_err=err, tol=tol, evals=evals, noise_rows=draws[0])
+        print(f"samplers card vs CPU {name} (f32, batch 2, 4 steps, {evals} evaluations, "
+              f"{draws[0]} injected noise rows): max_abs_err {err:.3g} (tol {tol:.3g})",
+              flush=True)
+    return errs
+
+
+def run_bespoke(seed, attn, card):
+    """BespokeNonStationary at ds3's full width: train theta on the card,
+    then sample 128 showers with it."""
+    from calodiffusion_tpu_torch.models.diffusion import CaloDiffusion
+    from calodiffusion_tpu_torch.samplers import get_sampler
+    from calodiffusion_tpu_torch.utils.config import load_config
+
+    n_blocks = len(DS3_ATTENTION_BLOCKS)
+    cfg = load_config(str(ROOT / "configs" / "config_dataset3.json"))
+    shape = tuple(cfg["SHAPE_PAD"][1:])
+    rng = np.random.default_rng(seed)
+    batch = (rng.uniform(0.0, 1.0, (BNS_BATCH, 1)).astype(np.float32),
+             np.zeros((BNS_BATCH, 1), np.float32),  # ds3 has no layer energies
+             rng.standard_normal((BNS_BATCH, *shape)).astype(np.float32))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "bns_sampler.npy"
+        cfg = dict(cfg, SAMPLER_OPTIONS={"MAX_ITER": BNS_ITERS, "SAMPLER_PATH": str(path)})
+        model = CaloDiffusion(cfg, generator=torch.Generator().manual_seed(seed))
+        sampler = get_sampler("BespokeNonStationary")(cfg)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        attn.fused_attention_block.launches = attn.attention_block_backward.launches = 0
+        t0 = time.perf_counter()
+        theta = sampler.train(model, [batch], BNS_STEPS, generator=gen)
+        torch.cuda.synchronize()
+        train_wall = time.perf_counter() - t0
+        k1, k2 = attn.fused_attention_block.launches, attn.attention_block_backward.launches
+        mem = torch.cuda.max_memory_allocated() / 2**30
+        saved = np.load(path)
+    if theta.shape != (2, BNS_STEPS) or not np.isfinite(theta).all() or np.all(theta == 1.0):
+        fail(f"bns: theta {theta} is not finite or did not move from its ones")
+    if not np.array_equal(saved, theta):
+        fail("bns: the theta file differs from the trained theta")
+    if any(p.grad is not None for p in model.parameters()):
+        fail("bns: the theta trainer left gradients on the network's parameters")
+    want = (n_blocks * BNS_STEPS * BNS_ITERS, n_blocks * (BNS_STEPS - 1) * BNS_ITERS)
+    if (k1, k2) != want:
+        fail(f"bns: the theta trainer launched K1 {k1} and K2 {k2} times, expected {want}")
+    print(f"bns: theta trained on {BNS_BATCH} ds3 showers (full width, bf16), {BNS_STEPS} "
+          f"steps, {BNS_ITERS} Adam iterations: {train_wall:.3f} s on {card}, peak memory "
+          f"{mem:.2f} GiB; K1 {k1}, K2 {k2} launches; theta {np.round(theta, 5).tolist()}",
+          flush=True)
+
+    loader = [(rng.uniform(0.0, 1.0, (BATCH, 1)).astype(np.float32),
+               np.zeros((BATCH, 1), np.float32), None)]
+    torch.cuda.synchronize()
+    attn.fused_attention_block.launches = attn.attention_block_backward.launches = 0
+    t0 = time.perf_counter()
+    showers, energies = model.generate(loader, BNS_STEPS, generator=gen, sampler=sampler)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sk1, sk2 = attn.fused_attention_block.launches, attn.attention_block_backward.launches
+    if showers.shape != (BATCH, DS3_N) or energies.shape != (BATCH, 1):
+        fail(f"bns: showers {showers.shape}, energies {energies.shape}; expected "
+             f"({BATCH}, {DS3_N}), ({BATCH}, 1)")
+    if not np.isfinite(showers).all() or (showers < 0).any():
+        fail("bns: ds3 showers are not finite and >= 0")
+    if (sk1, sk2) != (n_blocks * BNS_STEPS, 0):
+        fail(f"bns: sampling launched K1 {sk1} and K2 {sk2} times")
+    print(f"bns: {BATCH} ds3 showers with the trained theta, {BNS_STEPS} steps: {wall:.3f} s, "
+          f"{BATCH / wall:.3f} showers/s on {card}; K1 {sk1}, K2 {sk2}", flush=True)
+    return dict(theta=theta.tolist(), train_wall_s=train_wall, train_max_memory_gib=mem,
+                k1=k1 + sk1, k2=k2 + sk2, train_k1=k1, train_k2=k2, sample_wall_s=wall,
+                showers_per_s=BATCH / wall)
+
+
+# ---------------------------------------------------------------------------
+# 8. variants: K3, K4, K5 and the entries that run them
 # ---------------------------------------------------------------------------
 
 def elementwise_err(name, got, want, tol, what):
@@ -1241,7 +1508,14 @@ def main() -> None:
     cli = run_cli_phase(args.seed + 20, attn, card)
     print(f"cli: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 7. variants
+    # 7. samplers
+    t0 = time.perf_counter()
+    zoo, zoo_launches = run_sampler_zoo(model, cfg, args.seed + 30, attn, card)
+    zoo_cpu = check_samplers_card_vs_cpu(cfg, model.state_dict(), args.seed + 31)
+    bns = run_bespoke(args.seed + 32, attn, card)
+    print(f"samplers: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 8. variants
     t0 = time.perf_counter()
     k3_cases = check_linear_kernel(attn)
     k4_cases = check_blockwise_kernel(att)
@@ -1250,7 +1524,7 @@ def main() -> None:
     var_launches, var_results = run_variants_path(args.seed + 6, attn, att, gn, nn_modules)
     print(f"variants: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 8. result
+    # 9. result
     launches = {"fused_attention_block": (gen_launches[0], train["k1"]),
                 "attention_block_backward": (gen_launches[1], train["k2"])}
     kernels = []
@@ -1261,11 +1535,15 @@ def main() -> None:
         for ds, res in cli.items():
             by_path.update({f"cli_{ds}_train": res["train"][key],
                             f"cli_{ds}_sample": res["sample"][key]})
+        by_path["cli_ds2_sample_dpmpp2m"] = cli["ds2"]["sample_dpmpp2m"][key]
+        by_path["samplers"] = zoo_launches[0 if key == "k1" else 1]
+        by_path["bns"] = bns[key]
         by_path["variants"] = var_launches[name]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            # launches on this slice's path: the train and sample CLIs, ds2 and ds3
-            launches=sum(v for k, v in by_path.items() if k.startswith("cli_")),
+            # launches on this slice's path: the sampler zoo on ds2, Bespoke
+            # on ds3 (theta trained, then sampling) and the CLI's DPMPP2M run
+            launches=sum(by_path[k] for k in ("samplers", "bns", "cli_ds2_sample_dpmpp2m")),
             launches_by_path=by_path,
             max_abs_err=max(c["max_abs_err"] for c in bf16),
             # times of the 7 launches of one ds2 U-Net call, B=128, bf16
@@ -1315,6 +1593,7 @@ def main() -> None:
                       "train_step_losses": [s["loss"] for s in train["steps"]],
                       "train_step_s": [s["s"] for s in train["steps"]],
                       "card_vs_cpu_step": step_check, "cli": cli, "variants": var_results,
+                      "samplers": zoo, "samplers_card_vs_cpu": zoo_cpu, "bns": bns,
                       "card": card}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

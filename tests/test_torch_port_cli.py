@@ -161,6 +161,27 @@ def generated(workspace, trained):
     return gen
 
 
+def test_sample_cli_debug_writes_the_jax_trajectory_plots(workspace, trained, tmp_path,
+                                                          monkeypatch):
+    """--debug reaches generate: the first batch's trajectory is plotted
+    into ./plots/ under the file names JAX's _debug_sample_plot gives a
+    trajectory of that length."""
+    from types import SimpleNamespace
+
+    from calodiffusion_tpu.models.diffusion import CaloDiffusion as JaxModel
+
+    root, data, cfg = workspace
+    monkeypatch.chdir(tmp_path)
+    model_loc = str(root / "ckpt" / "cli_test_Diffusion" / "final.ckpt")
+    tinf.main(["-c", cfg, "-d", data, "--device", "cpu", "--debug", "sample",
+               "--sample-steps", "3", "--sample-algo", "Euler", "--model-loc", model_loc,
+               "-g", str(tmp_path / "gen.h5"), "diffusion"])
+    traj = np.zeros((3, 2, 1, 45, 16, 9), np.float32)
+    JaxModel._debug_sample_plot(SimpleNamespace(config={"CHECKPOINT_NAME": "cli_test"}), traj,
+                                traj, traj[0], plot_folder=str(tmp_path / "jax"))
+    assert sorted(os.listdir(tmp_path / "plots")) == sorted(os.listdir(tmp_path / "jax"))
+
+
 def test_sample_cli_writes_the_reference_h5(generated):
     with h5py.File(generated, "r") as f:
         assert sorted(f) == ["incident_energies", "showers"]
@@ -289,14 +310,19 @@ def test_process_data_dict_and_load_samples_match_jax(workspace, generated, emin
 # what the port does not do yet says so
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("argv,item", [
-    (["sample", "--model-loc", "m.ckpt", "--sample-algo", "Euler", "diffusion"], "M8"),
-    (["sample", "--model-loc", "m.ckpt", "--int8", "diffusion"], "M12"),
-    (["sample", "--model-loc", "m.ckpt", "--sparse-decoding", "diffusion"], "M10"),
-    (["sample", "--model-loc", "m.ckpt", "layer", "--layer-model", "l.ckpt"], "M9"),
-])
-def test_unported_sample_options_raise(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
+# every sampler is ported: an unknown --sample-algo raises the JAX
+# package's ValueError, before any data or weights are loaded
+@pytest.mark.parametrize("argv,error,item", [
+    (["sample", "--model-loc", "m.ckpt", "--sample-algo", "Karras", "diffusion"], ValueError,
+     "sampler 'Karras' is not supported; pick from"),
+    (["sample", "--model-loc", "m.ckpt", "--int8", "diffusion"], NotImplementedError, "M12"),
+    (["sample", "--model-loc", "m.ckpt", "--sparse-decoding", "diffusion"], NotImplementedError,
+     "M10"),
+    (["sample", "--model-loc", "m.ckpt", "layer", "--layer-model", "l.ckpt"],
+     NotImplementedError, "M9"),
+], ids=["argv0-M8", "argv1-M12", "argv2-M10", "argv3-M9"])
+def test_unported_sample_options_raise(argv, error, item):
+    with pytest.raises(error, match=item):
         tinf.main(["--device", "cpu"] + argv)
 
 

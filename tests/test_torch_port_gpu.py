@@ -529,3 +529,64 @@ def test_train_and_sample_clis_on_card(tmp_path):
     assert (k1.launches, k2.launches) == (7 * 2, 0)
     assert showers.shape == (4, 6480) and energies.shape == (4, 1)
     assert np.isfinite(showers).all() and (showers >= 0).all()
+
+
+# (sampler, SAMPLER_OPTIONS, network evaluations at 4 steps)
+SAMPLERS_AT_4 = [
+    ("DDim", {}, 4), ("DDPM", {}, 4), ("DPM", {}, 4),
+    ("DPMAdaptive", {"P_COEFF": 0.0, "I_COEFF": 0.0, "D_COEFF": 0.0, "H_INIT": 2.0}, 12),
+    ("DPMPP2S", {"ETA": 0.0}, 6), ("DPMPPSDE", {"ETA": 1.0}, 6), ("DPMPP2M", {}, 3),
+    ("DPMPP2MSDE", {"ETA": 1.0}, 3), ("DPMPP3MSDE", {"ETA": 1.0}, 3), ("LMS", {}, 4),
+    ("Euler", {"NOISY": True}, 4), ("Heun", {}, 7), ("DPM2", {}, 7),
+    ("Restart", {"RESTART_LIST": {"0": [3, 1, 1.0, 2.0]}}, 8), ("Consistency", {}, 4),
+    ("BespokeNonStationary", {}, 4),
+]
+
+
+@pytest.fixture(scope="module")
+def f32_pair():
+    """The ds2 config at full width in f32, seeded weights, on the card and
+    on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    cfg = dict(load_config(str(CONFIG)), PRECISION="f32")
+    card = CaloDiffusion(cfg, generator=torch.Generator().manual_seed(0))
+    cpu = CaloDiffusion(cfg, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    return cfg, card, cpu
+
+
+@pytest.mark.parametrize("name,options,evals", SAMPLERS_AT_4, ids=[s[0] for s in SAMPLERS_AT_4])
+def test_every_sampler_on_card_matches_cpu(f32_pair, tmp_path, name, options, evals):
+    """Each of the 16 samplers, 4 steps at batch 2, from the same weights,
+    start and noise table on the card (K1) and on the CPU (plain versions):
+    within evaluations x 2e-4 (docs/DESIGN.md:32); K1 7 times an
+    evaluation.  Bespoke reads a theta file and takes positive sigmas (ds2's
+    "log" time embed is NaN at a negative one)."""
+    from calodiffusion_tpu_torch.samplers import get_sampler
+
+    cfg, card, cpu = f32_pair
+    rng = np.random.default_rng(len(name))
+    start = rng.standard_normal((2, 1, 45, 16, 9)).astype(np.float32)
+    E = rng.uniform(0, 1, (2, 1)).astype(np.float32)
+    lay = rng.standard_normal((2, 46)).astype(np.float32)
+    table = rng.standard_normal((32, *start.shape)).astype(np.float32)
+    options = dict(options)
+    scfg = dict(cfg, NOISY_SAMPLE=options.pop("NOISY", False))
+    if name == "BespokeNonStationary":
+        np.save(tmp_path / "theta.npy", (1 + 0.1 * rng.standard_normal((2, 4))).astype(np.float32))
+        options["SAMPLER_PATH"] = str(tmp_path / "theta.npy")
+        table = np.abs(rng.standard_normal((4, 2))).astype(np.float32) + 0.1
+    outs = []
+    for model in (card, cpu):
+        sampler = get_sampler(name)(dict(scfg, SAMPLER_OPTIONS=options))
+        sampler.set_noise_table(table)
+        tattn.fused_attention_block.launches = 0
+        with torch.inference_mode():
+            out = sampler(model, *(torch.from_numpy(a).to(model.device) for a in (start, E, lay)),
+                          4, 0, None)
+        outs.append(out.cpu())
+        if model is card:
+            assert tattn.fused_attention_block.launches == 7 * evals
+    assert torch.isfinite(outs[0]).all()
+    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=evals * 2e-4)

@@ -155,8 +155,9 @@ def test_unported_options_raise():
         CaloDiffusion(_cfg(SHOWER_EMBED="NN"), device="cpu")
     with pytest.raises(NotImplementedError, match="PHI_INPUT"):
         CaloDiffusion(_cfg(PHI_INPUT=True), device="cpu")
-    with pytest.raises(ValueError, match="not yet ported"):
-        get_sampler("Euler")
+    # every sampler is ported: an unknown name raises with the JAX wording
+    with pytest.raises(ValueError, match="sampler 'Karras' is not supported; pick from"):
+        get_sampler("Karras")
 
 
 def test_entry_point_without_cuda_raises(monkeypatch):
