@@ -5,7 +5,9 @@
     python -m calodiffusion_tpu_torch.inference -c config.json -d DATA/ plot -g gen.h5
 
 ``sample diffusion`` generates showers with any of the 16 registered
-samplers (``--sample-algo``) and writes
+samplers (``--sample-algo``), ``sample layer --layer-model CKPT`` through
+the two-stage cascade (the layer energies sampled first, then the showers
+on them; ``--model-loc`` holds the base U-Net), and each writes
 reference-compatible HDF5 (gzip ``showers`` + ``incident_energies``);
 ``plot`` runs the histogram/separation-power evaluation suite.  The flags,
 subcommands and defaults are the JAX CLI's, in argparse; ``--device``
@@ -17,8 +19,8 @@ Sampling draws from a ``torch.Generator`` on the model's device seeded from
 or write h5 or draw (``--debug``'s trajectory plots among them), so
 sampling from npz caches needs neither.
 
-Not ported yet: ``sample layer`` (ROADMAP M9), ``--int8`` (M12),
-``--sparse-decoding`` and HGCal (M10).
+Not ported yet: ``--int8`` (ROADMAP M12), ``--sparse-decoding`` and
+HGCal (M10).
 """
 
 from __future__ import annotations
@@ -168,8 +170,6 @@ def main(argv=None):
     plots' separation powers (``plot``)."""
     flags = parse_flags(argv)
     if flags.command == "sample":
-        if flags.model == "layer":
-            raise _not_ported("sample layer (the layer-model cascade)", "M9")
         return run_inference(flags, flags.config)
     data_dict, energies = process_data_dict(flags, config=flags.config)
     return plot_results(flags, flags.config, data_dict, energies)
@@ -385,11 +385,13 @@ def generate_showers(flags, config):
     """Sample the EVAL set with a trained model (reference :342-365, up to
     the write): loads the data and the weights, generates, and returns
     ``(generated, energies, fout)``, ``fout`` the file ``write_out`` is to
-    write."""
+    write.  ``sample layer`` loads the cascade through
+    ``TrainLayerModel(inference=True)`` (JAX inference.py:122-133)."""
     import torch
 
     from calodiffusion_tpu_torch.data.loader import load_data
     from calodiffusion_tpu_torch.samplers import get_sampler
+    from calodiffusion_tpu_torch.train.train_layer_model import TrainLayerModel
     from calodiffusion_tpu_torch.train.trainer import TrainDiffusion
 
     get_sampler(flags.sample_algo)  # an unknown name raises before anything loads
@@ -399,7 +401,12 @@ def generate_showers(flags, config):
         raise _not_ported("sparse decoding", "M10")
 
     data_loader, _ = load_data(flags, config, eval=True)
-    trainer = TrainDiffusion(flags, config, load_data=False, device=flags.device)
+    if flags.model == "layer":
+        config["layer_model"] = flags.layer_model
+        trainer = TrainLayerModel(flags, config, load_data=False, inference=True,
+                                  device=flags.device)
+    else:
+        trainer = TrainDiffusion(flags, config, load_data=False, device=flags.device)
     trainer.init_model()
     model = trainer.load_for_inference()
 

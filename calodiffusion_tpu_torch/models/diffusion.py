@@ -24,7 +24,8 @@ from calodiffusion_tpu_torch.utils import preprocessing
 from calodiffusion_tpu_torch.utils.config import load_config
 from calodiffusion_tpu_torch.utils.device import resolve_device
 
-_NOT_PORTED = ("HGCAL", "PHI_INPUT", "COLD_DIFFU", "QUANT_INT8")
+# config options not ported yet, with the ROADMAP item that ports each
+_NOT_PORTED = {"HGCAL": "M10", "PHI_INPUT": "M10", "COLD_DIFFU": "M11", "QUANT_INT8": "M12"}
 
 
 class CaloDiffusionNet(nn.Module):
@@ -72,12 +73,13 @@ class CaloDiffusion:
         if c.get("SHOWER_EMBED", ""):
             raise NotImplementedError(
                 f"SHOWER_EMBED={c['SHOWER_EMBED']!r} is not yet ported to "
-                "calodiffusion_tpu_torch"
+                "calodiffusion_tpu_torch (ROADMAP M10)"
             )
         unported = [k for k in _NOT_PORTED if c.get(k, False)]
         if unported:
+            items = ", ".join(f"{k}: ROADMAP {_NOT_PORTED[k]}" for k in unported)
             raise NotImplementedError(
-                f"{unported} not yet ported to calodiffusion_tpu_torch"
+                f"{unported} not yet ported to calodiffusion_tpu_torch ({items})"
             )
 
         self.time_embed = c.get("TIME_EMBED", "sin")

@@ -447,3 +447,48 @@ class CondUnet(nn.Module):
 
         x = self.final_conv[0](x)
         return self.final_conv[1](x).float()
+
+
+class ResDenseLayer(nn.Module):
+    """One dense residual layer (reference ResDense :373-389; JAX
+    nn_modules.py:808-822): gelu(W1 x) + W_e gelu(cond), then gelu(W2 .),
+    plus x.  Exact GELU; the names are the reference's (``dense1.0``,
+    ``embeder.1``, ``dense2.0``)."""
+
+    def __init__(self, features, cond_dim, dtype=torch.float32, generator=None):
+        super().__init__()
+        gelu = nn.GELU(approximate="none")
+        self.dense1 = nn.Sequential(Dense(features, features, dtype, generator), gelu)
+        self.embeder = nn.Sequential(gelu, Dense(cond_dim, features, dtype, generator))
+        self.dense2 = nn.Sequential(Dense(features, features, dtype, generator), gelu)
+
+    def forward(self, x, cond):
+        return self.dense2(self.dense1(x) + self.embeder(cond)) + x
+
+
+class ResNetDense(nn.Module):
+    """Fully connected residual net, the layer-energy model of the cascade
+    (reference ResNet :392-457; JAX nn_modules.py:825-852): linear-stem time
+    and cond MLPs (the time one with the reference's Unflatten), ``in_lay``,
+    ``num_layers - 1`` ``ResDenseLayer``s under ``hidden_layers.{i}``,
+    ``out_lay``.  The conditioning is [cond MLP, time MLP] on features."""
+
+    def __init__(self, dim_in=45, num_layers=3, hidden_dim=256, cond_emb_dim=128,
+                 cond_size=1, dtype=torch.float32, generator=None):
+        super().__init__()
+        half = cond_emb_dim // 2
+        self.time_mlp = cond_mlp(1, half // 2, half, half, False, True, dtype, generator)
+        self.cond_mlp = cond_mlp(cond_size, half // 2, half, half, False, False, dtype,
+                                 generator)
+        self.in_lay = Dense(dim_in, hidden_dim, dtype, generator)
+        self.hidden_layers = nn.ModuleList(
+            ResDenseLayer(hidden_dim, 2 * half, dtype, generator) for _ in range(num_layers - 1)
+        )
+        self.out_lay = Dense(hidden_dim, dim_in, dtype, generator)
+
+    def forward(self, x, cond, time):
+        conditions = torch.cat([self.cond_mlp(cond), self.time_mlp(time)], dim=-1)
+        x = self.in_lay(x)
+        for layer in self.hidden_layers:
+            x = layer(x, conditions)
+        return self.out_lay(x)

@@ -14,8 +14,11 @@ Flax names submodules by per-type counters in call order
 (``ResnetBlock_N``, ``LinearAttention_N``, ``PreNormResidual_N``,
 ``Conv3d_N``, ``Conv3dTranspose_N``), so the walk below follows the
 U-Net's call order exactly as ``torch_import.import_condunet`` does.
-``module_params_to_state_dict`` does the same for a standalone attention
-module (``Attention``, ``LinearAttention``, ``PreNormResidual``).
+``module_params_to_state_dict`` does the same for a standalone module
+(``Attention``, ``LinearAttention``, ``PreNormResidual``, and the cascade's
+``ResNetDense`` with its whitening statistics), and
+``layer_params_to_state_dict`` for the cascade's two-part tree
+``{"base_model": ..., "layer_model": ...}``.
 """
 
 from __future__ import annotations
@@ -82,6 +85,20 @@ class _Writer:
         self.conv(path + ["Conv3d_0"], f"{prefix}to_qkv")
         self.conv(path + ["Conv3d_1"], f"{prefix}to_out")
 
+    def res_net_dense(self, path, prefix):
+        """JAX ``ResNetDense`` (nn_modules.py:825-852) -> the port's, under
+        the reference names ``torch_import.import_resnet_dense`` reads."""
+        self.cond_mlp(path + ["time_mlp"], f"{prefix}time_mlp", embed=False, unflatten=True)
+        self.cond_mlp(path + ["cond_mlp"], f"{prefix}cond_mlp", embed=False, unflatten=False)
+        self.linear(path + ["in_lay"], f"{prefix}in_lay")
+        i = 0
+        while f"ResDenseLayer_{i}" in self.node(path):
+            layer = path + [f"ResDenseLayer_{i}"]
+            for j, name in enumerate(("dense1.0", "embeder.1", "dense2.0")):
+                self.linear(layer + [f"Dense_{j}"], f"{prefix}hidden_layers.{i}.{name}")
+            i += 1
+        self.linear(path + ["out_lay"], f"{prefix}out_lay")
+
     def attention(self, unet, k, base):
         self.groupnorm(unet + [f"PreNormResidual_{k}", "GroupNorm_0"], f"{base}.fn.norm")
         self.linear_attention(unet + [f"LinearAttention_{k}"], f"{base}.fn.fn.")
@@ -92,16 +109,27 @@ def _subtree(params):
 
 
 def module_params_to_state_dict(params, module: str) -> dict[str, torch.Tensor]:
-    """Flax params of a standalone ``Attention``, ``LinearAttention`` or
-    ``PreNormResidual`` (wrapping either) of ``calodiffusion_tpu`` -> the
-    port module's state_dict.  ``module`` names the module as the port
-    builds it: "Attention", "LinearAttention", "PreNormResidual(Attention)"
-    or "PreNormResidual(LinearAttention)".  JAX ``Conv3d_0``/``Conv3d_1``/
+    """Flax params of a standalone ``Attention``, ``LinearAttention``,
+    ``PreNormResidual`` (wrapping either) or ``ResNetDense`` of
+    ``calodiffusion_tpu`` -> the port module's state_dict.  ``module`` names
+    the module as the port builds it: "Attention", "LinearAttention",
+    "PreNormResidual(Attention)", "PreNormResidual(LinearAttention)" or
+    "ResNetDense".  JAX ``Conv3d_0``/``Conv3d_1``/
     ``GroupNorm_0`` become ``to_qkv``/``to_out.0``/``to_out.1`` of a
     LinearAttention and ``to_qkv``/``to_out`` of an Attention; a
     PreNormResidual's ``GroupNorm_0`` and ``fn`` become ``fn.norm`` and
-    ``fn.fn``."""
+    ``fn.fn``.  A ResNetDense tree may carry the cascade's whitening
+    statistics beside its params (``{"params": ..., "whiten": {"mean",
+    "std"}}``, JAX layerdiffusion.py:75-100): they become ``whiten.mean``
+    and ``whiten.std``."""
     w = _Writer(_subtree(params))
+    if module == "ResNetDense":
+        w.res_net_dense([], "")
+        whiten = params.get("whiten") if isinstance(params, dict) else None
+        if whiten is not None:
+            w.sd["whiten.mean"] = _tensor(whiten["mean"])
+            w.sd["whiten.std"] = _tensor(whiten["std"])
+        return w.sd
     path, prefix, fn = [], "", module
     if module.startswith("PreNormResidual(") and module.endswith(")"):
         w.groupnorm(["GroupNorm_0"], "fn.norm")
@@ -163,3 +191,16 @@ def params_to_state_dict(params, config) -> dict[str, torch.Tensor]:
     w.resnet_block([f"ResnetBlock_{rb}"], "final_conv.0")
     w.conv(["final_conv"], "final_conv.1")
     return w.sd
+
+
+def layer_params_to_state_dict(params, config) -> dict[str, torch.Tensor]:
+    """The JAX cascade's tree ``{"base_model": CondUnet params,
+    "layer_model": ResNetDense params (+ "whiten")}`` -> the port
+    ``LayerDiffusion``'s composite state_dict: ``base_model.<CondUnet
+    key>``, ``layer_model.<ResNetDense key>`` and, where the stats exist,
+    ``layer_model.whiten.mean`` / ``layer_model.whiten.std``."""
+    sd = {f"base_model.{k}": v for k, v in params_to_state_dict(params["base_model"],
+                                                              config).items()}
+    layer = module_params_to_state_dict(params["layer_model"], "ResNetDense")
+    sd.update({f"layer_model.{k}": v for k, v in layer.items()})
+    return sd

@@ -116,6 +116,21 @@ def inference_params(arrays: Any, host: dict) -> Any:
     return ema if ema is not None else arrays["params"]
 
 
+def split_location(loc: str) -> tuple[str, str]:
+    """(folder, name) of a checkpoint file ``<folder>/<name>.ckpt`` (or
+    ``.pth``), as ``load_checkpoint`` takes them."""
+    name = os.path.basename(loc)
+    for suffix in (".ckpt", ".pth"):
+        name = name.removesuffix(suffix)
+    return os.path.dirname(loc), name
+
+
+def load_inference_weights(loc: str, map_location=None) -> Any:
+    """``inference_params`` of the checkpoint file ``loc``."""
+    arrays, host = load_checkpoint(*split_location(loc), map_location=map_location)
+    return inference_params(arrays, host)
+
+
 def load_checkpoint(folder: str, name: str, map_location=None):
     """Returns (arrays, host_state).  ``arrays`` has keys params[/opt_state,
     ema_params, swa_params]; tensors land on ``map_location``."""

@@ -1,0 +1,203 @@
+"""Consistency distillation: a trainer for the ``Consistency`` sampler.
+
+Port of ``calodiffusion_tpu/train/train_distill.py``.  It distills a
+trained diffusion model (the teacher) into a student whose denoise maps any
+point of the teacher's probability-flow ODE trajectory to x0, so the
+``Consistency`` sampler generates in a few network evaluations.  Consistency
+distillation (arXiv:2303.01469) with the pseudo-Huber loss and the
+1/(sigma_{i+1} - sigma_i) weighting of arXiv:2310.14189.  One train step:
+
+    i ~ logits over 0..N-2 of the increasing grid
+        schedules.discrete_sigmas(CONSIS_NSTEPS)[::-1] (the sampler's table)
+    x_{i+1} = x0 + sigma_{i+1} * eps
+    xhat_i  = one Heun step of the TEACHER from sigma_{i+1} to sigma_i
+    target  = denoise_{EMA}(xhat_i, sigma_i)
+    loss    = w(i) * pseudo_huber(denoise_student(x_{i+1}, sigma_{i+1}), target)
+
+The teacher's two denoises and the target's run under ``torch.no_grad``
+through ``torch.func.functional_call`` on the student's network with their
+own weights, so they keep no activations; only the student's call is
+differentiated.  The student starts from the teacher's weights; the EMA
+state (decay ``DISTILL_TARGET_DECAY``, default 0.95, whatever ``EMA_DECAY``
+says) is the target network, and since inference prefers EMA weights, a
+distilled checkpoint is a plain ``CaloDiffusion`` checkpoint that
+``sample ... diffusion --sample-algo Consistency`` samples from.
+
+Config keys: TEACHER_LOC (or ``--teacher-loc``, or ``teacher_params=``),
+CONSIS_NSTEPS (default 100), DISTILL_TARGET_DECAY, DISTILL_LOSS
+("pseudo_huber" or "l2"), DISTILL_HUBER_C (default
+0.00054 * sqrt(prod(SHAPE_PAD[1:]))), DISTILL_LR (overrides LR),
+DISTILL_IDX_DIST ("lognormal": P_mean -1.1, P_std 2.0; or "uniform"),
+DISTILL_EARLYSTOP (the early stop's patience, default 10**9).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from calodiffusion_tpu_torch.samplers import schedules
+from calodiffusion_tpu_torch.samplers.base import bshape, randn
+from calodiffusion_tpu_torch.train import checkpoint as ckpt_io
+from calodiffusion_tpu_torch.train.trainer import TrainDiffusion, _copy
+
+
+class _Denoiser(nn.Module):
+    """``model.denoise`` as a module over the model's network, so that
+    ``torch.func.functional_call`` runs it with other weights."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.net = model.net
+        self.model = model
+
+    def forward(self, x, E, sigma, layers):
+        return self.model.denoise(x, E=E, sigma=sigma, layers=layers)
+
+
+class TrainDistillation(TrainDiffusion):
+    """Distill a trained diffusion teacher into a few-step consistency
+    student (see the module docstring)."""
+
+    def __init__(self, flags, config, teacher_params: Optional[dict] = None, **kw):
+        config = dict(config)
+        if "DISTILL_LR" in config:  # CD usually wants a lower LR than the teacher's
+            config["LR"] = config["DISTILL_LR"]
+        # the distill val metric plateaus long before the sampled quality
+        # stops improving, so the teacher's EARLYSTOP does not apply
+        config["EARLYSTOP"] = int(config.get("DISTILL_EARLYSTOP", 10**9))
+        super().__init__(flags, config, **kw)
+        self._teacher_arg = teacher_params
+        self.teacher_params = None
+        self._idx_probs = None
+
+    # -- model and teacher ---------------------------------------------------
+    def _load_teacher(self):
+        """The teacher's weights (a U-Net state_dict), or None when none is
+        configured (loading a distilled checkpoint needs no teacher)."""
+        if self._teacher_arg is not None:
+            return self._teacher_arg
+        loc = self.config.get("TEACHER_LOC") or getattr(self.flags, "teacher_loc", None)
+        if not loc:
+            return None
+        return ckpt_io.load_inference_weights(loc, self.device)  # the teacher's SWA/EMA weights
+
+    def init_model(self):
+        super().init_model()
+        teacher = self._load_teacher()
+        if teacher is not None:
+            self.teacher_params = {k: v.detach().to(self.device, torch.float32).clone()
+                                   for k, v in teacher.items()}
+            self.model.load_state_dict(self.teacher_params)  # the student starts as the teacher
+        # the EMA state is the consistency target network
+        self.ema_decay = float(self.config.get("DISTILL_TARGET_DECAY", 0.95))
+        self.ema_params = _copy(self.model.state_dict())
+        self._denoiser = _Denoiser(self.model)
+        return self.model
+
+    # -- the distillation loss ------------------------------------------------
+    def _sigma_grid(self) -> np.ndarray:
+        """Increasing f32 sigma grid: the Consistency sampler's table
+        (``discrete_sigmas(CONSIS_NSTEPS)``, decreasing there), reversed."""
+        n = int(self.config.get("CONSIS_NSTEPS", 100))
+        return np.ascontiguousarray(schedules.discrete_sigmas(n)[::-1]).astype(np.float32)
+
+    def _idx_logits(self, n_grid: int) -> np.ndarray:
+        """Log-probabilities over grid indices 0..N-2: the discretized
+        lognormal of arXiv:2310.14189 sec. 3.5 (P_mean -1.1, P_std 2.0),
+        p(i) ~ erf((ln s_{i+1} - Pm) / (sqrt2 Ps)) - erf((ln s_i - Pm) /
+        (sqrt2 Ps)); "uniform" gives flat logits."""
+        from scipy.special import erf
+
+        if self.config.get("DISTILL_IDX_DIST", "lognormal") == "uniform":
+            return np.zeros(n_grid - 1, np.float32)
+        grid = self._sigma_grid()
+        pm, ps = -1.1, 2.0
+        cdf = erf((np.log(grid) - pm) / (np.sqrt(2.0) * ps))
+        p = np.maximum(cdf[1:] - cdf[:-1], 1e-12)
+        return np.log(p / p.sum()).astype(np.float32)
+
+    def _denoise_with(self, weights: dict, x, E, sigma, layers):
+        """The student's network run on ``weights`` (a U-Net state_dict)."""
+        params = {f"net.unet.{k}": v for k, v in weights.items()}
+        return torch.func.functional_call(self._denoiser, params, (x, E, sigma, layers))
+
+    def distill_loss(self, data, E, layers, idx, noise, target: Optional[dict] = None,
+                     mask=None):
+        """The consistency loss at grid indices ``idx`` (B,) and ``noise``
+        (data's shape): the student's denoise against ``target``'s (a
+        state_dict; None: the student itself) at the teacher's Heun step
+        (JAX ``_distill_loss_fn``)."""
+        grid = torch.from_numpy(self._sigma_grid()).to(data.device)
+        gaps = grid[1:] - grid[:-1]
+        idx = torch.as_tensor(idx, device=data.device).long()
+        bs = bshape(data)
+        sig_next = grid[idx + 1].reshape(bs)  # higher noise
+        sig_cur = grid[idx].reshape(bs)
+        x_next = data + sig_next * noise
+        with torch.no_grad():  # teacher Heun PF-ODE step sigma_{i+1} -> sigma_i
+            x0_a = self._denoise_with(self.teacher_params, x_next, E, sig_next, layers)
+            d_a = (x_next - x0_a) / sig_next
+            x_mid = x_next + (sig_cur - sig_next) * d_a
+            x0_b = self._denoise_with(self.teacher_params, x_mid, E, sig_cur, layers)
+            d_b = (x_mid - x0_b) / sig_cur
+            x_prev = x_next + (sig_cur - sig_next) * 0.5 * (d_a + d_b)
+            tgt = (self.model.denoise(x_prev, E=E, sigma=sig_cur, layers=layers)
+                   if target is None
+                   else self._denoise_with(target, x_prev, E, sig_cur, layers))
+        pred = self.model.denoise(x_next, E=E, sigma=sig_next, layers=layers)
+
+        diff = pred - tgt
+        if self.config.get("DISTILL_LOSS", "pseudo_huber") == "l2":
+            elem = diff**2
+        else:
+            d_elems = int(np.prod(self.config["SHAPE_PAD"][1:]))
+            c = float(self.config.get("DISTILL_HUBER_C", 0.00054 * np.sqrt(d_elems)))
+            elem = torch.sqrt(diff**2 + c**2) - c
+        vals = (1.0 / gaps[idx]).reshape(bs) * elem  # iCT weight 1/(sigma_{i+1} - sigma_i)
+        if mask is None:
+            return vals.mean()
+        m = mask.reshape(bs) * torch.ones_like(vals)
+        return (vals * m).sum() / m.sum()
+
+    # -- steps -----------------------------------------------------------------
+    def training_loop(self, *args, **kw):
+        if self.teacher_params is None:
+            raise ValueError(
+                "TrainDistillation needs a teacher to train: set config TEACHER_LOC (or "
+                "--teacher-loc) to a trained diffusion checkpoint, or pass teacher_params="
+            )
+        return super().training_loop(*args, **kw)
+
+    def train_step(self, data, E, layers, idx=None, noise=None):
+        """One distillation step: indices from the index logits, then the
+        noise (the JAX order), each drawn from the trainer's generator
+        unless given; Adam; the EMA target update."""
+        if idx is None:
+            if self._idx_probs is None:
+                logits = torch.from_numpy(self._idx_logits(len(self._sigma_grid())))
+                self._idx_probs = torch.softmax(logits, 0).to(self.device)
+            idx = torch.multinomial(self._idx_probs, data.shape[0], replacement=True,
+                                    generator=self.generator)
+        if noise is None:
+            noise = randn(data.shape, self.generator, self.device)
+        for p in self.model.parameters():
+            p.grad = None
+        loss = self.distill_loss(data, E, layers, idx, noise, target=self.ema_params)
+        loss.backward()
+        self._apply_update()
+        return loss.detach()
+
+    @torch.no_grad()
+    def val_step(self, data, E, layers, rnd_normal, mask):
+        """The self-consistency gap along teacher trajectories: the index
+        from the fixed val normals, clip(int(ndtr(r) (N-1)), 0, N-2), the
+        noise redrawn on every call, the student its own target."""
+        n = len(self._sigma_grid())
+        noise = randn(data.shape, self.generator, self.device)
+        u = torch.special.ndtr(torch.as_tensor(rnd_normal, dtype=torch.float32))
+        idx = torch.clamp((u * (n - 1)).to(torch.int32), 0, n - 2)
+        return self.distill_loss(data, E, layers, idx, noise, mask=mask)

@@ -115,10 +115,7 @@ class Train:
     def _checkpoint_location(self):
         model_loc = getattr(self.flags, "model_loc", None)
         if model_loc:
-            name = os.path.basename(model_loc)
-            for suffix in (".ckpt", ".pth"):
-                name = name.removesuffix(suffix)
-            return os.path.dirname(model_loc), name
+            return ckpt_io.split_location(model_loc)
         return self.checkpoint_folder, "checkpoint"
 
     def pickup_checkpoint(self, scheduler, early_stopper, restart_training):
@@ -312,7 +309,7 @@ class TrainDiffusion(Train):
         """One Adam step on the accumulated gradients, then the EMA
         (trainer.py:405-411)."""
         self.opt.step()
-        if self.ema_decay > 0:
+        if self.ema_params is not None:
             for k, p in self.model.state_dict().items():
                 self.ema_params[k].mul_(self.ema_decay).add_(p, alpha=1 - self.ema_decay)
 

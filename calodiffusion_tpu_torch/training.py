@@ -5,11 +5,12 @@
 
 The JAX CLI's group flags, defaults and subcommands, in argparse, plus
 ``--device`` (default ``cuda``; ``--device cpu`` trains on the CPU).  The
-checkpoints land in ``<checkpoint>/<CHECKPOINT_NAME>_Diffusion/`` as the JAX
-trainer names them (``checkpoint``, ``best_val`` and ``final`` ``.ckpt``,
-``torch.save`` files).
+checkpoints land in ``<checkpoint>/<CHECKPOINT_NAME>_<Diffusion|LayerModel|
+Distillation>/`` as the JAX trainers name them (``checkpoint``,
+``best_val`` and ``final`` ``.ckpt``, ``torch.save`` files).
 
-Not ported yet: ``layer`` (ROADMAP M9) and ``distill`` (M13).
+    ... layer [--layer-model-loc CKPT]    the cascade's layer-energy model
+    ... distill --teacher-loc CKPT        consistency distillation
 """
 
 from __future__ import annotations
@@ -64,14 +65,21 @@ def main(argv=None):
         flags.hgcal = flags.config.get("HGCAL", False)
 
     if flags.command == "distill":
-        raise NotImplementedError("distill is not yet ported to calodiffusion_tpu_torch "
-                                  "(ROADMAP M13)")
-    if flags.command == "layer":
-        raise NotImplementedError("the layer model is not yet ported to "
-                                  "calodiffusion_tpu_torch (ROADMAP M9)")
-    from calodiffusion_tpu_torch.train.trainer import TrainDiffusion
+        from calodiffusion_tpu_torch.train.train_distill import TrainDistillation
 
-    trainer = TrainDiffusion(flags, flags.config, device=flags.device)
+        if flags.teacher_loc is not None:
+            flags.config["TEACHER_LOC"] = flags.teacher_loc
+        trainer = TrainDistillation(flags, flags.config, device=flags.device)
+    elif flags.command == "layer":
+        from calodiffusion_tpu_torch.train.train_layer_model import TrainLayerModel
+
+        if flags.layer_model_loc is not None and flags.load:
+            flags.config["layer_model"] = flags.layer_model_loc
+        trainer = TrainLayerModel(flags, flags.config, device=flags.device)
+    else:
+        from calodiffusion_tpu_torch.train.trainer import TrainDiffusion
+
+        trainer = TrainDiffusion(flags, flags.config, device=flags.device)
     trainer.train()
     return trainer
 

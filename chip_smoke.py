@@ -99,7 +99,38 @@ prints no result:
             once each; output and f32 gradients against the plain module's,
             the bf16 gradients finite) and groupnorm_silu at the three
             shapes (K5 three times).
-9. result   {"kernels": [...]} and, last, {"ok": true, "device": {...}}
+9. cascade  the layer-energy cascade on the cli phase's ds2 caches, at full
+            width (configs/config_dataset2.json, bf16 U-Net, f32 layer net,
+            batch 128): training.main layer (4 steps and a val batch),
+            losses finite, K1 0 times a step and 7 times the val batch (its
+            loss is the frozen base U-Net's, as in the JAX package), K2
+            never; the base U-Net and the whitening statistics unchanged bit
+            for bit, the statistics within 1e-6 of a numpy pass over the
+            cache, final.ckpt written; then sample ... layer --layer-model
+            (that checkpoint) --model-loc (the cli phase's ds2 U-Net): 128
+            showers, 400-step DDim in both stages, finite, >= 0, (128,
+            6480), the stage-1 layers finite, K1 7 x 400 and K2 never;
+            stage 1's and stage 2's walls apart, showers/s with the cold
+            first denoise apart; then the cascade in f32 at batch 2, 4 + 4
+            steps, card against CPU from the same weights and starts, within
+            evaluations x 2e-4 (docs/DESIGN.md:32)
+10. distill consistency distillation of the cli phase's ds2 U-Net on the
+            same caches, bf16, batch 128: training.main distill
+            --teacher-loc (4 steps and a val batch), losses finite, K1 28
+            times a step (teacher twice, target, student) and K2 7 times (the
+            student's backward), K1 28 and K2 0 times the val batch, the
+            student moved from the teacher and the target from the initial
+            weights, ms a step and samples/s from the steps after the first;
+            sample ... diffusion --sample-algo Consistency on the distilled
+            checkpoint, 4 steps of CONSIS_NSTEPS 100, 128 showers finite and
+            >= 0, K1 7 x 4; then one f32 distillation loss and every student
+            gradient at batch 2, card against CPU, within phase 5's step
+            tolerances
+11. result  {"kernels": [...]} (each kernel's launches by path: generate,
+            train, the cli paths, samplers, bns, variants, cascade_train,
+            cascade_sample, distill_train, distill_val, distill_sample; K1's
+            and K2's "launches" sum the last five, this slice's paths) and,
+            last, {"ok": true, "device": {...}}
 """
 
 from __future__ import annotations
@@ -530,7 +561,6 @@ def run_training(cfg, args, attn, card):
     n_layers = cfg["SHAPE_FINAL"][2] + 1
     batch = synthetic_batch(BATCH, n_layers, args.seed + 2)
     val = [synthetic_batch(BATCH, n_layers, args.seed + 3)]
-    steps = []
 
     # the loss of the train batch with fixed noise and every sample at the
     # log-normal's median sigma, e^-1.2 (no one tiny-sigma sample carries
@@ -544,18 +574,12 @@ def run_training(cfg, args, attn, card):
         return model.compute_loss(data, E, noise=noise, layers=lay,
                                   rnd_normal=torch.zeros(BATCH, device="cuda")).item()
 
+    recorder = Recorder(TrainDiffusion.train_step, attn)
+
     class Recorded(TrainDiffusion):
         """Records each step's loss, wall time and kernel launches."""
 
-        def train_step(self, data, E, layers):
-            k1, k2 = attn.fused_attention_block.launches, attn.attention_block_backward.launches
-            t0 = time.perf_counter()
-            loss = super().train_step(data, E, layers)
-            torch.cuda.synchronize()
-            steps.append(dict(loss=loss.item(), s=time.perf_counter() - t0,
-                              k1=attn.fused_attention_block.launches - k1,
-                              k2=attn.attention_block_backward.launches - k2))
-            return loss
+        train_step = recorder.bind()
 
     with tempfile.TemporaryDirectory() as ckpt_dir:
         tcfg = dict(cfg, MAXEPOCH=1, BATCH=BATCH)
@@ -574,14 +598,8 @@ def run_training(cfg, args, attn, card):
         saved = sorted(p.name for p in Path(trainer.checkpoint_folder).iterdir())
 
     n = len(DS2_ATTENTION_BLOCKS)
-    if len(steps) != args.train_steps:
-        fail(f"train ran {len(steps)} steps, expected {args.train_steps}")
-    if not all(np.isfinite(s["loss"]) for s in steps):
-        fail(f"train losses not finite: {[s['loss'] for s in steps]}")
-    bad = [i for i, s in enumerate(steps) if (s["k1"], s["k2"]) != (n, n)]
-    if bad:
-        fail(f"train step {bad[0]} launched K1 {steps[bad[0]]['k1']} and K2 "
-             f"{steps[bad[0]]['k2']} times, expected {n} each")
+    recorder.check("train step", args.train_steps, (n, n))
+    steps = recorder.calls
     # every step's 7 + the val batch's forward (7, no backward)
     if (k1, k2) != (n * (args.train_steps + len(val)), n * args.train_steps):
         fail(f"train path launched K1 {k1} and K2 {k2} times")
@@ -674,6 +692,62 @@ def make_cli_data(root: Path, name: str, seed: int):
     return cfg, str(cfg_path), str(data) + "/"
 
 
+class Recorder:
+    """Wraps a trainer method (``train_step`` or ``val_step``): records each
+    call's loss, wall time and K1 and K2 launches; ``before`` runs ahead of
+    the first call with the trainer."""
+
+    def __init__(self, method, attn, before=None):
+        self.method, self.attn, self.before, self.calls = method, attn, before, []
+
+    def bind(self):
+        """The function to patch in for the method."""
+        def method(trainer, *a, **kw):
+            if self.before is not None and not self.calls:
+                self.before(trainer)
+            k1 = self.attn.fused_attention_block.launches
+            k2 = self.attn.attention_block_backward.launches
+            t0 = time.perf_counter()
+            loss = self.method(trainer, *a, **kw)
+            torch.cuda.synchronize()
+            self.calls.append(dict(loss=loss.item(), s=time.perf_counter() - t0,
+                                   k1=self.attn.fused_attention_block.launches - k1,
+                                   k2=self.attn.attention_block_backward.launches - k2))
+            return loss
+
+        return method
+
+    def check(self, what, n, launches):
+        """n calls, every loss finite, each call's (K1, K2) launches as given."""
+        if len(self.calls) != n:
+            fail(f"{what}: {len(self.calls)} calls, expected {n}")
+        if not all(np.isfinite(c["loss"]) for c in self.calls):
+            fail(f"{what}: losses not finite: {[c['loss'] for c in self.calls]}")
+        bad = [c for c in self.calls if (c["k1"], c["k2"]) != launches]
+        if bad:
+            fail(f"{what}: a call launched K1 {bad[0]['k1']} and K2 {bad[0]['k2']} times, "
+                 f"expected {launches}")
+
+
+def synced(fn, walls, first_only=False, outputs=None):
+    """``fn`` wrapped so that each call (only the first, with ``first_only``)
+    runs between two synchronisations and appends its wall to ``walls``
+    (and its result to ``outputs``)."""
+    def wrapper(*a, **kw):
+        if first_only and walls:
+            return fn(*a, **kw)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        if outputs is not None:
+            outputs.append(out)
+        return out
+
+    return wrapper
+
+
 def run_cli(name, cfg, cfg_path, data, ckpt, seed, attn, card):
     """training.main, then the sample CLI's parsing, loading and generation
     (inference.parse_flags + generate_showers: all but the h5 write), on one
@@ -686,25 +760,13 @@ def run_cli(name, cfg, cfg_path, data, ckpt, seed, attn, card):
 
     n_blocks = len(DS2_ATTENTION_BLOCKS if name == "ds2" else DS3_ATTENTION_BLOCKS)
     spec = CLI_DATA[name]
-    train_step = TrainDiffusion.train_step
-    steps = []
-
-    def recorded(self, data, E, layers):
-        k1, k2 = attn.fused_attention_block.launches, attn.attention_block_backward.launches
-        t0 = time.perf_counter()
-        loss = train_step(self, data, E, layers)
-        torch.cuda.synchronize()
-        steps.append(dict(loss=loss.item(), s=time.perf_counter() - t0,
-                          k1=attn.fused_attention_block.launches - k1,
-                          k2=attn.attention_block_backward.launches - k2))
-        return loss
-
+    recorder = Recorder(TrainDiffusion.train_step, attn)
     common = ["-c", cfg_path, "-d", data, "--seed", str(seed)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     attn.fused_attention_block.launches = attn.attention_block_backward.launches = 0
     t0 = time.perf_counter()
-    with mock.patch.object(TrainDiffusion, "train_step", recorded):
+    with mock.patch.object(TrainDiffusion, "train_step", recorder.bind()):
         trainer = training.main(common + ["--checkpoint", ckpt, "diffusion"])
     torch.cuda.synchronize()
     train_wall = time.perf_counter() - t0
@@ -715,14 +777,8 @@ def run_cli(name, cfg, cfg_path, data, ckpt, seed, attn, card):
     n_train = sum(n for f, n in spec["files"].items() if f in cfg["FILES"])
     n_val = sum(n for f, n in spec["files"].items() if f in cfg.get("VAL_FILES", []))
     want_steps, val_batches = n_train // spec["batch"], -(-n_val // spec["batch"])
-    if len(steps) != want_steps:
-        fail(f"cli {name}: train ran {len(steps)} steps, expected {want_steps}")
-    if not all(np.isfinite(s["loss"]) for s in steps):
-        fail(f"cli {name}: train losses not finite: {[s['loss'] for s in steps]}")
-    bad = [i for i, s in enumerate(steps) if (s["k1"], s["k2"]) != (n_blocks, n_blocks)]
-    if bad:
-        fail(f"cli {name}: train step {bad[0]} launched K1 {steps[bad[0]]['k1']} and K2 "
-             f"{steps[bad[0]]['k2']} times, expected {n_blocks} each")
+    recorder.check(f"cli {name} train step", want_steps, (n_blocks, n_blocks))
+    steps = recorder.calls
     if (k1, k2) != (n_blocks * (want_steps + val_batches), n_blocks * want_steps):
         fail(f"cli {name}: train launched K1 {k1} and K2 {k2} times")
     for fname in ("final.ckpt", "best_val.ckpt", "config.json"):
@@ -744,32 +800,14 @@ def run_cli(name, cfg, cfg_path, data, ckpt, seed, attn, card):
                                             str(CLI_SAMPLE_BATCH), "--sample-steps", "400",
                                             "--model-loc", str(folder / "final.ckpt"),
                                             "diffusion"])
-    denoise, generate = CaloDiffusion.denoise, CaloDiffusion.generate
     first, gen_s = [], []
-
-    def timed_denoise(self, *a, **kw):  # the first call synchronised: the cold start
-        if first:
-            return denoise(self, *a, **kw)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = denoise(self, *a, **kw)
-        torch.cuda.synchronize()
-        first.append(time.perf_counter() - t)
-        return out
-
-    def timed_generate(self, *a, **kw):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = generate(self, *a, **kw)
-        torch.cuda.synchronize()
-        gen_s.append(time.perf_counter() - t)
-        return out
-
     torch.cuda.synchronize()
     attn.fused_attention_block.launches = attn.attention_block_backward.launches = 0
     t0 = time.perf_counter()
-    with mock.patch.object(CaloDiffusion, "denoise", timed_denoise), \
-            mock.patch.object(CaloDiffusion, "generate", timed_generate):
+    # the first denoise synchronised apart: the cold start
+    with mock.patch.object(CaloDiffusion, "denoise",
+                           synced(CaloDiffusion.denoise, first, first_only=True)), \
+            mock.patch.object(CaloDiffusion, "generate", synced(CaloDiffusion.generate, gen_s)):
         showers, energies, fout = inference.generate_showers(flags, flags.config)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -794,7 +832,7 @@ def run_cli(name, cfg, cfg_path, data, ckpt, seed, attn, card):
           f"weights {sample['setup_s']:.2f} s; K1 launches {k1s} ({n_blocks} a step), K2 {k2s}",
           flush=True)
 
-    results = dict(train=train, sample=sample)
+    results = dict(train=train, sample=sample, checkpoint=str(folder / "final.ckpt"))
     if name == "ds2":
         results["sample_dpmpp2m"] = run_cli_sampler(common, folder, attn, card, n_blocks,
                                                     "DPMPP2M", 20, 19)
@@ -844,19 +882,19 @@ def run_cli_sampler(common, folder, attn, card, n_blocks, algo, steps, evals):
     return dict(algo=algo, steps=steps, wall_s=wall, showers_per_s=n / wall, k1=k1, k2=k2)
 
 
-def run_cli_phase(seed, attn, card):
-    """The cli phase on ds2 and ds3 in a temporary directory."""
+def run_cli_phase(root: Path, seed, attn, card):
+    """The cli phase on ds2 and ds3 under ``root`` (a temporary directory
+    that phases 9 and 10 reuse); returns the results and, by dataset, its
+    (config, config path, data folder)."""
     results = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp)
-        t0 = time.perf_counter()
-        made = {name: make_cli_data(root, name, seed + i) for i, name in enumerate(CLI_DATA)}
-        print(f"cli: npz caches of {sum(sum(s['files'].values()) for s in CLI_DATA.values())} "
-              f"synthetic showers written in {time.perf_counter() - t0:.1f} s", flush=True)
-        for i, (name, (cfg, cfg_path, data)) in enumerate(made.items()):
-            results[name] = run_cli(name, cfg, cfg_path, data, str(root / name / "ckpt"),
-                                    seed + 10 + i, attn, card)
-    return results
+    t0 = time.perf_counter()
+    made = {name: make_cli_data(root, name, seed + i) for i, name in enumerate(CLI_DATA)}
+    print(f"cli: npz caches of {sum(sum(s['files'].values()) for s in CLI_DATA.values())} "
+          f"synthetic showers written in {time.perf_counter() - t0:.1f} s", flush=True)
+    for i, (name, (cfg, cfg_path, data)) in enumerate(made.items()):
+        results[name] = run_cli(name, cfg, cfg_path, data, str(root / name / "ckpt"),
+                                seed + 10 + i, attn, card)
+    return results, made
 
 
 # ---------------------------------------------------------------------------
@@ -1415,6 +1453,310 @@ def run_variants_path(seed, la, att, gn, nn_modules):
     return dict(zip((name for name, _, _ in counters), totals)), results
 
 
+# ---------------------------------------------------------------------------
+# 9. cascade: the layer-energy model trained and the cascade sampled, ds2
+# ---------------------------------------------------------------------------
+
+# f32 card (K1) against CPU (plain versions): the cascade at batch 2, 4 steps
+# in each stage, from the same weights and starts
+CASCADE_CHECK_STEPS = 4
+
+
+def cache_whiten_stats(data: str):
+    """The layer trainer's whitening statistics by a numpy pass over the
+    ds2 train cache: float64 mean and std of the layer vectors, std floored
+    at 1e-3."""
+    lay = np.load(Path(data) / "dataset_2_1.hdf5.npz")["layers"].astype(np.float64)
+    mean = lay.mean(0)
+    return mean, np.maximum(np.sqrt(np.maximum((lay**2).mean(0) - mean**2, 0.0)), 1e-3)
+
+
+def run_cascade(cfg_path, data, ckpt, base_loc, seed, attn, card):
+    """training.main([... "layer"]) on the ds2 caches, then the sample
+    CLI's ``sample ... layer`` on its checkpoint and the cli phase's ds2
+    U-Net; K1 and K2 counted per train step and val batch, and over the
+    sampling."""
+    from unittest import mock
+
+    from calodiffusion_tpu_torch import inference, training
+    from calodiffusion_tpu_torch.models.diffusion import CaloDiffusion
+    from calodiffusion_tpu_torch.models.layerdiffusion import LayerDiffusion
+    from calodiffusion_tpu_torch.train.train_layer_model import TrainLayerModel
+
+    n_blocks = len(DS2_ATTENTION_BLOCKS)
+    first = {}
+
+    def snapshot(trainer):  # the weights and statistics the steps start from
+        first.update({k: v.clone() for k, v in trainer.model.state_dict().items()
+                      if not k.startswith("layer_model.") or ".whiten." in k})
+
+    steps = Recorder(TrainLayerModel.train_step, attn, before=snapshot)
+    vals = Recorder(TrainLayerModel.val_step, attn)
+    common = ["-c", cfg_path, "-d", data, "--seed", str(seed)]
+    torch.cuda.synchronize()
+    attn.fused_attention_block.launches = attn.attention_block_backward.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(TrainLayerModel, "train_step", steps.bind()), \
+            mock.patch.object(TrainLayerModel, "val_step", vals.bind()):
+        trainer = training.main(common + ["--checkpoint", ckpt, "layer"])
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    k1, k2 = attn.fused_attention_block.launches, attn.attention_block_backward.launches
+    folder = Path(trainer.checkpoint_folder)
+    # the layer net has no attention; the inherited val loss runs the base U-Net
+    steps.check("cascade train step", 512 // BATCH, (0, 0))
+    vals.check("cascade val batch", 1, (n_blocks, 0))
+    if (k1, k2) != (n_blocks, 0):
+        fail(f"cascade train launched K1 {k1} and K2 {k2} times, expected {n_blocks} and 0")
+    if not (folder / "final.ckpt").exists() or not folder.name.endswith("_LayerModel"):
+        fail(f"cascade train wrote no final.ckpt in {folder}")
+    model = trainer.model
+    now = model.state_dict()
+    moved = [k for k, v in first.items() if not torch.equal(v, now[k])]
+    if moved:
+        fail(f"cascade train moved {len(moved)} tensors it must leave as they are: {moved[:3]}")
+    mean, std = cache_whiten_stats(data)
+    stats_err = max(max_norm_rel(model.whiten["mean"], torch.from_numpy(mean).cuda()),
+                    max_norm_rel(model.whiten["std"], torch.from_numpy(std).cuda()))
+    if not (torch.isfinite(model.whiten["mean"]).all() and stats_err <= 1e-6):
+        fail(f"cascade whitening statistics differ from the cache's by {stats_err:.3g} > 1e-6")
+    if any(p.dtype != torch.float32 for p in model.layer_net.parameters()):
+        fail("the layer net does not compute in f32")
+    step_s = [c["s"] for c in steps.calls]
+    train = dict(steps=len(step_s), losses=[c["loss"] for c in steps.calls],
+                 val_loss=vals.calls[0]["loss"], cold_step_s=step_s[0],
+                 steady_step_s=statistics.mean(step_s[1:]), wall_s=train_wall, k1=k1, k2=k2,
+                 whiten_stats_err=stats_err)
+    print(f"cascade train: training.main layer, {len(step_s)} steps of {BATCH} ds2 layer "
+          f"vectors (f32 layer net) and a val batch: first (cold) step {step_s[0]:.3f} s, "
+          f"steady {1e3 * train['steady_step_s']:.2f} ms/step on {card}; training.main "
+          f"{train_wall:.2f} s; K1 {k1} (0 a step, {n_blocks} the val batch: its loss is the "
+          f"base U-Net's), K2 {k2}; losses {[round(v, 4) for v in train['losses']]}; "
+          f"whitening statistics vs the cache {stats_err:.3g}; base U-Net and statistics "
+          "unchanged bit for bit", flush=True)
+
+    # sample: stage 1 (layer energies) and stage 2 (showers) timed apart
+    flags = inference.parse_flags(common + [
+        "-n", "-1", "sample", "--batch-size", str(CLI_SAMPLE_BATCH), "--sample-steps", "400",
+        "--model-loc", base_loc, "layer", "--layer-model", str(folder / "final.ckpt")])
+    walls = {"stage1": [], "sample": [], "generate": [], "first_denoise": []}
+    layers_out = []
+    torch.cuda.synchronize()
+    attn.fused_attention_block.launches = attn.attention_block_backward.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(LayerDiffusion, "sample_layers",
+                           synced(LayerDiffusion.sample_layers, walls["stage1"],
+                                  outputs=layers_out)), \
+            mock.patch.object(LayerDiffusion, "sample",
+                              synced(LayerDiffusion.sample, walls["sample"])), \
+            mock.patch.object(LayerDiffusion, "generate",
+                              synced(LayerDiffusion.generate, walls["generate"])), \
+            mock.patch.object(CaloDiffusion, "denoise",
+                              synced(CaloDiffusion.denoise, walls["first_denoise"],
+                                     first_only=True)):
+        showers, energies, _ = inference.generate_showers(flags, flags.config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sk1, sk2 = attn.fused_attention_block.launches, attn.attention_block_backward.launches
+    n = CLI_SAMPLE_BATCH
+    if showers.shape != (n, 6480) or energies.shape != (n, 1):
+        fail(f"cascade sample: showers {showers.shape}, energies {energies.shape}")
+    if not np.isfinite(showers).all() or (showers < 0).any():
+        fail("cascade sample: showers are not finite and >= 0")
+    if len(layers_out) != 1 or layers_out[0].shape != (n, 46) or \
+            not torch.isfinite(layers_out[0]).all():
+        fail("cascade sample: the stage-1 layer energies are not finite (128, 46)")
+    if (sk1, sk2) != (n_blocks * 400, 0):
+        fail(f"cascade sample launched K1 {sk1} times (expected {n_blocks * 400}) and K2 {sk2}")
+    gen_s, stage1 = walls["generate"][0], walls["stage1"][0]
+    stage2 = walls["sample"][0] - stage1
+    first_s = walls["first_denoise"][0]
+    steady = n / ((gen_s - first_s) * 400 / 399)
+    sampled = dict(wall_s=wall, setup_s=wall - gen_s, generate_s=gen_s, stage1_s=stage1,
+                   stage2_s=stage2, reverse_norm_s=gen_s - walls["sample"][0],
+                   first_denoise_s=first_s, showers_per_s=n / gen_s,
+                   showers_per_s_after_first_step=steady, k1=sk1, k2=sk2)
+    print(f"cascade sample: inference CLI sample ... layer, {n} ds2 showers, 400-step DDim in "
+          f"both stages, bf16 U-Net, batch {n}: stage 1 (layer energies) {stage1:.3f} s, stage 2 "
+          f"(showers) {stage2:.3f} s, reverse_norm {sampled['reverse_norm_s']:.3f} s; generate "
+          f"{gen_s:.2f} s, {sampled['showers_per_s']:.3f} showers/s on {card} (first, cold "
+          f"denoise {first_s:.3f} s; without it {steady:.3f} showers/s); loading "
+          f"{sampled['setup_s']:.2f} s; K1 {sk1} ({n_blocks} a stage-2 step), K2 {sk2}",
+          flush=True)
+    check = check_cascade_card_vs_cpu(flags, seed + 1)
+    return dict(train=train, sample=sampled, card_vs_cpu=check,
+                checkpoint=str(folder / "final.ckpt"))
+
+
+def check_cascade_card_vs_cpu(flags, seed):
+    """The cascade in f32 at batch 2, CASCADE_CHECK_STEPS DDim steps in each
+    stage, on the card and on the CPU from the same weights (loaded as the
+    sample CLI loads them) and starts."""
+    from calodiffusion_tpu_torch.train.train_layer_model import TrainLayerModel
+
+    steps = CASCADE_CHECK_STEPS
+    cfg = dict(flags.config, PRECISION="f32", LAYER_STEPS=steps, SAMPLER="DDim")
+    rng = np.random.default_rng(seed)
+    E = rng.uniform(0, 1, (2, 1)).astype(np.float32)
+    layer_start = rng.standard_normal((2, 46)).astype(np.float32)
+    start = rng.standard_normal((2, 1, 45, 16, 9)).astype(np.float32)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        m = TrainLayerModel(flags, cfg, load_data=False, save_model=False, inference=True,
+                            device=dev).load_for_inference()
+        out = m.sample(torch.from_numpy(E).to(dev), num_steps=steps,
+                       start=torch.from_numpy(start).to(dev),
+                       layer_start=torch.from_numpy(layer_start).to(dev), return_layers=True)
+        outs.append({k: v.cpu() for k, v in out.items()})
+    err_x = (outs[0]["x"] - outs[1]["x"]).abs().max().item()
+    err_l = (outs[0]["layers"] - outs[1]["layers"]).abs().max().item()
+    tol = 2 * steps * 2e-4  # the weight-transfer bound of docs/DESIGN.md:32, per evaluation
+    if not (np.isfinite([err_x, err_l]).all() and max(err_x, err_l) <= tol):
+        fail(f"cascade card vs CPU: showers {err_x:.3g}, layers {err_l:.3g} > {tol:.3g}")
+    print(f"cascade card vs CPU (f32, batch 2, {steps} + {steps} DDim steps): showers "
+          f"max_abs_err {err_x:.3g}, stage-1 layers {err_l:.3g} (tol {tol:.3g})", flush=True)
+    return dict(showers_err=err_x, layers_err=err_l, tol=tol)
+
+
+# ---------------------------------------------------------------------------
+# 10. distill: consistency distillation of the cli phase's ds2 U-Net
+# ---------------------------------------------------------------------------
+
+DISTILL_SAMPLE_STEPS = 4
+# the paths of phases 9 and 10, in the kernels line's launches_by_path
+SLICE_PATHS = ("cascade_train", "cascade_sample", "distill_train", "distill_val",
+               "distill_sample")
+
+
+def run_distill(cfg_path, data, ckpt, teacher_loc, seed, attn, card):
+    """training.main([... "distill", "--teacher-loc", ...]) on the ds2
+    caches, then ``sample ... diffusion --sample-algo Consistency`` with the
+    distilled checkpoint; then one f32 distillation step card against CPU."""
+    from unittest import mock
+
+    from calodiffusion_tpu_torch import inference, training
+    from calodiffusion_tpu_torch.train.train_distill import TrainDistillation
+
+    n_blocks = len(DS2_ATTENTION_BLOCKS)
+    steps = Recorder(TrainDistillation.train_step, attn)
+    vals = Recorder(TrainDistillation.val_step, attn)
+    common = ["-c", cfg_path, "-d", data, "--seed", str(seed)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attn.fused_attention_block.launches = attn.attention_block_backward.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(TrainDistillation, "train_step", steps.bind()), \
+            mock.patch.object(TrainDistillation, "val_step", vals.bind()):
+        trainer = training.main(common + ["--checkpoint", ckpt, "distill", "--teacher-loc",
+                                          teacher_loc])
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    mem = torch.cuda.max_memory_allocated() / 2**30
+    k1, k2 = attn.fused_attention_block.launches, attn.attention_block_backward.launches
+    folder = Path(trainer.checkpoint_folder)
+    # teacher twice, target and student: 4 U-Nets a step; the student's backward
+    steps.check("distill train step", 512 // BATCH, (4 * n_blocks, n_blocks))
+    vals.check("distill val batch", 1, (4 * n_blocks, 0))
+    if not (folder / "final.ckpt").exists():
+        fail(f"distill wrote no {folder / 'final.ckpt'}")
+    student = trainer.model.state_dict()
+    moved = max((student[k] - v).abs().max().item() for k, v in trainer.teacher_params.items())
+    target = max((trainer.ema_params[k] - v).abs().max().item()
+                 for k, v in trainer.teacher_params.items())
+    if not (moved > 0 and target > 0):
+        fail(f"distill: the student moved {moved} from the teacher, the target {target} from "
+             "the initial weights")
+    step_s = [c["s"] for c in steps.calls]
+    steady = statistics.mean(step_s[1:])
+    train = dict(steps=len(step_s), losses=[c["loss"] for c in steps.calls],
+                 val_loss=vals.calls[0]["loss"], cold_step_s=step_s[0], steady_step_s=steady,
+                 samples_per_s=BATCH / steady, wall_s=train_wall, max_memory_gib=mem,
+                 k1_train=sum(c["k1"] for c in steps.calls),
+                 k2_train=sum(c["k2"] for c in steps.calls),
+                 k1_val=vals.calls[0]["k1"], k2_val=vals.calls[0]["k2"],
+                 student_moved=moved, target_moved=target)
+    print(f"distill train: training.main distill, {len(step_s)} steps of {BATCH} ds2 showers "
+          f"and a val batch, bf16, full width: first (cold) step {step_s[0]:.3f} s, steady "
+          f"{1e3 * steady:.2f} ms/step, {train['samples_per_s']:.1f} samples/s on {card}; "
+          f"training.main {train_wall:.2f} s, peak memory {mem:.2f} GiB; K1 {4 * n_blocks} and "
+          f"K2 {n_blocks} a step, K1 {4 * n_blocks} and K2 0 the val batch; losses "
+          f"{[round(v, 5) for v in train['losses']]}, val {train['val_loss']:.5g}; student "
+          f"moved {moved:.3g} from the teacher, target {target:.3g}", flush=True)
+
+    flags = inference.parse_flags(common + [
+        "-n", "-1", "sample", "--batch-size", str(CLI_SAMPLE_BATCH), "--sample-steps",
+        str(DISTILL_SAMPLE_STEPS), "--sample-algo", "Consistency", "--model-loc",
+        str(folder / "final.ckpt"), "diffusion"])
+    torch.cuda.synchronize()
+    attn.fused_attention_block.launches = attn.attention_block_backward.launches = 0
+    t0 = time.perf_counter()
+    showers, energies, _ = inference.generate_showers(flags, flags.config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sk1, sk2 = attn.fused_attention_block.launches, attn.attention_block_backward.launches
+    n = CLI_SAMPLE_BATCH
+    if showers.shape != (n, 6480) or not np.isfinite(showers).all() or (showers < 0).any():
+        fail(f"distill sample: showers {showers.shape}, not all finite and >= 0")
+    if (sk1, sk2) != (n_blocks * DISTILL_SAMPLE_STEPS, 0):
+        fail(f"distill sample launched K1 {sk1} and K2 {sk2} times")
+    sampled = dict(steps=DISTILL_SAMPLE_STEPS, wall_s=wall, showers_per_s=n / wall, k1=sk1,
+                   k2=sk2)
+    print(f"distill sample: sample ... diffusion --sample-algo Consistency --sample-steps "
+          f"{DISTILL_SAMPLE_STEPS} (CONSIS_NSTEPS {flags.config.get('CONSIS_NSTEPS', 100)}) on "
+          f"the distilled checkpoint, {n} showers: {wall:.2f} s with loading, {n / wall:.3f} "
+          f"showers/s on {card}; K1 {sk1}, K2 {sk2}", flush=True)
+    check = check_distill_step_card_vs_cpu(trainer, seed + 1, attn)
+    return dict(train=train, sample=sampled, card_vs_cpu=check)
+
+
+def check_distill_step_card_vs_cpu(trainer, seed, attn):
+    """One f32 distillation loss and every student gradient at batch 2, on
+    the card and on the CPU, from the trained student, target and teacher
+    weights and the same indices and noise: phase 5's step tolerances."""
+    from calodiffusion_tpu_torch.train.train_distill import TrainDistillation
+    from calodiffusion_tpu_torch.utils.config import default_flags
+
+    cfg = dict(trainer.config, PRECISION="f32")
+    E, layers, data = synthetic_batch(2, cfg["SHAPE_FINAL"][2] + 1, seed)
+    rng = np.random.default_rng(seed + 1)
+    noise = rng.standard_normal(data.shape).astype(np.float32)
+    idx = np.array([5, 60])
+    weights = {name: {k: v.detach().cpu() for k, v in w.items()}
+               for name, w in (("student", trainer.model.state_dict()),
+                               ("target", trainer.ema_params),
+                               ("teacher", trainer.teacher_params))}
+    results = []
+    for dev in ("cuda", "cpu"):
+        t = TrainDistillation(default_flags(seed=seed), cfg, load_data=False, save_model=False,
+                              device=dev, teacher_params=weights["teacher"])
+        t.init_model()
+        t.model.load_state_dict(weights["student"])
+        k2 = attn.attention_block_backward.launches
+        loss = t.distill_loss(*(torch.from_numpy(a).to(dev) for a in (data, E, layers)),
+                              torch.from_numpy(idx), torch.from_numpy(noise).to(dev),
+                              target={k: v.to(dev) for k, v in weights["target"].items()})
+        loss.backward()
+        launched = attn.attention_block_backward.launches - k2
+        if launched != (len(DS2_ATTENTION_BLOCKS) if dev == "cuda" else 0):
+            fail(f"f32 distill step on {dev} launched K2 {launched} times")
+        results.append((loss.item(), {k: p.grad.detach().cpu().double()
+                                      for k, p in t.model.named_parameters()}))
+    (l_card, g_card), (l_cpu, g_cpu) = results
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    G = max(g.abs().max().item() for g in g_cpu.values())
+    errs = {k: ((g_card[k] - g).abs().max() / (g.abs().max() + 1e-3 * G)).item()
+            for k, g in g_cpu.items()}
+    worst = max(errs, key=errs.get)
+    if not (np.isfinite(l_card) and loss_rel <= STEP_LOSS_RTOL) or \
+            not all(np.isfinite(v) for v in errs.values()) or errs[worst] > STEP_GRAD_TOL:
+        fail(f"f32 distill step card vs CPU: loss {l_card} vs {l_cpu} ({loss_rel:.3g} relative, "
+             f"tol {STEP_LOSS_RTOL}); gradient {worst} {errs[worst]:.3g} (tol {STEP_GRAD_TOL})")
+    print(f"distill: f32 step card vs CPU (batch 2, indices {idx.tolist()}): loss {l_card:.6g} vs "
+          f"{l_cpu:.6g} ({loss_rel:.3g} relative, tol {STEP_LOSS_RTOL}); {len(errs)} student "
+          f"gradients, worst {worst} {errs[worst]:.3g} (tol {STEP_GRAD_TOL})", flush=True)
+    return dict(loss_rel=loss_rel, worst_grad=worst, worst_grad_err=errs[worst])
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batches", type=int, default=2)
@@ -1503,9 +1845,11 @@ def main() -> None:
     train = run_training(cfg, args, attn, card)
     step_check = check_train_step_card_vs_cpu(cfg, train.pop("state_dict"), args.seed + 5, attn)
 
-    # 6. cli
+    # 6. cli, in a directory that phases 9 and 10 reuse
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
     t0 = time.perf_counter()
-    cli = run_cli_phase(args.seed + 20, attn, card)
+    cli, made = run_cli_phase(root, args.seed + 20, attn, card)
     print(f"cli: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 7. samplers
@@ -1524,7 +1868,19 @@ def main() -> None:
     var_launches, var_results = run_variants_path(args.seed + 6, attn, att, gn, nn_modules)
     print(f"variants: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 9. result
+    # 9. cascade and 10. distill, on the cli phase's ds2 caches and U-Net
+    _, ds2_cfg_path, ds2_data = made["ds2"]
+    t0 = time.perf_counter()
+    cascade = run_cascade(ds2_cfg_path, ds2_data, str(root / "ds2" / "ckpt"),
+                          cli["ds2"]["checkpoint"], args.seed + 40, attn, card)
+    print(f"cascade: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    distill = run_distill(ds2_cfg_path, ds2_data, str(root / "ds2" / "ckpt"),
+                          cli["ds2"]["checkpoint"], args.seed + 50, attn, card)
+    print(f"distill: {time.perf_counter() - t0:.1f} s", flush=True)
+    tmp.cleanup()
+
+    # 11. result
     launches = {"fused_attention_block": (gen_launches[0], train["k1"]),
                 "attention_block_backward": (gen_launches[1], train["k2"])}
     kernels = []
@@ -1539,11 +1895,18 @@ def main() -> None:
         by_path["samplers"] = zoo_launches[0 if key == "k1" else 1]
         by_path["bns"] = bns[key]
         by_path["variants"] = var_launches[name]
+        by_path.update({
+            "cascade_train": cascade["train"][key],
+            "cascade_sample": cascade["sample"][key],
+            "distill_train": distill["train"][f"{key}_train"],
+            "distill_val": distill["train"][f"{key}_val"],
+            "distill_sample": distill["sample"][key],
+        })
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            # launches on this slice's path: the sampler zoo on ds2, Bespoke
-            # on ds3 (theta trained, then sampling) and the CLI's DPMPP2M run
-            launches=sum(by_path[k] for k in ("samplers", "bns", "cli_ds2_sample_dpmpp2m")),
+            # launches on this slice's paths: the cascade (layer training,
+            # sampling) and distillation (training, val, Consistency sampling)
+            launches=sum(by_path[k] for k in SLICE_PATHS),
             launches_by_path=by_path,
             max_abs_err=max(c["max_abs_err"] for c in bf16),
             # times of the 7 launches of one ds2 U-Net call, B=128, bf16
@@ -1594,7 +1957,7 @@ def main() -> None:
                       "train_step_s": [s["s"] for s in train["steps"]],
                       "card_vs_cpu_step": step_check, "cli": cli, "variants": var_results,
                       "samplers": zoo, "samplers_card_vs_cpu": zoo_cpu, "bns": bns,
-                      "card": card}), flush=True)
+                      "cascade": cascade, "distill": distill, "card": card}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -60,6 +60,10 @@ COMMANDS = {
     "inference": (jinf.inference, lambda: tinf.inference_parser()),
     "sample": (jinf.sample, lambda: _subparser(tinf.inference_parser(), "sample")),
     "plot": (jinf.plot, lambda: _subparser(tinf.inference_parser(), "plot")),
+    "train layer": (jtrain.layer, lambda: _subparser(ttrain.train_parser(), "layer")),
+    "train distill": (jtrain.distill, lambda: _subparser(ttrain.train_parser(), "distill")),
+    "sample layer": (jinf.layer, lambda: _subparser(
+        _subparser(tinf.inference_parser(), "sample"), "layer")),
 }
 
 
@@ -180,6 +184,72 @@ def test_sample_cli_debug_writes_the_jax_trajectory_plots(workspace, trained, tm
     JaxModel._debug_sample_plot(SimpleNamespace(config={"CHECKPOINT_NAME": "cli_test"}), traj,
                                 traj, traj[0], plot_folder=str(tmp_path / "jax"))
     assert sorted(os.listdir(tmp_path / "plots")) == sorted(os.listdir(tmp_path / "jax"))
+
+
+@pytest.fixture(scope="module")
+def cascade(workspace, trained):
+    """The layer CLI, then ``sample ... layer`` on its checkpoint and the
+    diffusion one (2 DDim steps for the showers, LAYER_STEPS = NSTEPS = 4
+    for the layer energies)."""
+    root, data, cfg = workspace
+    trainer = ttrain.main(["-c", cfg, "-d", data, "--checkpoint", str(root / "ckpt"),
+                           "--seed", "4", "--device", "cpu", "layer"])
+    gen = str(root / "gen_layer" / "generated.h5")
+    os.makedirs(os.path.dirname(gen))
+    out = tinf.main(["-c", cfg, "-d", data, "--device", "cpu", "--seed", "6", "sample",
+                     "--sample-steps", "2", "--model-loc",
+                     str(root / "ckpt" / "cli_test_Diffusion" / "final.ckpt"), "-g", gen,
+                     "layer", "--layer-model",
+                     str(root / "ckpt" / "cli_test_LayerModel" / "final.ckpt")])
+    assert out == gen
+    return trainer, gen
+
+
+def test_layer_cli_trains_the_layer_net_and_samples_the_cascade(workspace, trained, cascade):
+    """``layer`` writes the JAX trainer's files under <NAME>_LayerModel with
+    the composite weights and whitening statistics, and leaves the base
+    U-Net as it initialised it; ``sample ... layer`` writes the h5."""
+    root, _, _ = workspace
+    trainer, gen = cascade
+    folder = root / "ckpt" / "cli_test_LayerModel"
+    assert trainer.checkpoint_folder == str(folder)
+    for name in ("final.ckpt", "best_val.ckpt", "checkpoint.ckpt", "config.json"):
+        assert (folder / name).exists(), name
+    arrays, _ = ckpt_io.load_checkpoint(str(folder), "final")
+    params = arrays["params"]
+    assert {"layer_model.whiten.mean", "layer_model.whiten.std"} <= set(params)
+    assert any(k.startswith("base_model.") for k in params)
+    assert trainer.model.layer_loss  # trained in layer mode
+    fresh = type(trainer)(trainer.flags, trainer.config, load_data=False, save_model=False,
+                          device="cpu")
+    fresh.init_model()
+    for k, v in fresh.model.state_dict().items():
+        if k.startswith("base_model."):
+            assert torch.equal(params[k], v), k
+    with h5py.File(gen, "r") as f:
+        showers = f["showers"][:]
+        assert showers.shape == (32, 6480) and f["incident_energies"].shape == (32, 1)
+    assert np.isfinite(showers).all() and (showers >= 0).all()
+
+
+def test_distill_cli_then_consistency_sampling(workspace, trained, tmp_path):
+    """``distill --teacher-loc`` writes <NAME>_Distillation/final.ckpt, a
+    plain diffusion checkpoint that ``sample ... diffusion --sample-algo
+    Consistency`` samples."""
+    root, data, cfg = workspace
+    teacher = str(root / "ckpt" / "cli_test_Diffusion" / "final.ckpt")
+    trainer = ttrain.main(["-c", cfg, "-d", data, "--checkpoint", str(tmp_path), "--seed", "5",
+                           "--device", "cpu", "distill", "--teacher-loc", teacher])
+    folder = tmp_path / "cli_test_Distillation"
+    assert trainer.checkpoint_folder == str(folder) and trainer.config["TEACHER_LOC"] == teacher
+    assert (folder / "final.ckpt").exists()
+    gen = str(tmp_path / "gen.h5")
+    tinf.main(["-c", cfg, "-d", data, "--device", "cpu", "--seed", "6", "sample",
+               "--sample-steps", "2", "--sample-algo", "Consistency", "--model-loc",
+               str(folder / "final.ckpt"), "-g", gen, "diffusion"])
+    with h5py.File(gen, "r") as f:
+        showers = f["showers"][:]
+    assert showers.shape == (32, 6480) and np.isfinite(showers).all() and (showers >= 0).all()
 
 
 def test_sample_cli_writes_the_reference_h5(generated):
@@ -318,19 +388,22 @@ def test_process_data_dict_and_load_samples_match_jax(workspace, generated, emin
     (["sample", "--model-loc", "m.ckpt", "--int8", "diffusion"], NotImplementedError, "M12"),
     (["sample", "--model-loc", "m.ckpt", "--sparse-decoding", "diffusion"], NotImplementedError,
      "M10"),
-    (["sample", "--model-loc", "m.ckpt", "layer", "--layer-model", "l.ckpt"],
-     NotImplementedError, "M9"),
+    # the cascade (M9) is ported; it still refuses int8 sampling
+    (["sample", "--model-loc", "m.ckpt", "--int8", "layer", "--layer-model", "l.ckpt"],
+     NotImplementedError, "M12"),
 ], ids=["argv0-M8", "argv1-M12", "argv2-M10", "argv3-M9"])
 def test_unported_sample_options_raise(argv, error, item):
     with pytest.raises(error, match=item):
         tinf.main(["--device", "cpu"] + argv)
 
 
-@pytest.mark.parametrize("cmd,item", [("layer", "M9"), ("distill", "M13")])
+# layer (M9) and distill (M13) are ported; both still refuse HGCal data (M10)
+@pytest.mark.parametrize("cmd,item", [("layer", "M10"), ("distill", "M10")],
+                         ids=["layer-M9", "distill-M13"])
 def test_unported_train_commands_raise(workspace, cmd, item):
     _, data, cfg = workspace
     with pytest.raises(NotImplementedError, match=item):
-        ttrain.main(["-c", cfg, "-d", data, "--device", "cpu", cmd])
+        ttrain.main(["-c", cfg, "-d", data, "--device", "cpu", "--hgcal", cmd])
 
 
 def test_jax_checkpoint_is_refused_with_a_message(tmp_path):

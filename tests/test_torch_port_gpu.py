@@ -590,3 +590,106 @@ def test_every_sampler_on_card_matches_cpu(f32_pair, tmp_path, name, options, ev
             assert tattn.fused_attention_block.launches == 7 * evals
     assert torch.isfinite(outs[0]).all()
     torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=evals * 2e-4)
+
+
+def test_layer_and_distill_clis_on_card(tmp_path):
+    """The layer, sample ... layer and distill commands on the card at a
+    tiny config whose attention blocks take C = 32: layer training launches
+    K1 only for its val batch (the base U-Net's loss), K2 never; the
+    cascade's stage 2 K1 7 times a step; a distillation step K1 28 times
+    (teacher twice, target, student) and K2 7; Consistency sampling K1 7
+    times a step."""
+    import json
+
+    from calodiffusion_tpu_torch import inference, training
+
+    rng = np.random.default_rng(1)
+    data = tmp_path / "data"
+    data.mkdir()
+    for name, n in (("dataset_2_1.hdf5", 8), ("dataset_2_2.hdf5", 4)):
+        np.savez_compressed(data / f"{name}.npz",
+                            E=rng.uniform(0, 1, (n, 1)).astype(np.float32),
+                            layers=rng.standard_normal((n, 46)).astype(np.float32),
+                            showers=rng.standard_normal((n, 1, 45, 16, 9)).astype(np.float32))
+    cfg = dict(load_config(str(CONFIG)), LAYER_SIZE_UNET=[32, 32, 32, 32], COND_SIZE_UNET=32,
+               BATCH=4, MAXEPOCH=1, NSTEPS=3, VAL_FILES=["dataset_2_2.hdf5"],
+               EVAL=["dataset_2_2.hdf5"], CHECKPOINT_NAME="card_cli")
+    (tmp_path / "config.json").write_text(json.dumps(cfg))
+    common = ["-c", str(tmp_path / "config.json"), "-d", str(data) + "/", "--seed", "1"]
+    ckpt = ["--checkpoint", str(tmp_path / "ckpt")]
+    k1, k2 = tattn.fused_attention_block, tattn.attention_block_backward
+    base = str(Path(training.main(common + ckpt + ["diffusion"]).checkpoint_folder) / "final.ckpt")
+
+    k1.launches = k2.launches = 0
+    layer = training.main(common + ckpt + ["layer"])
+    assert (k1.launches, k2.launches) == (7, 0)
+    assert all(p.dtype == torch.float32 for p in layer.model.layer_net.parameters())
+    flags = inference.parse_flags(common + [
+        "sample", "--sample-steps", "2", "--model-loc", base, "layer", "--layer-model",
+        str(Path(layer.checkpoint_folder) / "final.ckpt")])
+    k1.launches = k2.launches = 0
+    showers, energies, _ = inference.generate_showers(flags, flags.config)
+    assert (k1.launches, k2.launches) == (7 * 2, 0)
+    assert showers.shape == (4, 6480) and np.isfinite(showers).all() and (showers >= 0).all()
+
+    k1.launches = k2.launches = 0
+    distill = training.main(common + ckpt + ["distill", "--teacher-loc", base])
+    assert (k1.launches, k2.launches) == (28 * 2 + 28, 7 * 2)
+    flags = inference.parse_flags(common + [
+        "sample", "--sample-steps", "3", "--sample-algo", "Consistency", "--model-loc",
+        str(Path(distill.checkpoint_folder) / "final.ckpt"), "diffusion"])
+    k1.launches = k2.launches = 0
+    showers, _, _ = inference.generate_showers(flags, flags.config)
+    assert (k1.launches, k2.launches) == (7 * 3, 0)
+    assert np.isfinite(showers).all() and (showers >= 0).all()
+
+
+def test_cascade_and_distill_step_on_card_match_cpu():
+    """At ds2's full width in f32, batch 2, from the same weights: the
+    cascade (4 + 4 DDim steps, the same starts) within evaluations x 2e-4
+    (docs/DESIGN.md:32); one distillation loss within 1e-3 and every
+    student gradient within 5e-3 of the CPU's (chip_smoke.py's step
+    tolerances, in max-norm relative to max |cpu| + 1e-3 G)."""
+    from calodiffusion_tpu_torch.models.layerdiffusion import LayerDiffusion
+    from calodiffusion_tpu_torch.train.train_distill import TrainDistillation
+    from calodiffusion_tpu_torch.utils.config import default_flags
+
+    cfg = dict(load_config(str(CONFIG)), PRECISION="f32", LAYER_STEPS=4)
+    rng = np.random.default_rng(2)
+    E = rng.uniform(0, 1, (2, 1)).astype(np.float32)
+    layers = rng.standard_normal((2, 46)).astype(np.float32)
+    starts = (rng.standard_normal((2, 46)).astype(np.float32),
+              rng.standard_normal((2, 1, 45, 16, 9)).astype(np.float32))
+    card = LayerDiffusion(cfg, generator=torch.Generator().manual_seed(0))
+    card.set_whiten(rng.normal(0, 0.5, 46), rng.uniform(0.1, 1.0, 46))
+    cpu = LayerDiffusion(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    outs = []
+    for m in (card, cpu):
+        t = lambda a: torch.from_numpy(a).to(m.device)  # noqa: E731
+        out = m.sample(t(E), num_steps=4, layer_start=t(starts[0]), start=t(starts[1]),
+                       return_layers=True)
+        outs.append({k: v.cpu() for k, v in out.items()})
+    torch.testing.assert_close(outs[0]["layers"], outs[1]["layers"], rtol=0, atol=4 * 2e-4)
+    torch.testing.assert_close(outs[0]["x"], outs[1]["x"], rtol=0, atol=8 * 2e-4)
+
+    base = {k.removeprefix("base_model."): v.cpu() for k, v in card.state_dict().items()
+            if k.startswith("base_model.")}
+    data = rng.standard_normal((2, 1, 45, 16, 9)).astype(np.float32)
+    noise = rng.standard_normal(data.shape).astype(np.float32)
+    results = []
+    for dev in ("cuda", "cpu"):
+        t = TrainDistillation(default_flags(seed=0), cfg, teacher_params=base, load_data=False,
+                              save_model=False, device=dev)
+        t.init_model()
+        loss = t.distill_loss(*(torch.from_numpy(a).to(dev) for a in (data, E, layers)),
+                              torch.tensor([3, 70]), torch.from_numpy(noise).to(dev),
+                              target={k: 1.01 * v.to(dev) for k, v in base.items()})
+        loss.backward()
+        results.append((loss.item(), {k: p.grad.cpu().double()
+                                      for k, p in t.model.named_parameters()}))
+    (l_card, g_card), (l_cpu, g_cpu) = results
+    assert abs(l_card - l_cpu) <= 1e-3 * abs(l_cpu)
+    G = max(g.abs().max().item() for g in g_cpu.values())
+    for k, g in g_cpu.items():
+        assert ((g_card[k] - g).abs().max() / (g.abs().max() + 1e-3 * G)).item() <= 5e-3, k
