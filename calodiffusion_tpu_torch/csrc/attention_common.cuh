@@ -5,9 +5,10 @@
 // positions, ctx partials) with its merge over the cluster, and the launch
 // checks of a cluster.
 //
-// Each source builds once per variant, -DCALO_BF16=0|1 -DCALO_C=32|64 (the
-// compute dtype and the channel count), so the variants compile in
-// parallel and each library holds one instantiation of its kernel.
+// Each source builds once per variant, -DCALO_BF16=0|1 -DCALO_C=16|32|64|96
+// (the compute dtype and the channel count, a multiple of 16: one k-step of
+// the products, two n-tiles of 8), so the variants compile in parallel and
+// each library holds one instantiation of its kernel.
 //
 // A sample's positions are split over the G CTAs of a cluster; CTA r
 // holds positions [r P, r P + P).  A warp takes 16 positions at a time (one
@@ -18,7 +19,10 @@
 #pragma once
 
 #if !defined(CALO_C)
-#error "build one variant: -DCALO_BF16=0|1 -DCALO_C=32|64"
+#error "build one variant: -DCALO_BF16=0|1 -DCALO_C=16|32|64|96"
+#endif
+#if CALO_C % 16 != 0
+#error "CALO_C must be a multiple of 16"
 #endif
 
 #include <cooperative_groups.h>
@@ -46,7 +50,9 @@ constexpr int PAD = CALO_BF16 ? 8 : 4;
 constexpr int LDW = 3 * D + PAD;  // w_qkv (C, 96): q | k | v columns
 constexpr int LDO = C + PAD;      // w_out (D, C)
 constexpr int LDD = D + PAD;      // (D, D) matrices and (TILE, D) tiles
-constexpr int LDA = C + PAD;      // (TILE, C) tiles
+// (TILE, C) tiles, whose rows also take a (TILE, D) tile (K1's q softmax and
+// attention output, K2's ks): at least D wide where C < D
+constexpr int LDA = (C > D ? C : D) + PAD;
 constexpr int LDK = D + 8;        // a warp's f32 k tile (TILE, D): conflict-free pair stores
 constexpr float QSCALE = 0.17677669529663687f;  // 32 ** -0.5
 

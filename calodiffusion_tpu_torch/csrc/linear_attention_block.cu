@@ -6,7 +6,7 @@
 //   q/k/v = W_{q,k,v}^T xn, ctx = softmax_N(k) v^T, xn = GN1_pre(x) (K1), x (K3)
 //
 // per sample, heads = 1, dim_head D = 32, x laid out (B, N, C) with
-// C in {32, 64}.  Replaces the Pallas kernels
+// C in {16, 32, 64, 96}.  Replaces the Pallas kernels
 // calodiffusion_tpu/ops/pallas_linear_attention.py::_block_kernel (K1) and
 // ::_kernel (K3, entry fused_linear_attention; its backward is autograd of
 // the plain version, ops/linear_attention.py, as the JAX custom VJP is).

@@ -8,7 +8,7 @@
 // it returns dx and, per sample, the gradients of the pre-GN affine, W_q,
 // W_k, W_v, W_o, b_o and the post-GN affine; the wrapper sums the per-sample
 // weight gradients over the batch (deterministic, no atomics).  heads = 1,
-// dim_head D = 32, x and g laid out (B, N, C) with C in {32, 64}.  Replaces
+// dim_head D = 32, x and g laid out (B, N, C) with C in {16, 32, 64, 96}.  Replaces
 // the Pallas kernel
 // calodiffusion_tpu/ops/pallas_linear_attention.py::_block_bwd_kernel.
 //
@@ -65,7 +65,12 @@
 // 2.34 ms of device time at (128, 6480, 32) (G = 16, 227 KB a CTA), 6.14 ms
 // for the 7 launches of a ds2 train step, against a 0.114 ms bound; the
 // first port (one 128-thread block a sample on the CUDA cores, f32 scratch
-// in device memory) took 12.8 ms a step by CUDA events.
+// in device memory) took 12.8 ms a step by CUDA events.  Registers: each
+// lane of phase M accumulates a_wo and a_wq (C floats each), a_ctx (32) and
+// the b_o partials (C/4), 248 floats at C = 96, and phase K 240; there
+// ptxas spills 1.3 KB a thread (bf16; 2.3 KB f32), correct but 0.178 ms of
+// device time at (128, 28, 96) against 0.120 at C = 64 (chip_smoke.py,
+// same card).
 //
 // C entries, for the one (dtype, C) variant of the build: calo_attention_
 // block_backward_plan (G, P, what stays on chip) and

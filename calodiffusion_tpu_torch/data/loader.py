@@ -14,7 +14,7 @@ rank reads its share of the files (the JAX package shards by
 opened: with every cache present and ``nevts`` -1, loading never needs it.
 
 Not ported yet: HGCal data and the ``pre-embed`` geometry embed (ROADMAP
-M10).
+M10b).
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ from calodiffusion_tpu_torch.utils import preprocessing
 
 def _not_ported(what: str):
     return NotImplementedError(
-        f"{what} is not yet ported to calodiffusion_tpu_torch (ROADMAP M10)"
+        f"{what} is not yet ported to calodiffusion_tpu_torch (ROADMAP M10b)"
     )
 
 

@@ -12,7 +12,7 @@ All math is host-side numpy on final physical-unit showers.
 A copy of the CaloChallenge part of ``calodiffusion_tpu/evaluation/plots.py``
 (the port imports nothing of the JAX package).  ``matplotlib`` is imported
 when a plot is drawn, not with the module, so the port imports where it is
-not installed.  Not ported yet: the HGCal plots (ROADMAP M10).
+not installed.  Not ported yet: the HGCal plots (ROADMAP M10b).
 """
 
 from __future__ import annotations

@@ -20,7 +20,7 @@ or write h5 or draw (``--debug``'s trajectory plots among them), so
 sampling from npz caches needs neither.
 
 Not ported yet: ``--int8`` (ROADMAP M12), ``--sparse-decoding`` and
-HGCal (M10).
+HGCal (M10b).
 """
 
 from __future__ import annotations
@@ -192,7 +192,7 @@ def process_data_dict(flags, config):
 
     NN_embed = None
     if flags.hgcal:
-        raise _not_ported("HGCal evaluation", "M10")
+        raise _not_ported("HGCal evaluation", "M10b")
     elif dataset_num <= 1:
         bins = XMLHandler(config["PART_TYPE"], config["BIN_FILE"])
         NN_embed = GeomConverter(bins)
@@ -267,7 +267,7 @@ def LoadSamples(fp, flags, config, NN_embed=None, evt_start=0):
     import h5py
 
     if flags.hgcal:
-        raise _not_ported("HGCal evaluation", "M10")
+        raise _not_ported("HGCal evaluation", "M10b")
     end = None if flags.nevts < 0 else evt_start + flags.nevts
     shower_scale = config.get("SHOWERSCALE", 0.001)
 
@@ -354,7 +354,7 @@ def plot_results(flags, config, data_dict, energies) -> dict:
     from calodiffusion_tpu_torch.evaluation import plots
 
     if flags.hgcal:
-        raise _not_ported("HGCal plots", "M10")
+        raise _not_ported("HGCal plots", "M10b")
     plot_routines = {
         "Energy per layer": plots.ELayer(flags, config),
         "Energy": plots.HistEtot(flags, config),
@@ -398,7 +398,7 @@ def generate_showers(flags, config):
     if config.get("QUANT_INT8", False):
         raise _not_ported("int8 sampling (--int8, QUANT_INT8)", "M12")
     if flags.sparse_decoding or flags.sparse_per_batch:
-        raise _not_ported("sparse decoding", "M10")
+        raise _not_ported("sparse decoding", "M10b")
 
     data_loader, _ = load_data(flags, config, eval=True)
     if flags.model == "layer":

@@ -1,12 +1,13 @@
 """CaloDiffusion model: conditional denoiser + diffusion plumbing.
 
-Port of ``calodiffusion_tpu/models/diffusion.py`` for configs without a
-geometry embed (reference: calodiffusion/models/diffusion.py,
-calodiffusion.py).  Showers enter and leave as ``(B, 1, Z, A, R)``, as in
-the JAX package; the network inside is NCDHW.
+Port of ``calodiffusion_tpu/models/diffusion.py`` (reference:
+calodiffusion/models/diffusion.py, calodiffusion.py).  Showers enter and
+leave as ``(B, 1, Z, A, R)``, or flat ``(B, N)`` for dataset 1's in-model
+geometry embed (``SHOWER_EMBED: "orig-NN"``), as in the JAX package; the
+network inside is NCDHW.
 
-Not ported yet: geometry embeds (``SHOWER_EMBED``), HGCal, the phi image,
-the cold-diffusion prior and int8 sampling.
+Not ported yet: HGCal and the ``pre-embed`` (ROADMAP M10b), the network
+variants and the cold-diffusion prior (M11) and int8 sampling (M12).
 """
 
 from __future__ import annotations
@@ -17,42 +18,64 @@ import numpy as np
 import torch
 from torch import nn
 
+from calodiffusion_tpu_torch.models.converters import NNConverter
 from calodiffusion_tpu_torch.models.losses import get_loss
 from calodiffusion_tpu_torch.models.nn_modules import CondUnet
 from calodiffusion_tpu_torch.samplers.base import randn
 from calodiffusion_tpu_torch.utils import preprocessing
 from calodiffusion_tpu_torch.utils.config import load_config
 from calodiffusion_tpu_torch.utils.device import resolve_device
+from calodiffusion_tpu_torch.utils.geom import GeomConverter
+from calodiffusion_tpu_torch.utils.xml_handler import XMLHandler
 
 # config options not ported yet, with the ROADMAP item that ports each
-_NOT_PORTED = {"HGCAL": "M10", "PHI_INPUT": "M10", "COLD_DIFFU": "M11", "QUANT_INT8": "M12"}
+_NOT_PORTED = {"HGCAL": "M10b", "COLD_DIFFU": "M11", "QUANT_INT8": "M12"}
+EMBED = "NN_embed."  # the state_dict prefix of the dataset-1 embed's weights
+
+
+def net_key(key: str) -> str:
+    """The name within ``CaloDiffusionNet`` of a ``CaloDiffusion.state_dict``
+    key: the embed's keep theirs, the U-Net's take ``unet.``."""
+    return key if key.startswith(EMBED) else "unet." + key
 
 
 class CaloDiffusionNet(nn.Module):
-    """The denoiser network without a geometry embed: the constant R/Z
-    images concatenated to the shower on channels, then the U-Net.
+    """The denoiser network: the optional dataset-1 geometry embed
+    (``NN_embed``), the constant R/Z and phi images concatenated to the
+    shower on channels ([x, R, Z, phi]), the U-Net, and the embed's decode.
 
-    forward(x, E, t_emb, layers) -> prediction with x's (B, 1, Z, A, R) layout.
+    forward(x, E, t_emb, layers) -> prediction with x's layout: (B, 1, Z, A,
+    R), or flat (B, N) through the embed.
     """
 
-    def __init__(self, unet_kwargs: dict, layer_cond: bool, rz_images, dtype, generator=None):
+    def __init__(self, unet_kwargs: dict, layer_cond: bool, rz_images, dtype, generator=None,
+                 phi_image=None, nn_embed_gc: Optional[GeomConverter] = None):
         super().__init__()
         self.layer_cond = layer_cond
         self.unet = CondUnet(**unet_kwargs, dtype=dtype, generator=generator)
-        if rz_images is None:
-            self.rz_images = None
-        else:  # (2, Z, A, R): R image, Z image
+        self.NN_embed = None if nn_embed_gc is None else NNConverter(nn_embed_gc)
+        images = ([] if rz_images is None else list(rz_images)) + (
+            [] if phi_image is None else [phi_image])
+        if images:  # (n, Z, A, R): R image, Z image, phi image
             self.register_buffer(
-                "rz_images", torch.as_tensor(np.stack(rz_images))[None], persistent=False
+                "images", torch.as_tensor(np.stack(images))[None], persistent=False
             )
+        else:
+            self.images = None
 
     def forward(self, x, E, t_emb, layers=None):
         if self.layer_cond and layers is not None:
             E = torch.cat([E, layers], dim=1)
-        if self.rz_images is not None:
-            rz = self.rz_images.expand(x.shape[0], -1, *x.shape[2:])
-            x = torch.cat([x, rz.to(x.dtype)], dim=1)
-        return self.unet(x, cond=E, time=t_emb)
+        orig_shape = x.shape
+        if self.NN_embed is not None:  # flat (B, N) -> (B, 1, Z, A, R), f32
+            x = self.NN_embed.enc(x.reshape(x.shape[0], -1))[:, None]
+        if self.images is not None:
+            img = self.images.expand(x.shape[0], -1, *x.shape[2:])
+            x = torch.cat([x, img.to(x.dtype)], dim=1)
+        out = self.unet(x, cond=E, time=t_emb)
+        if self.NN_embed is not None:
+            out = self.NN_embed.dec(out[:, 0]).reshape(orig_shape)
+        return out
 
 
 class CaloDiffusion:
@@ -70,10 +93,12 @@ class CaloDiffusion:
         self.nsteps = n_steps
         self.loss_type = loss_type
 
-        if c.get("SHOWER_EMBED", ""):
+        shower_embed = c.get("SHOWER_EMBED", "")
+        if shower_embed and (shower_embed != "orig-NN" or c.get("HGCAL", False)):
+            item = "M11" if "FCN" in shower_embed else "M10b"
             raise NotImplementedError(
-                f"SHOWER_EMBED={c['SHOWER_EMBED']!r} is not yet ported to "
-                "calodiffusion_tpu_torch (ROADMAP M10)"
+                f"SHOWER_EMBED={shower_embed!r} is not yet ported to "
+                f"calodiffusion_tpu_torch (ROADMAP {item}; dataset 1's 'orig-NN' is)"
             )
         unported = [k for k in _NOT_PORTED if c.get(k, False)]
         if unported:
@@ -89,18 +114,29 @@ class CaloDiffusion:
         self.loss_function = get_loss(self.training_objective)(
             c, self.nsteps, self.loss_type
         )
-        self._data_shape = tuple(c["SHAPE_PAD"][1:])
+        # flat showers through the embed (JAX diffusion.py:128-131)
+        self.orig_shape = "orig" in shower_embed
+        self._data_shape = tuple(c["SHAPE_ORIG" if self.orig_shape else "SHAPE_PAD"][1:])
 
+        # constant conditioning images over SHAPE_FINAL (Z, A, R)
         shape_final = c["SHAPE_FINAL"][1:]
-        rz_images = None
+        rz_images = phi_image = None
         if c.get("R_Z_INPUT", False):
             R_image, Z_image = preprocessing.create_R_Z_image(
                 dataset_num=self.dataset_num, scaled=True, shape=shape_final
             )
             rz_images = (R_image[0], Z_image[0])  # (Z, A, R)
+        if c.get("PHI_INPUT", False):
+            phi_image = preprocessing.create_phi_image(shape=shape_final)[0]
+
+        # dataset 1's geometry embed: the pion configs set DATASET_NUM 0
+        nn_embed_gc = None
+        if "NN" in shower_embed:
+            part = "photon" if self.dataset_num == 1 else "pion"
+            nn_embed_gc = GeomConverter(XMLHandler(part, c["BIN_FILE"]))
 
         # network sizing (reference calodiffusion.py:39-81)
-        in_channels = 3 if rz_images is not None else 1
+        in_channels = (3 if rz_images is not None else 1) + (phi_image is not None)
         cond_size = 2 + c["SHAPE_FINAL"][2] if self.layer_cond else 1
         unet_kwargs = dict(
             cond_dim=c["COND_SIZE_UNET"],
@@ -120,23 +156,41 @@ class CaloDiffusion:
         self.cond_size = cond_size
         self.dtype = torch.bfloat16 if c.get("PRECISION", "f32") == "bf16" else torch.float32
         self.net = CaloDiffusionNet(
-            unet_kwargs, self.layer_cond, rz_images, self.dtype, generator
+            unet_kwargs, self.layer_cond, rz_images, self.dtype, generator,
+            phi_image=phi_image, nn_embed_gc=nn_embed_gc,
         ).to(self.device).eval()
 
     # -- weights -------------------------------------------------------------
     def state_dict(self) -> dict:
-        """U-Net weights under the reference CondUnet state_dict names."""
-        return self.net.unet.state_dict()
+        """The network's weights under the reference names: the CondUnet's
+        keys, and the embed's ``NN_embed.encs.{i}.weight`` and
+        ``NN_embed.decs.{i}.weight`` where the config has one."""
+        return {k.removeprefix("unet."): v for k, v in self.net.state_dict().items()}
 
     def load_state_dict(self, state_dict: dict) -> None:
-        self.net.unet.load_state_dict(state_dict)
+        self.net.load_state_dict({net_key(k): v for k, v in state_dict.items()})
 
     def parameters(self):
-        """The trainable tensors (the U-Net's f32 parameters), for an optimizer."""
-        return self.net.unet.parameters()
+        """The trainable tensors (the U-Net's and the embed's f32
+        parameters), for an optimizer."""
+        return self.net.parameters()
 
     def named_parameters(self):
-        return self.net.unet.named_parameters()
+        for k, p in self.net.named_parameters():
+            yield k.removeprefix("unet."), p
+
+    def embed_roundtrip(self, x):
+        """Diagnostic: encode -> decode ``x`` (training-representation
+        showers) through the model's geometry embed; identity when the model
+        has none (JAX diffusion.py:250-281).  The rank-limited decode loses
+        information even on real showers, so the embed's round trip is the
+        fidelity ceiling of any model behind it."""
+        x = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+        embed = self.net.NN_embed
+        if embed is None:
+            return x
+        with torch.no_grad():
+            return embed.dec(embed.enc(x.reshape(x.shape[0], -1))).reshape(x.shape)
 
     # -- diffusion math ------------------------------------------------------
     def do_time_embed(self, sigma):
@@ -215,12 +269,15 @@ class CaloDiffusion:
     def generate(self, data_loader: Iterable, sample_steps: int,
                  generator: Optional[torch.Generator] = None,
                  sample_offset: int = 0, sampler=None,
-                 debug: bool = False) -> tuple[Any, Any]:
+                 debug: bool = False, roundtrip: bool = False) -> tuple[Any, Any]:
         """Sample every ``(E, layers, batch)`` of ``data_loader`` and invert
         the preprocessing (reference diffusion.py:118-197).  Returns numpy
         (showers of SHAPE_ORIG, energies).  With ``debug`` the first batch's
         reverse trajectory is plotted against the loader's showers
-        (``_debug_sample_plot``)."""
+        (``_debug_sample_plot``).  ``roundtrip`` samples nothing: the
+        loader's own showers pass through the embed's encode and decode
+        (``embed_roundtrip``) before the inverse preprocessing, the showers
+        of a perfect diffusion model behind this embed."""
         c = self.config
         if sampler is None:
             sampler = self.make_sampler()
@@ -233,10 +290,13 @@ class CaloDiffusion:
             E_t = torch.as_tensor(np.asarray(E, np.float32), device=self.device)
             lay = (torch.as_tensor(np.asarray(layers_, np.float32), device=self.device)
                    if self.layer_cond else None)
-            out = self.sample(E_t, layers=lay, num_steps=sample_steps,
-                              generator=generator, sample_offset=sample_offset,
-                              sampler=sampler, debug=debug)
-            if debug:
+            if roundtrip:
+                out = self.embed_roundtrip(d_batch)
+            else:
+                out = self.sample(E_t, layers=lay, num_steps=sample_steps,
+                                  generator=generator, sample_offset=sample_offset,
+                                  sampler=sampler, debug=debug)
+            if debug and not roundtrip:
                 out, xs, x0s = out
                 if i == 0 and xs is not None:  # some samplers expose no trajectory
                     self._debug_sample_plot(to_numpy(xs), to_numpy(x0s),
@@ -255,10 +315,11 @@ class CaloDiffusion:
             emax=c["EMAX"], emin=c["EMIN"], layerE=layers_np,
             logE=c["logE"], binning_file=c["BIN_FILE"],
             max_deposit=c["MAXDEP"], showerMap=c["SHOWERMAP"],
-            dataset_num=self.dataset_num, orig_shape=False,
+            dataset_num=self.dataset_num, orig_shape=self.orig_shape,
             ecut=float(c["ECUT"]),
         )
-        generated = generated.reshape(c["SHAPE_ORIG"])
+        if not self.orig_shape:
+            generated = generated.reshape(c["SHAPE_ORIG"])
         energies = np.reshape(energies, (energies.shape[0], -1))
         return generated, energies
 

@@ -18,8 +18,10 @@ keeps parity with the reference cascade.
 The layer net computes in f32 whatever ``PRECISION`` says: the JAX package
 builds it without a dtype.  ``set_layer_state(True)`` makes
 ``compute_loss`` train the layer net alone (the base U-Net then gets no
-gradient).  Not ported yet: int8 sampling (ROADMAP M12), HGCal and the
-pre-embed (M10); ``CaloDiffusion`` refuses their configs.
+gradient).  Dataset 1's flat showers through the in-model embed take the
+same path (``generate`` inverts them in their ``SHAPE_ORIG`` layout).  Not
+ported yet: HGCal and the pre-embed (ROADMAP M10b), the network variants
+(M11) and int8 sampling (M12); ``CaloDiffusion`` refuses their configs.
 """
 
 from __future__ import annotations
@@ -72,7 +74,6 @@ class LayerDiffusion(CaloDiffusion):
         self.layer_loss = False
         self.layer_sampler_name = c.get("LAYER_SAMPLER", "DDim")
         self.layer_steps = c.get("LAYER_STEPS", n_steps)
-        self.shape_pad = c.get("SHAPE_PAD") or c["SHAPE_FINAL"]
         self.layer_net = ResNetDense(
             dim_in=c["SHAPE_FINAL"][2] + 1, num_layers=5, cond_size=1, generator=generator,
         ).to(self.device).eval()
@@ -88,7 +89,7 @@ class LayerDiffusion(CaloDiffusion):
                        for k, v in (("mean", mean), ("std", std))}
 
     def state_dict(self) -> dict:
-        sd = {BASE + k: v for k, v in self.net.unet.state_dict().items()}
+        sd = {BASE + k: v for k, v in super().state_dict().items()}
         sd.update({LAYER + k: v for k, v in self.layer_net.state_dict().items()})
         if self.whiten is not None:
             sd.update({WHITEN + k: v.detach() for k, v in self.whiten.items()})
@@ -98,8 +99,12 @@ class LayerDiffusion(CaloDiffusion):
         """Load a composite state_dict (both parts; the whitening statistics
         where present, else identity whitening)."""
         base, layer = split_state_dict(state_dict)
-        self.net.unet.load_state_dict(base)
+        self.load_base_state_dict(base)
         self.load_layer_state_dict(layer)
+
+    def load_base_state_dict(self, base: dict) -> None:
+        """The base part alone: the U-Net's keys (and the dataset-1 embed's)."""
+        super().load_state_dict(base)
 
     def load_layer_state_dict(self, layer: dict) -> None:
         """The layer part alone: ResNetDense keys and ``whiten.mean`` /
@@ -116,11 +121,11 @@ class LayerDiffusion(CaloDiffusion):
         """Both networks' parameters; in layer mode the base U-Net's get no
         gradient, and ``torch.optim.Adam`` leaves a parameter without one
         as it is (JAX's Adam makes a zero update of a zero gradient)."""
-        yield from self.net.unet.parameters()
+        yield from super().parameters()
         yield from self.layer_net.parameters()
 
     def named_parameters(self):
-        for k, p in self.net.unet.named_parameters():
+        for k, p in super().named_parameters():
             yield BASE + k, p
         for k, p in self.layer_net.named_parameters():
             yield LAYER + k, p
@@ -176,8 +181,9 @@ class LayerDiffusion(CaloDiffusion):
         from calodiffusion_tpu_torch.samplers import get_sampler
 
         sampler = get_sampler(self.layer_sampler_name)(self.config)
-        if start is None:
-            start = randn((energy.shape[0], self.shape_pad[2] + 1), generator, self.device)
+        if start is None:  # the layer vector: total energy and Z layers
+            start = randn((energy.shape[0], self.config["SHAPE_FINAL"][2] + 1), generator,
+                          self.device)
         out = sampler(_LayerModelView(self), start, energy, None, self.layer_steps,
                       sample_offset or 0, generator, debug)
         return self.unwhiten_layers(out[0] if isinstance(out, tuple) else out)
@@ -239,10 +245,12 @@ class LayerDiffusion(CaloDiffusion):
                 layerE=out["layers"].float().cpu().numpy(), logE=c["logE"],
                 binning_file=c["BIN_FILE"], max_deposit=c["MAXDEP"],
                 showerMap=c["SHOWERMAP"], dataset_num=self.dataset_num,
-                orig_shape=False, ecut=float(c["ECUT"]),
+                orig_shape=self.orig_shape, ecut=float(c["ECUT"]),
             )
             generated.append(gen)
             energies.append(E_out)
-        generated = np.concatenate(generated).reshape(c["SHAPE_ORIG"])
+        generated = np.concatenate(generated)
+        if not self.orig_shape:
+            generated = generated.reshape(c["SHAPE_ORIG"])
         energies = np.concatenate(energies)
         return generated, np.reshape(energies, (energies.shape[0], -1))

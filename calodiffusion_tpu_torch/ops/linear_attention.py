@@ -54,7 +54,9 @@ DIM_HEAD = 32
 FORWARD_KERNEL = "linear_attention_block"
 BACKWARD_KERNEL = "linear_attention_block_bwd"
 LINEAR_KERNEL = "linear_attention"
-_SUPPORTED_C = (32, 64)
+# the channel widths of the shipped U-Nets' attention blocks (ds2, ds3: 32, 64;
+# dataset 1: pions 16 and 32, photons 32, 64 and 96)
+_SUPPORTED_C = (16, 32, 64, 96)
 _PTR = ctypes.c_void_p
 _PTRS = ctypes.POINTER(ctypes.c_void_p)
 _INT = ctypes.c_int

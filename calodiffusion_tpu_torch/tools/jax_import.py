@@ -144,11 +144,20 @@ def module_params_to_state_dict(params, module: str) -> dict[str, torch.Tensor]:
 def params_to_state_dict(params, config) -> dict[str, torch.Tensor]:
     """Flax CondUnet params of ``calodiffusion_tpu`` -> the port's CondUnet
     state_dict (f32 CPU tensors).  ``params`` may be the whole tree
-    (``{"params": {"CondUnet_0": ...}}``) or the CondUnet subtree."""
+    (``{"params": {"CondUnet_0": ...}}``) or the CondUnet subtree.  A whole
+    tree's dataset-1 embed (``NN_embed``: ``enc_i`` (dim_r_out, dim_in) and
+    ``dec_i`` (dim_in, dim_r_out), as torch's Linear weights) becomes
+    ``NN_embed.encs.{i}.weight`` and ``NN_embed.decs.{i}.weight``."""
     tree = _subtree(params)
+    embed = tree.get("NN_embed", {})
     if "CondUnet_0" in tree:
         tree = tree["CondUnet_0"]
     w = _Writer(tree)
+    i = 0
+    while f"enc_{i}" in embed:
+        w.sd[f"NN_embed.encs.{i}.weight"] = _tensor(embed[f"enc_{i}"])
+        w.sd[f"NN_embed.decs.{i}.weight"] = _tensor(embed[f"dec_{i}"])
+        i += 1
     n_res = len(config["LAYER_SIZE_UNET"]) - 1
     block_attn = config.get("BLOCK_ATTN", False)
     mid_attn = config.get("MID_ATTN", False)

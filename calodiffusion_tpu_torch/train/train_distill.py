@@ -39,6 +39,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from calodiffusion_tpu_torch.models.diffusion import net_key
 from calodiffusion_tpu_torch.samplers import schedules
 from calodiffusion_tpu_torch.samplers.base import bshape, randn
 from calodiffusion_tpu_torch.train import checkpoint as ckpt_io
@@ -98,6 +99,11 @@ class TrainDistillation(TrainDiffusion):
         self._denoiser = _Denoiser(self.model)
         return self.model
 
+    def _ema_follows_weights(self) -> bool:
+        """The consistency target follows the student at any decay (JAX
+        train_distill.py:225-227), 0 included."""
+        return True
+
     # -- the distillation loss ------------------------------------------------
     def _sigma_grid(self) -> np.ndarray:
         """Increasing f32 sigma grid: the Consistency sampler's table
@@ -121,8 +127,9 @@ class TrainDistillation(TrainDiffusion):
         return np.log(p / p.sum()).astype(np.float32)
 
     def _denoise_with(self, weights: dict, x, E, sigma, layers):
-        """The student's network run on ``weights`` (a U-Net state_dict)."""
-        params = {f"net.unet.{k}": v for k, v in weights.items()}
+        """The student's network run on ``weights`` (a ``CaloDiffusion``
+        state_dict)."""
+        params = {f"net.{net_key(k)}": v for k, v in weights.items()}
         return torch.func.functional_call(self._denoiser, params, (x, E, sigma, layers))
 
     def distill_loss(self, data, E, layers, idx, noise, target: Optional[dict] = None,

@@ -76,6 +76,6 @@ class TrainLayerModel(TrainDiffusion):
             raise ValueError(
                 "No layer model: set config['layer_model'] or use a composite checkpoint"
             )
-        self.model.net.unet.load_state_dict(base)
+        self.model.load_base_state_dict(base)
         self.model.load_layer_state_dict(layer)
         return self.model

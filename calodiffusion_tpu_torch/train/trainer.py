@@ -119,16 +119,33 @@ class Train:
         return self.checkpoint_folder, "checkpoint"
 
     def pickup_checkpoint(self, scheduler, early_stopper, restart_training):
-        """Resume from checkpoint.pth-equivalent (reference train.py:60-102).
-        Restores whatever the checkpoint holds; with EMA on and no EMA in
-        the checkpoint, the EMA restarts from the restored params."""
+        """Resume from checkpoint.pth-equivalent (reference train.py:60-102),
+        as the JAX trainer does (trainer.py:128-160): a checkpoint whose key
+        set differs from the live state's (params, opt_state, and ema_params
+        and swa_params where the live config keeps them) restores no
+        optimizer state, and says so; a checkpoint's EMA replaces the live
+        one, even with EMA off (it then stays as restored, is saved and is
+        served); without one, the live EMA keeps the weights it held before
+        the restore."""
         folder, name = self._checkpoint_location()
         arrays, host = ckpt_io.load_checkpoint(folder, name, map_location=self.device)
+        expected = {"params", "opt_state"} | {
+            k for k, v in (("ema_params", self.ema_params), ("swa_params", self.swa_params))
+            if v is not None}
+        if set(arrays) != expected:
+            print(
+                f"WARNING: checkpoint {folder}/{name} has a different key "
+                "set than the live training state "
+                f"(saved: {sorted(arrays)}, expected: {sorted(expected)}); "
+                "optimizer state NOT restored — Adam moments restart fresh",
+                flush=True,
+            )
+            arrays["opt_state"] = None
         self.model.load_state_dict(arrays["params"])
         if arrays.get("opt_state") is not None and not restart_training:
             self.opt.load_state_dict(arrays["opt_state"])
-        if self.ema_params is not None:
-            self.ema_params = _copy(arrays.get("ema_params") or self.model.state_dict())
+        if arrays.get("ema_params") is not None:
+            self.ema_params = _copy(arrays["ema_params"])
         if arrays.get("swa_params") is not None and not restart_training:
             self.swa_params = _copy(arrays["swa_params"])
             self.swa_n = int(host.get("swa_n", 0))
@@ -304,12 +321,18 @@ class TrainDiffusion(Train):
                     p.grad.div_(n_chunks)
         return loss_sum / n_chunks
 
+    def _ema_follows_weights(self) -> bool:
+        """Whether each step moves the EMA: only with EMA_DECAY > 0
+        (trainer.py:407); an EMA restored from a checkpoint with EMA off
+        stays as it was."""
+        return self.ema_params is not None and self.ema_decay > 0
+
     @torch.no_grad()
     def _apply_update(self):
         """One Adam step on the accumulated gradients, then the EMA
         (trainer.py:405-411)."""
         self.opt.step()
-        if self.ema_params is not None:
+        if self._ema_follows_weights():
             for k, p in self.model.state_dict().items():
                 self.ema_params[k].mul_(self.ema_decay).add_(p, alpha=1 - self.ema_decay)
 

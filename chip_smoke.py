@@ -20,7 +20,10 @@ prints no result:
             times and the card's bound: K1 (forward) against
             attention_block_reference, K2 (backward) against
             attention_block_backward_reference, each with the cluster size it
-            chose and which of its tensors it kept on chip
+            chose and which of its tensors it kept on chip; then K1 and K2 at
+            every (C, N) of the two dataset-1 U-Nets (C = 16, 32, 64, 96;
+            batch 128) and K3 (LinearAttention alone) at (1610, 16) and
+            (28, 96)
 4. main     dataset-2 shower generation at the full width of
             configs/config_dataset2.json (bf16, 400-step DDIM, batch 128)
             through CaloDiffusion.generate, from seeded random weights; the
@@ -126,11 +129,28 @@ prints no result:
             >= 0, K1 7 x 4; then one f32 distillation loss and every student
             gradient at batch 2, card against CPU, within phase 5's step
             tolerances
-11. result  {"kernels": [...]} (each kernel's launches by path: generate,
+11. ds1     dataset 1 through the in-model NN geometry embed
+            (SHOWER_EMBED "orig-NN", PHI_INPUT), photons and pions, in the
+            cli phase's directory: synthetic binning XMLs (DS1_BINNING; their
+            grid must be each config's SHAPE_FINAL and their voxel count its
+            SHAPE_ORIG), npz caches of synthetic showers in the flat orig
+            layout, copies of configs/config_dataset1_{photon,pion}.json at
+            full width and depth cut to one epoch; training.main (4 steps of
+            128 and a val batch) and the sample CLI (128 showers, 400-step
+            DDim), as the cli phase checks them: showers finite, >= 0,
+            (128, 368) and (128, 533), K1 7 times a step and a denoise, K2 7
+            times a train step; then, from the trained weights, one f32
+            denoise and one f32 train step (the embed's gradients among
+            them) card against CPU, within phase 4's and phase 5's
+            tolerances, and generate(roundtrip=True) on the sampling batch:
+            (128, 368) and (128, 533), finite, >= 0
+12. result  {"kernels": [...]} (each kernel's launches by path: generate,
             train, the cli paths, samplers, bns, variants, cascade_train,
-            cascade_sample, distill_train, distill_val, distill_sample; K1's
-            and K2's "launches" sum the last five, this slice's paths) and,
-            last, {"ok": true, "device": {...}}
+            cascade_sample, distill_train, distill_val, distill_sample,
+            ds1_photon_train, ds1_photon_sample, ds1_pion_train,
+            ds1_pion_sample; K1's and K2's "launches" sum the last four, this
+            slice's paths; their "ds1" holds one dataset-1 U-Net call's
+            times) and, last, {"ok": true, "device": {...}}
 """
 
 from __future__ import annotations
@@ -177,6 +197,16 @@ DS2_ATTENTION_BLOCKS = [(32, 6480), (64, 736), (32, 96), (32, 96), (64, 96), (32
 # widths [32, 32, 32, 32])
 DS3_ATTENTION_BLOCKS = [(32, 40500), (32, 5175), (32, 576), (32, 576), (32, 576), (32, 5175),
                         (32, 40500)]
+# and of dataset 1's (configs/config_dataset1_{photon,pion}.json through the
+# embed: photons (5, 10, 30), widths [32, 32, 64, 96]; pions (7, 10, 23),
+# widths [16, 16, 16, 32]; compress Z halves Z rounding up)
+DS1_ATTENTION_BLOCKS = {
+    "photon": [(32, 1500), (64, 225), (96, 28), (96, 28), (64, 28), (32, 225), (32, 1500)],
+    "pion": [(16, 1610), (16, 220), (32, 20), (32, 20), (16, 20), (16, 220), (16, 1610)],
+}
+# the 7 blocks of each U-Net the cli and ds1 phases drive, by name
+ATTENTION_BLOCKS = {"ds2": DS2_ATTENTION_BLOCKS, "ds3": DS3_ATTENTION_BLOCKS,
+                    **{f"ds1_{part}": b for part, b in DS1_ATTENTION_BLOCKS.items()}}
 BATCH = 128
 D = 32  # dim_head
 
@@ -474,26 +504,35 @@ def synthetic_loader(batches, n_layers, seed):
                rng.standard_normal((BATCH, n_layers)).astype(np.float32), None)
 
 
-def synthetic_batch(batch, n_layers, seed):
+def synthetic_batch(batch, n_layers, seed, shape=(1, 45, 16, 9)):
     """(E, layers, showers) as the training loader yields them: showers in
-    the preprocessed (B, 1, 45, 16, 9) layout, roughly unit scale."""
+    the preprocessed layout ``shape`` (ds2's (1, 45, 16, 9); dataset 1's
+    flat voxels), roughly unit scale."""
     rng = np.random.default_rng(seed)
     return (rng.uniform(0.0, 1.0, (batch, 1)).astype(np.float32),
             rng.standard_normal((batch, n_layers)).astype(np.float32),
-            rng.standard_normal((batch, 1, 45, 16, 9)).astype(np.float32))
+            rng.standard_normal((batch, *shape)).astype(np.float32))
 
 
-def check_card_vs_cpu(cfg, state_dict, seed):
+def data_shape(cfg) -> tuple:
+    """A shower's shape as the model takes it: SHAPE_PAD's, or SHAPE_ORIG's
+    flat voxels through dataset 1's embed."""
+    return tuple(cfg["SHAPE_ORIG" if "orig" in cfg.get("SHOWER_EMBED", "") else "SHAPE_PAD"][1:])
+
+
+def check_card_vs_cpu(cfg, state_dict, seed, phase="main"):
     """One full-width denoise in f32 on the card (kernels) and on the CPU
     (plain versions) from the same weights and inputs."""
     from calodiffusion_tpu_torch.models.diffusion import CaloDiffusion
 
     cfg = dict(cfg, PRECISION="f32")
+    shape = data_shape(cfg)
     rng = np.random.default_rng(seed)
-    x = torch.from_numpy(rng.standard_normal((2, 1, 45, 16, 9)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((2, *shape)).astype(np.float32))
     E = torch.from_numpy(rng.uniform(0, 1, (2, 1)).astype(np.float32))
-    lay = torch.from_numpy(rng.standard_normal((2, 46)).astype(np.float32))
-    sigma = torch.full((2, 1, 1, 1, 1), 0.7)
+    lay = torch.from_numpy(rng.standard_normal((2, cfg["SHAPE_FINAL"][2] + 1))
+                           .astype(np.float32))
+    sigma = torch.full((2,) + (1,) * len(shape), 0.7)
     outs = []
     for dev in ("cuda", "cpu"):
         m = CaloDiffusion(cfg, device=dev)
@@ -504,17 +543,18 @@ def check_card_vs_cpu(cfg, state_dict, seed):
     err = (outs[0] - outs[1]).abs().max().item()
     # the weight-transfer bound of docs/DESIGN.md:32
     if not err <= 2e-4:
-        fail(f"f32 denoise on the card differs from the CPU by {err:.3g} > 2e-4")
-    print(f"main: f32 denoise card vs CPU max_abs_err {err:.3g} (tol 2e-4)", flush=True)
+        fail(f"{phase}: f32 denoise on the card differs from the CPU by {err:.3g} > 2e-4")
+    print(f"{phase}: f32 denoise card vs CPU max_abs_err {err:.3g} (tol 2e-4)", flush=True)
     return err
 
 
-def check_train_step_card_vs_cpu(cfg, state_dict, seed, attn):
-    """One f32 train step's loss and parameter gradients, card against CPU."""
+def check_train_step_card_vs_cpu(cfg, state_dict, seed, attn, phase="train"):
+    """One f32 train step's loss and parameter gradients (dataset 1's
+    embed's among them), card against CPU."""
     from calodiffusion_tpu_torch.models.diffusion import CaloDiffusion
 
     cfg = dict(cfg, PRECISION="f32")
-    E, layers, data = synthetic_batch(2, cfg["SHAPE_FINAL"][2] + 1, seed)
+    E, layers, data = synthetic_batch(2, cfg["SHAPE_FINAL"][2] + 1, seed, data_shape(cfg))
     rng = np.random.default_rng(seed + 1)
     noise = rng.standard_normal(data.shape).astype(np.float32)
     rnd = rng.standard_normal(2).astype(np.float32)
@@ -536,20 +576,26 @@ def check_train_step_card_vs_cpu(cfg, state_dict, seed, attn):
     (l_card, g_card), (l_cpu, g_cpu) = results
     loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
     if not np.isfinite(l_card) or loss_rel > STEP_LOSS_RTOL:
-        fail(f"f32 train-step loss card {l_card} vs CPU {l_cpu}: {loss_rel:.3g} relative "
-             f"> {STEP_LOSS_RTOL}")
+        fail(f"{phase}: f32 train-step loss card {l_card} vs CPU {l_cpu}: {loss_rel:.3g} "
+             f"relative > {STEP_LOSS_RTOL}")
     G = max(g.abs().max().item() for g in g_cpu.values())
     errs = {k: ((g_card[k] - g).abs().max() / (g.abs().max() + 1e-3 * G)).item()
             for k, g in g_cpu.items()}
     worst = max(errs, key=errs.get)
     if not all(np.isfinite(v) for v in errs.values()) or errs[worst] > STEP_GRAD_TOL:
-        fail(f"f32 train-step gradient {worst} card vs CPU: {errs[worst]:.3g} > {STEP_GRAD_TOL}")
-    print(f"train: f32 step card vs CPU: loss {l_card:.6g} vs {l_cpu:.6g} ({loss_rel:.3g} "
+        fail(f"{phase}: f32 train-step gradient {worst} card vs CPU: {errs[worst]:.3g} > "
+             f"{STEP_GRAD_TOL}")
+    embed = {k: v for k, v in errs.items() if k.startswith("NN_embed.")}
+    worst_embed = max(embed, key=embed.get) if embed else None
+    print(f"{phase}: f32 step card vs CPU: loss {l_card:.6g} vs {l_cpu:.6g} ({loss_rel:.3g} "
           f"relative, tol {STEP_LOSS_RTOL}); {len(errs)} parameter gradients, worst "
-          f"{worst} {errs[worst]:.3g}, init_conv.weight {errs['init_conv.weight']:.3g} "
-          f"(tol {STEP_GRAD_TOL})", flush=True)
+          f"{worst} {errs[worst]:.3g}, init_conv.weight {errs['init_conv.weight']:.3g}"
+          + (f", the embed's {len(embed)} worst {worst_embed} {embed[worst_embed]:.3g}"
+             if embed else "") + f" (tol {STEP_GRAD_TOL})", flush=True)
     return dict(loss_rel=loss_rel, worst_grad=worst, worst_grad_err=errs[worst],
-                init_conv_weight_err=errs["init_conv.weight"])
+                init_conv_weight_err=errs["init_conv.weight"], n_grads=len(errs),
+                worst_embed_grad=worst_embed,
+                worst_embed_grad_err=embed[worst_embed] if embed else None)
 
 
 def run_training(cfg, args, attn, card):
@@ -646,6 +692,18 @@ CLI_DATA = {
 }
 CLI_SAMPLE_BATCH = 128
 
+# The ds1 phase's caches, as the cli phase's: 4 train steps of 128, a val
+# batch and a sampling batch, in the flat SHAPE_ORIG layout of dataset 1's
+# in-model embed ("orig-NN"), under the names the configs give
+DS1_DATA = {
+    f"ds1_{part}": dict(config=f"config_dataset1_{part}.json", voxels=voxels, batch=128,
+                        files={f"dataset_1_{part}s_1.hdf5": 512,
+                               f"dataset_1_{part}s_val.hdf5": 128,
+                               f"dataset_1_{part}s_2.hdf5": 128},
+                        overrides=dict(VAL_FILES=[f"dataset_1_{part}s_val.hdf5"]))
+    for part, voxels in (("photon", 368), ("pion", 533))
+}
+
 
 def raw_showers(rng, n, voxels):
     """Showers as a CaloChallenge h5 file holds them (MeV): exponential
@@ -663,25 +721,28 @@ def write_cache(path, showers, energies, cfg):
     from calodiffusion_tpu_torch.utils import preprocessing
 
     scale = cfg.get("SHOWERSCALE", 200.0)  # the loader's default, as it reads it
+    orig = "orig" in cfg.get("SHOWER_EMBED", "")  # dataset 1: flat showers
     e = np.reshape(energies.astype(np.float32) * scale, (-1, 1))
     shower, layers = preprocessing.preprocess_shower(
         showers.astype(np.float32) * scale, e, cfg.get("SHAPE_PAD") or cfg.get("SHAPE_FINAL"),
         cfg.get("BIN_FILE", ""), cfg["SHOWERMAP"], dataset_num=cfg.get("DATASET_NUM", 2),
-        orig_shape=False, ecut=0, max_deposit=cfg["MAXDEP"])
+        orig_shape=orig, ecut=0, max_deposit=cfg["MAXDEP"])
     emin, emax = cfg["EMIN"], cfg["EMAX"]
     E = (np.log10(e / emin) / np.log10(emax / emin) if cfg["logE"]
          else (e - emin) / (emax - emin))
     layers = (np.reshape(layers, (layers.shape[0], -1)) if layers is not None
               else np.zeros((shower.shape[0], 1), np.float32))
-    np.savez_compressed(path, E=E, layers=layers, showers=np.reshape(shower, cfg["SHAPE_PAD"]))
+    np.savez_compressed(path, E=E, layers=layers,
+                        showers=np.reshape(shower, cfg["SHAPE_ORIG" if orig else "SHAPE_PAD"]))
 
 
-def make_cli_data(root: Path, name: str, seed: int):
+def make_cli_data(root: Path, name: str, seed: int, **overrides):
     """The caches and the config of one dataset under ``root``: the
-    shipped config at full width and depth, its training cut to one epoch."""
-    spec = CLI_DATA[name]
+    shipped config at full width and depth, its training cut to one epoch
+    (and ``overrides``: dataset 1's BIN_FILE)."""
+    spec = CLI_DATA[name] if name in CLI_DATA else DS1_DATA[name]
     cfg = json.loads((ROOT / "configs" / spec["config"]).read_text())
-    cfg.update(spec["overrides"], MAXEPOCH=1)
+    cfg.update(spec["overrides"], MAXEPOCH=1, **overrides)
     data = root / name / "data"
     data.mkdir(parents=True)
     rng = np.random.default_rng(seed)
@@ -748,7 +809,7 @@ def synced(fn, walls, first_only=False, outputs=None):
     return wrapper
 
 
-def run_cli(name, cfg, cfg_path, data, ckpt, seed, attn, card):
+def run_cli(name, cfg, cfg_path, data, ckpt, seed, attn, card, phase="cli"):
     """training.main, then the sample CLI's parsing, loading and generation
     (inference.parse_flags + generate_showers: all but the h5 write), on one
     dataset; K1 and K2 counts reset just before each and read just after."""
@@ -758,8 +819,8 @@ def run_cli(name, cfg, cfg_path, data, ckpt, seed, attn, card):
     from calodiffusion_tpu_torch.models.diffusion import CaloDiffusion
     from calodiffusion_tpu_torch.train.trainer import TrainDiffusion
 
-    n_blocks = len(DS2_ATTENTION_BLOCKS if name == "ds2" else DS3_ATTENTION_BLOCKS)
-    spec = CLI_DATA[name]
+    n_blocks = len(ATTENTION_BLOCKS[name])
+    spec = CLI_DATA[name] if name in CLI_DATA else DS1_DATA[name]
     recorder = Recorder(TrainDiffusion.train_step, attn)
     common = ["-c", cfg_path, "-d", data, "--seed", str(seed)]
     torch.cuda.synchronize()
@@ -777,18 +838,18 @@ def run_cli(name, cfg, cfg_path, data, ckpt, seed, attn, card):
     n_train = sum(n for f, n in spec["files"].items() if f in cfg["FILES"])
     n_val = sum(n for f, n in spec["files"].items() if f in cfg.get("VAL_FILES", []))
     want_steps, val_batches = n_train // spec["batch"], -(-n_val // spec["batch"])
-    recorder.check(f"cli {name} train step", want_steps, (n_blocks, n_blocks))
+    recorder.check(f"{phase} {name} train step", want_steps, (n_blocks, n_blocks))
     steps = recorder.calls
     if (k1, k2) != (n_blocks * (want_steps + val_batches), n_blocks * want_steps):
-        fail(f"cli {name}: train launched K1 {k1} and K2 {k2} times")
+        fail(f"{phase} {name}: train launched K1 {k1} and K2 {k2} times")
     for fname in ("final.ckpt", "best_val.ckpt", "config.json"):
         if not (folder / fname).exists():
-            fail(f"cli {name}: train wrote no {folder / fname}")
+            fail(f"{phase} {name}: train wrote no {folder / fname}")
     steady = statistics.mean(s["s"] for s in steps[1:])
     train = dict(steps=len(steps), losses=[s["loss"] for s in steps], cold_step_s=steps[0]["s"],
                  steady_step_s=steady, samples_per_s=spec["batch"] / steady, wall_s=train_wall,
                  k1=k1, k2=k2, max_memory_gib=train_mem)
-    print(f"cli {name} train: training.main, {len(steps)} steps of {spec['batch']}, bf16, full "
+    print(f"{phase} {name} train: training.main, {len(steps)} steps of {spec['batch']}, bf16, full "
           f"width: first (cold) step {steps[0]['s']:.3f} s, steady {1e3 * steady:.2f} ms/step, "
           f"{train['samples_per_s']:.1f} train samples/s on {card}; training.main {train_wall:.2f} "
           f"s; K1 {k1}, K2 {k2} launches ({n_blocks} each a step, K1 {n_blocks} a val batch); "
@@ -814,18 +875,18 @@ def run_cli(name, cfg, cfg_path, data, ckpt, seed, attn, card):
     k1s, k2s = attn.fused_attention_block.launches, attn.attention_block_backward.launches
     n, voxels = CLI_SAMPLE_BATCH, spec["voxels"]
     if showers.shape != (n, voxels) or energies.shape != (n, 1):
-        fail(f"cli {name}: showers {showers.shape}, energies {energies.shape}; expected "
+        fail(f"{phase} {name}: showers {showers.shape}, energies {energies.shape}; expected "
              f"({n}, {voxels}), ({n}, 1)")
     if not np.isfinite(showers).all() or (showers < 0).any():
-        fail(f"cli {name}: showers are not finite and >= 0")
+        fail(f"{phase} {name}: showers are not finite and >= 0")
     if (k1s, k2s) != (n_blocks * 400, 0):
-        fail(f"cli {name}: sampling launched K1 {k1s} times (expected {n_blocks * 400}) and "
+        fail(f"{phase} {name}: sampling launched K1 {k1s} times (expected {n_blocks * 400}) and "
              f"K2 {k2s} (expected 0)")
     steady_gen = (gen_s[0] - first[0]) * 400 / 399
     sample = dict(wall_s=wall, setup_s=wall - gen_s[0], generate_s=gen_s[0],
                   first_denoise_s=first[0], showers_per_s=n / gen_s[0],
                   showers_per_s_after_first_step=n / steady_gen, k1=k1s, k2=k2s)
-    print(f"cli {name} sample: inference CLI, {n} showers, 400-step DDim, bf16, batch "
+    print(f"{phase} {name} sample: inference CLI, {n} showers, 400-step DDim, bf16, batch "
           f"{CLI_SAMPLE_BATCH}: generate {gen_s[0]:.2f} s, {sample['showers_per_s']:.3f} "
           f"showers/s on {card} (first, cold denoise {first[0]:.3f} s; the other 399 steps at "
           f"{sample['showers_per_s_after_first_step']:.3f} showers/s); loading data and "
@@ -838,7 +899,7 @@ def run_cli(name, cfg, cfg_path, data, ckpt, seed, attn, card):
                                                     "DPMPP2M", 20, 19)
 
     if importlib.util.find_spec("h5py") is None:
-        print(f"cli {name} sample: write_out (the h5 file) not run: this machine has no h5py; "
+        print(f"{phase} {name} sample: write_out (the h5 file) not run: this machine has no h5py; "
               "the CPU tests cover it (tests/test_torch_port_cli.py)", flush=True)
     else:
         import h5py
@@ -848,8 +909,8 @@ def run_cli(name, cfg, cfg_path, data, ckpt, seed, attn, card):
         with h5py.File(out, "r") as f:
             shapes = (f["showers"].shape, f["incident_energies"].shape)
         if shapes != ((n, voxels), (n, 1)):
-            fail(f"cli {name}: the h5 file holds {shapes}")
-        print(f"cli {name} sample: write_out wrote {out}: {shapes}", flush=True)
+            fail(f"{phase} {name}: the h5 file holds {shapes}")
+        print(f"{phase} {name} sample: write_out wrote {out}: {shapes}", flush=True)
     return results
 
 
@@ -1148,11 +1209,18 @@ def linear_bound(B, N, C, dtype):
     return bound_ms(nbytes, flops, dtype, exps=64 * B * N)
 
 
-def check_linear_kernel(la):
-    """K3 vs plain version at every ds2 (C, N), B = 128, and ds3 level 0."""
+# K3 at dataset 1's new widths: pion level 0 (C = 16) and the photon mid
+# block (C = 96), B = 128
+K3_DS1_SHAPES = [(BATCH, 1610, 16), (BATCH, 28, 96)]
+
+
+def check_linear_kernel(la, shapes=None):
+    """K3 vs plain version at ``shapes`` (B, N, C); by default every ds2
+    (C, N), B = 128, and ds3 level 0."""
     cases = []
-    shapes = [(BATCH, N, C) for C, N in sorted(set(DS2_ATTENTION_BLOCKS))]
-    shapes.append((DS3_BATCH, DS3_N, 32))
+    if shapes is None:
+        shapes = [(BATCH, N, C) for C, N in sorted(set(DS2_ATTENTION_BLOCKS))]
+        shapes.append((DS3_BATCH, DS3_N, 32))
     for dtype in (torch.bfloat16, torch.float32):
         for B, N, C in shapes:
             args = linear_inputs(B, N, C, dtype, seed=B + N + C)
@@ -1623,9 +1691,6 @@ def check_cascade_card_vs_cpu(flags, seed):
 # ---------------------------------------------------------------------------
 
 DISTILL_SAMPLE_STEPS = 4
-# the paths of phases 9 and 10, in the kernels line's launches_by_path
-SLICE_PATHS = ("cascade_train", "cascade_sample", "distill_train", "distill_val",
-               "distill_sample")
 
 
 def run_distill(cfg_path, data, ckpt, teacher_loc, seed, attn, card):
@@ -1757,6 +1822,115 @@ def check_distill_step_card_vs_cpu(trainer, seed, attn):
     return dict(loss_rel=loss_rel, worst_grad=worst, worst_grad_err=errs[worst])
 
 
+# ---------------------------------------------------------------------------
+# 11. ds1: dataset 1 (photons, pions) through the in-model geometry embed
+# ---------------------------------------------------------------------------
+
+# (layer id, radial bin edges, alpha bins) of each layer of the CaloChallenge
+# dataset-1 binnings (CaloChallenge/code/binning_dataset_1_{photons,pions}.xml,
+# which the repository does not hold), as best known; as (r bins, alpha
+# bins): photons (8, 1), (16, 10), (19, 10), (5, 1), (5, 1), 368 voxels;
+# pions (8, 1), (10, 10), (10, 10), (5, 1), (15, 10), (16, 10), (10, 1), 533.
+# Each particle's edges unite to its radial grid of utils/consts.R_BIN_EDGES
+# (30 bins for photons, 23 for pions): the configs' SHAPE_FINAL (5, 10, 30)
+# and (7, 10, 23).
+DS1_BINNING = {
+    "photon": [(0, "0,5,10,30,50,100,200,400,600", 1),
+               (1, "0,2,4,6,8,10,12,15,20,30,40,50,70,90,120,150,200", 10),
+               (2, "0,2,5,10,15,20,25,30,40,50,60,80,100,130,160,200,250,300,350,400", 10),
+               (3, "0,50,100,200,400,600", 1),
+               (12, "0,100,200,400,1000,2000", 1)],
+    "pion": [(0, "0,5,10,30,50,100,200,400,600", 1),
+             (1, "0,1,4,7,10,15,30,50,90,150,200", 10),
+             (2, "0,5,10,20,30,50,80,130,200,300,400", 10),
+             (3, "0,50,100,200,400,600", 1),
+             (12, "0,10,20,30,50,80,100,130,160,200,250,300,350,400,1000,2000", 10),
+             (13, "0,10,20,30,50,80,100,130,160,200,250,300,350,400,600,1000,2000", 10),
+             (14, "0,50,100,150,200,250,300,400,600,1000,2000", 1)],
+}
+
+
+# the paths of this slice's phase (11, ds1), in the kernels line's launches_by_path
+SLICE_PATHS = ("ds1_photon_train", "ds1_photon_sample", "ds1_pion_train", "ds1_pion_sample")
+
+
+def ds1_binning_xml(part: str) -> str:
+    """The binning XML of ``DS1_BINNING[part]``, as XMLHandler reads it."""
+    rows = "\n".join(f'  <Layer id="{i}" r_edges="{edges}" n_bin_alpha="{alphas}"/>'
+                     for i, edges, alphas in DS1_BINNING[part])
+    return f'<Bins>\n<Particle name="{part}">\n{rows}\n</Particle>\n</Bins>\n'
+
+
+def check_ds1_binning(part: str, xml: str, cfg: dict) -> None:
+    """The binning's regular grid (GeomConverter) is the config's
+    SHAPE_FINAL and its voxel count the config's SHAPE_ORIG."""
+    from calodiffusion_tpu_torch.utils.geom import GeomConverter
+    from calodiffusion_tpu_torch.utils.xml_handler import XMLHandler
+
+    bins = XMLHandler(part, xml)
+    g = GeomConverter(bins)
+    grid = [g.num_layers, g.alpha_out, g.dim_r_out]
+    if grid != cfg["SHAPE_FINAL"][2:] or bins.GetTotalNumberOfBins() != cfg["SHAPE_ORIG"][1]:
+        fail(f"ds1 {part}: the binning gives grid {grid} and {bins.GetTotalNumberOfBins()} "
+             f"voxels; the config says {cfg['SHAPE_FINAL'][2:]} and {cfg['SHAPE_ORIG'][1]}")
+
+
+def run_roundtrip(cfg, state_dict, data, name, card):
+    """``generate(roundtrip=True)`` on the sampling cache's batch of 128 on
+    the card: its showers through the embed's encode and decode, then the
+    inverse preprocessing, in the flat SHAPE_ORIG layout."""
+    from calodiffusion_tpu_torch.data.loader import NpzDataset
+    from calodiffusion_tpu_torch.models.diffusion import CaloDiffusion
+
+    model = CaloDiffusion(cfg)
+    model.load_state_dict(state_dict)
+    files = [f"{data}{f}.npz" for f in cfg["EVAL"]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    showers, energies = model.generate(NpzDataset(files, CLI_SAMPLE_BATCH), 0, roundtrip=True)
+    wall = time.perf_counter() - t0
+    n, voxels = CLI_SAMPLE_BATCH, cfg["SHAPE_ORIG"][1]
+    if showers.shape != (n, voxels) or energies.shape != (n, 1):
+        fail(f"ds1 {name} roundtrip: showers {showers.shape}, energies {energies.shape}; "
+             f"expected ({n}, {voxels}), ({n}, 1)")
+    if not np.isfinite(showers).all() or (showers < 0).any():
+        fail(f"ds1 {name} roundtrip: showers are not finite and >= 0")
+    print(f"ds1 {name} roundtrip: generate(roundtrip=True), {n} showers {showers.shape} in "
+          f"{wall:.2f} s on {card}", flush=True)
+    return dict(shape=list(showers.shape), wall_s=wall)
+
+
+def run_ds1_phase(root: Path, seed, attn, card):
+    """Dataset 1's photons and pions at the full width and depth of their
+    shipped configs, on synthetic binnings (DS1_BINNING) and showers:
+    training.main and the sample CLI (run_cli), then one f32 denoise and
+    one f32 train step card against CPU from the trained weights, and the
+    embed's round trip."""
+    from calodiffusion_tpu_torch.train import checkpoint as ckpt_io
+
+    results = {}
+    for i, name in enumerate(DS1_DATA):
+        part = name.removeprefix("ds1_")
+        xml = root / f"{name}_binning.xml"
+        xml.write_text(ds1_binning_xml(part))
+        t0 = time.perf_counter()
+        cfg, cfg_path, data = make_cli_data(root, name, seed + i, BIN_FILE=str(xml))
+        check_ds1_binning(part, str(xml), cfg)
+        print(f"ds1 {name}: binning {cfg['SHAPE_FINAL'][2:]} grid, {cfg['SHAPE_ORIG'][1]} "
+              f"voxels; npz caches of {sum(DS1_DATA[name]['files'].values())} synthetic "
+              f"showers written in {time.perf_counter() - t0:.1f} s", flush=True)
+        res = run_cli(name, cfg, cfg_path, data, str(root / name / "ckpt"), seed + 10 + i,
+                      attn, card, phase="ds1")
+        weights = ckpt_io.load_inference_weights(res["checkpoint"], "cpu")
+        res["card_vs_cpu_denoise"] = check_card_vs_cpu(cfg, weights, seed + 20 + i,
+                                                       phase=f"ds1 {name}")
+        res["card_vs_cpu_step"] = check_train_step_card_vs_cpu(cfg, weights, seed + 30 + i,
+                                                               attn, phase=f"ds1 {name}")
+        res["roundtrip"] = run_roundtrip(cfg, weights, data, name, card)
+        results[name] = res
+    return results
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batches", type=int, default=2)
@@ -1812,6 +1986,11 @@ def main() -> None:
     # dataset 3's shapes: K1 at the sampling batch, K2 at the train batch
     k1_cases += check_attention_kernel(attn, DS3_ATTENTION_BLOCKS, CLI_SAMPLE_BATCH, "ds3")
     k2_cases += check_backward_kernel(attn, DS3_ATTENTION_BLOCKS, DS3_BATCH, "ds3")
+    # dataset 1's, C = 16 and 96 among them, and K3 at one shape of each new width
+    for part, blocks in DS1_ATTENTION_BLOCKS.items():
+        k1_cases += check_attention_kernel(attn, blocks, BATCH, f"ds1_{part}")
+        k2_cases += check_backward_kernel(attn, blocks, BATCH, f"ds1_{part}")
+    k3_cases = check_linear_kernel(attn, K3_DS1_SHAPES)
 
     # 4. main path: generation
     cfg = load_config(str(CONFIG))
@@ -1861,7 +2040,7 @@ def main() -> None:
 
     # 8. variants
     t0 = time.perf_counter()
-    k3_cases = check_linear_kernel(attn)
+    k3_cases += check_linear_kernel(attn)
     k4_cases = check_blockwise_kernel(att)
     k4b_cases = check_blockwise_backward(att)
     k5_cases = check_groupnorm_kernel(gn)
@@ -1878,9 +2057,14 @@ def main() -> None:
     distill = run_distill(ds2_cfg_path, ds2_data, str(root / "ds2" / "ckpt"),
                           cli["ds2"]["checkpoint"], args.seed + 50, attn, card)
     print(f"distill: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 11. ds1
+    t0 = time.perf_counter()
+    ds1 = run_ds1_phase(root, args.seed + 60, attn, card)
+    print(f"ds1: {time.perf_counter() - t0:.1f} s", flush=True)
     tmp.cleanup()
 
-    # 11. result
+    # 12. result
     launches = {"fused_attention_block": (gen_launches[0], train["k1"]),
                 "attention_block_backward": (gen_launches[1], train["k2"])}
     kernels = []
@@ -1902,10 +2086,11 @@ def main() -> None:
             "distill_val": distill["train"][f"{key}_val"],
             "distill_sample": distill["sample"][key],
         })
+        for ds, res in ds1.items():
+            by_path.update({f"{ds}_train": res["train"][key], f"{ds}_sample": res["sample"][key]})
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            # launches on this slice's paths: the cascade (layer training,
-            # sampling) and distillation (training, val, Consistency sampling)
+            # launches on this slice's paths: dataset 1's training and sampling
             launches=sum(by_path[k] for k in SLICE_PATHS),
             launches_by_path=by_path,
             max_abs_err=max(c["max_abs_err"] for c in bf16),
@@ -1920,12 +2105,16 @@ def main() -> None:
             # the train batch (64)
             ds3={k: per_call(cases, k, dataset="ds3")
                  for k in ("kernel_ms", "device_ms", "plain_ms", "bound_ms")}
-            | {"batch": cases[-1]["shape"][0]},
+            | {"batch": DS3_BATCH if key == "k2" else CLI_SAMPLE_BATCH},
+            # and of one dataset-1 U-Net call of each particle, B = 128
+            ds1={ds: {k: per_call(cases, k, dataset=ds)
+                      for k in ("kernel_ms", "device_ms", "plain_ms", "bound_ms")}
+                 for ds in ds1},
             cases=cases,
         ))
     # K3-K5 and K4's backward: the times of their launches in one bf16 run
     # of the variants path
-    path_shapes = {"fused_linear_attention": [[DS3_BATCH, DS3_N, 32]],
+    path_shapes = {"fused_linear_attention": [[DS3_BATCH, DS3_N, 32]],  # ds1's are held apart
                    "blockwise_attention": [[ATTENTION_BATCH, 4, DS3_N, D]],
                    "blockwise_attention_backward": [[ATTENTION_BATCH, 4, DS3_N, D]],
                    "groupnorm_silu": [list(sh) for sh in K5_SHAPES]}
@@ -1957,7 +2146,8 @@ def main() -> None:
                       "train_step_s": [s["s"] for s in train["steps"]],
                       "card_vs_cpu_step": step_check, "cli": cli, "variants": var_results,
                       "samplers": zoo, "samplers_card_vs_cpu": zoo_cpu, "bns": bns,
-                      "cascade": cascade, "distill": distill, "card": card}), flush=True)
+                      "cascade": cascade, "distill": distill, "ds1": ds1, "card": card}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Where the time of dataset-2 (or dataset-3) generation and training goes,
-on one CUDA card.
+"""Where the time of dataset-2 (or dataset-3, dataset-1) generation and
+training goes, on one CUDA card.
 
-    python3 scripts/torch_profile_ds2.py [--dataset 2] [--calls 10] [--generate-reps 3]
-                                         [--generate-batches 2] [--train-steps 10]
-                                         [--seed 0] [--out FILE]
+    python3 scripts/torch_profile_ds2.py [--dataset 2] [--particle photon] [--calls 10]
+                                         [--generate-reps 3] [--generate-batches 2]
+                                         [--train-steps 10] [--seed 0] [--out FILE]
 
 Builds calodiffusion_tpu_torch's CaloDiffusion at the full width of
-configs/config_dataset2.json (``--dataset 3``: config_dataset3.json; bf16,
-seeded random weights).  First, while the process is cold, times
+configs/config_dataset2.json (``--dataset 3``: config_dataset3.json;
+``--dataset 1``: config_dataset1_{photon,pion}.json on chip_smoke.py's
+synthetic binning of ``--particle``; bf16, seeded random weights).  First, while the process is cold, times
 ``generate`` over ``--generate-batches`` batches of 128 with 400-step DDim
 ``--generate-reps`` times (host clock, synchronised), as chip_smoke.py
 times it once.  Then warms up, times ``--calls`` denoise calls at batch 128
@@ -117,7 +118,9 @@ def summary(event_ms, wall_ms, by_kernel, unit):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--dataset", type=int, choices=(2, 3), default=2)
+    ap.add_argument("--dataset", type=int, choices=(1, 2, 3), default=2)
+    ap.add_argument("--particle", choices=("photon", "pion"), default="photon",
+                    help="dataset 1's config")
     ap.add_argument("--calls", type=int, default=10)
     ap.add_argument("--generate-reps", type=int, default=3)
     ap.add_argument("--generate-batches", type=int, default=2)
@@ -133,11 +136,21 @@ def main() -> None:
         capture_output=True, text=True, timeout=60,
     ).stdout.strip()
     linear_attention.build_all()  # the kernels' build is set-up, not generation
-    cfg = load_config(str(ROOT / "configs" / f"config_dataset{args.dataset}.json"))
+    if args.dataset == 1:  # the binning XML is not in the repository: chip_smoke's synthetic one
+        import tempfile
+
+        import chip_smoke
+
+        xml = Path(tempfile.mkdtemp()) / "binning.xml"
+        xml.write_text(chip_smoke.ds1_binning_xml(args.particle))
+        cfg = load_config(str(ROOT / "configs" / f"config_dataset1_{args.particle}.json"))
+        cfg["BIN_FILE"] = str(xml)
+    else:
+        cfg = load_config(str(ROOT / "configs" / f"config_dataset{args.dataset}.json"))
     model = CaloDiffusion(cfg, generator=torch.Generator().manual_seed(args.seed))
     g = torch.Generator(device="cuda").manual_seed(args.seed)
     B, n_layers = 128, cfg["SHAPE_FINAL"][2] + 1
-    shape, nb = tuple(cfg["SHAPE_PAD"][1:]), args.generate_batches
+    shape, nb = model._data_shape, args.generate_batches
 
     rng = np.random.default_rng(args.seed)
     loader = [(rng.uniform(0.0, 1.0, (B, 1)).astype(np.float32),
@@ -155,7 +168,7 @@ def main() -> None:
     E = torch.rand(B, 1, generator=g, device="cuda")
     layers = (torch.randn(B, n_layers, generator=g, device="cuda") if model.layer_cond
               else None)
-    sigma = torch.full((B, 1, 1, 1, 1), 0.7, device="cuda")
+    sigma = torch.full((B,) + (1,) * len(shape), 0.7, device="cuda")
 
     def call():
         with torch.inference_mode():
@@ -182,7 +195,8 @@ def main() -> None:
     train_top = sorted(t_kernels.items(), key=lambda kv: -kv[1][0])[:25]
 
     result = {
-        "card": card, "dataset": args.dataset, "batch": B, "train_batch": TB,
+        "card": card, "dataset": args.dataset,
+        "particle": args.particle if args.dataset == 1 else None, "batch": B, "train_batch": TB,
         "calls": args.calls,
         "denoise_ms_events": event_ms, "denoise_ms_host_wall": wall_ms,
         "profiled_device_ms_per_call": denoise["profiled_device_ms_per_call"],

@@ -678,8 +678,12 @@ def _args(B, N, C, dtype, seed):
             t(1.0 + 0.1 * rng.standard_normal(C)), t(0.1 * rng.standard_normal(C))]
 
 
-# one position, a partial tile, past a whole tile of 128 and 256, two samples
-SHAPES = [(2, 1, 32), (2, 300, 32), (1, 257, 64), (2, 130, 64)]
+# one position, a partial tile, past a whole tile of 128 and 256, two samples;
+# C = 16 and 96 (dataset 1's pion and photon widths): N under one warp's
+# tile times the warps of a CTA (20, 28, as the ds1 U-Nets' deepest blocks)
+# and past it
+SHAPES = [(2, 1, 32), (2, 300, 32), (1, 257, 64), (2, 130, 64), (2, 20, 16), (1, 220, 16),
+          (2, 28, 96), (1, 130, 96)]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -729,8 +733,9 @@ def _grad_out(B, N, C, dtype):
 
 # (B, N, C, cluster): N split unevenly over G = 2 and 4 CTAs (the last
 # CTA's share short of a whole tile), and G = 4 with an empty CTA (N = 40:
-# 16 positions a CTA)
-CLUSTER_CASES = [(2, 100, 32, 2), (1, 130, 64, 4), (2, 40, 32, 4), (1, 257, 64, 2)]
+# 16 positions a CTA); C = 16 and 96 split over G = 2
+CLUSTER_CASES = [(2, 100, 32, 2), (1, 130, 64, 4), (2, 40, 32, 4), (1, 257, 64, 2),
+                 (1, 100, 16, 2), (1, 130, 96, 2)]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)

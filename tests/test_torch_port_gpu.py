@@ -33,6 +33,10 @@ SHAPES = [(4, 6480, 32), (4, 736, 64), (4, 736, 32), (4, 96, 32), (4, 96, 64), (
 # dataset 3's (C, N) (configs/config_dataset3.json: 45 x 50 x 18 and two
 # downsamplings), at B = 2
 DS3_SHAPES = [(2, 40500, 32), (2, 5175, 32), (2, 576, 32)]
+# dataset 1's (C, N) (chip_smoke.DS1_ATTENTION_BLOCKS: pions at C = 16 and
+# 32, photons at 32, 64 and 96), at B = 4
+DS1_SHAPES = [(4, 1610, 16), (4, 220, 16), (4, 20, 16), (4, 20, 32), (4, 1500, 32),
+              (4, 225, 32), (4, 225, 64), (4, 28, 64), (4, 28, 96)]
 
 
 @pytest.fixture(autouse=True)
@@ -60,7 +64,7 @@ def _block_args(B, N, C, dtype, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
-@pytest.mark.parametrize("B,N,C", SHAPES + DS3_SHAPES)
+@pytest.mark.parametrize("B,N,C", SHAPES + DS3_SHAPES + DS1_SHAPES)
 def test_attention_block_kernel_matches_plain(B, N, C, dtype):
     args = _block_args(B, N, C, dtype, seed=B + N + C)
     before = tattn.fused_attention_block.launches
@@ -74,12 +78,14 @@ def test_attention_block_kernel_matches_plain(B, N, C, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
-@pytest.mark.parametrize("C,N", [(32, 6480), (64, 736), (32, 736), (32, 96), (64, 96)])
+@pytest.mark.parametrize("C,N", [(32, 6480), (64, 736), (32, 736), (32, 96), (64, 96),
+                                 (16, 1610), (96, 28)])
 @pytest.mark.parametrize("cluster", [1, 8])
 def test_attention_block_kernel_at_forced_cluster_sizes(C, N, cluster, dtype):
     """K1 with its cluster size forced to 1 (one CTA a sample, x and y off
     chip where they do not fit) and to the largest, 8 (the merge over
-    distributed shared memory, empty CTAs at N = 96), at every ds2 (C, N)."""
+    distributed shared memory, empty CTAs at N = 96 and 28), at every ds2
+    (C, N) and dataset 1's largest C = 16 and C = 96 blocks."""
     args = _block_args(4, N, C, dtype, seed=N + C + cluster)
     plan = tattn.cluster_plan(args[0], cluster)
     assert plan["G"] == cluster
@@ -113,7 +119,7 @@ def test_attention_block_kernel_rejects_what_it_does_not_take():
 def test_denoise_on_card_matches_cpu():
     """The same weights in f32: the card (kernels, cuDNN) against the CPU
     (plain versions), within the weight-transfer bound of docs/DESIGN.md:32.
-    The ds2 config at its widths (the kernel takes C in {32, 64})."""
+    The ds2 config at its widths."""
     cfg = dict(load_config(str(CONFIG)), PRECISION="f32")
     cpu = CaloDiffusion(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
     card = CaloDiffusion(cfg)
@@ -131,8 +137,39 @@ def test_denoise_on_card_matches_cpu():
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=2e-4)
 
 
+@pytest.mark.parametrize("part", ["photon", "pion"])
+def test_dataset1_denoise_on_card_matches_cpu(tmp_path, part):
+    """Dataset 1 at the full width of its shipped config, through the
+    in-model embed, on chip_smoke's synthetic binning: f32 on the card (K1
+    at C = 16 or 96 among its 7 launches) against the CPU from the same
+    weights, within the weight-transfer bound of docs/DESIGN.md:32."""
+    import json
+
+    import chip_smoke
+
+    xml = tmp_path / "binning.xml"
+    xml.write_text(chip_smoke.ds1_binning_xml(part))
+    cfg = json.loads((CONFIG.parent / f"config_dataset1_{part}.json").read_text())
+    cfg.update(BIN_FILE=str(xml), PRECISION="f32")
+    cpu = CaloDiffusion(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    card = CaloDiffusion(cfg)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(2)
+    x, E, layers = (torch.from_numpy(a.astype(np.float32)) for a in (
+        rng.standard_normal((2, cfg["SHAPE_ORIG"][1])), rng.uniform(0.1, 1.0, (2, 1)),
+        rng.standard_normal((2, cfg["SHAPE_FINAL"][2] + 1))))
+    sigma = torch.full((2, 1), 0.7)
+    before = tattn.fused_attention_block.launches
+    with torch.no_grad():
+        want = cpu.denoise(x, E=E, sigma=sigma, layers=layers)
+        got = card.denoise(x.cuda(), E=E.cuda(), sigma=sigma.cuda(), layers=layers.cuda())
+    assert tattn.fused_attention_block.launches == before + 7
+    assert got.shape == x.shape
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=2e-4)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
-@pytest.mark.parametrize("B,N,C", SHAPES + DS3_SHAPES)
+@pytest.mark.parametrize("B,N,C", SHAPES + DS3_SHAPES + DS1_SHAPES)
 def test_attention_block_backward_kernel_matches_plain(B, N, C, dtype):
     args = _block_args(B, N, C, dtype, seed=B + N + C + 1)
     g = torch.from_numpy(np.random.default_rng(N).standard_normal((B, N, C)).astype(np.float32))
@@ -157,14 +194,16 @@ def _check_backward(got, want, dtype):
         assert err <= K2_TOL[dtype], f"gradient {i}: max-norm relative error {err:.3g}"
 
 
-@pytest.mark.parametrize("C,N", [(32, 6480), (64, 736), (32, 736), (32, 96), (64, 96)])
+@pytest.mark.parametrize("C,N", [(32, 6480), (64, 736), (32, 736), (32, 96), (64, 96),
+                                 (16, 1610), (96, 28)])
 @pytest.mark.parametrize("cluster,dtype", [(1, torch.bfloat16), (8, torch.bfloat16),
                                            (16, torch.bfloat16), (1, torch.float32),
                                            (8, torch.float32)])
 def test_attention_block_backward_kernel_at_forced_cluster_sizes(C, N, cluster, dtype):
     """K2 with its cluster size forced to 1 (one CTA a sample, part of it in
     device memory where it does not fit), 8 and, in bf16, 16 (the
-    non-portable cluster; empty CTAs at N = 96), at every ds2 (C, N)."""
+    non-portable cluster; empty CTAs at N = 96 and 28), at every ds2 (C, N)
+    and dataset 1's largest C = 16 and C = 96 blocks."""
     args = _block_args(2, N, C, dtype, seed=N + C + cluster + 1)
     g = torch.from_numpy(np.random.default_rng(N + 1).standard_normal((2, N, C)).astype(np.float32))
     g = g.to("cuda", dtype)
@@ -261,7 +300,7 @@ def test_train_step_gradients_on_card_match_cpu():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
-@pytest.mark.parametrize("B,N,C", SHAPES + [(2, 40500, 32)])
+@pytest.mark.parametrize("B,N,C", SHAPES + [(2, 40500, 32)] + DS1_SHAPES)
 def test_linear_attention_kernel_matches_plain(B, N, C, dtype):
     x, _, _, w_qkv, w_out, b_out, _, _ = _block_args(B, N, C, dtype, seed=B + N + C + 2)
     before = tattn.fused_linear_attention.launches

@@ -153,8 +153,8 @@ def test_generate_end_to_end_on_cpu(pair):
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="SHOWER_EMBED"):
         CaloDiffusion(_cfg(SHOWER_EMBED="NN"), device="cpu")
-    with pytest.raises(NotImplementedError, match="PHI_INPUT"):
-        CaloDiffusion(_cfg(PHI_INPUT=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="HGCAL.*M10b"):
+        CaloDiffusion(_cfg(HGCAL=True), device="cpu")
     # every sampler is ported: an unknown name raises with the JAX wording
     with pytest.raises(ValueError, match="sampler 'Karras' is not supported; pick from"):
         get_sampler("Karras")

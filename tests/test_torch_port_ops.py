@@ -107,8 +107,10 @@ def _torch_args(args, dtype):
     return (x.to(dtype), gps, gpb, wqkv.to(dtype), wout.to(dtype), bout, gos, gob)
 
 
-@pytest.mark.parametrize("C", [32, 64])
-@pytest.mark.parametrize("N", [96, 1024, 6480])  # 6480 = 12*512 + 336: masked tail
+# (N, C): 6480 = 12*512 + 336, a masked tail; then dataset 1's blocks at
+# its new widths, C = 16 (pions) and 96 (photons)
+@pytest.mark.parametrize("N,C", [(N, C) for N in (96, 1024, 6480) for C in (32, 64)]
+                         + [(20, 16), (220, 16), (1610, 16), (28, 96)])
 def test_attention_block_plain_matches_jax_f32(N, C):
     args = _block_inputs(2, N, C)
     ja = _jax_args(args, jnp.float32)
@@ -120,7 +122,7 @@ def test_attention_block_plain_matches_jax_f32(N, C):
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("C", [32, 64])
+@pytest.mark.parametrize("C", [16, 32, 64, 96])
 def test_attention_block_plain_matches_jax_bf16(C):
     args = _block_inputs(2, 6480, C, seed=1)
     ja = _jax_args(args, jnp.bfloat16)
@@ -159,7 +161,8 @@ def _cotangent(B, N, C, seed):
     return np.random.default_rng(seed).standard_normal((B, N, C)).astype(np.float32)
 
 
-@pytest.mark.parametrize("B,N,C", [(2, 700, 32), (1, 300, 64), (3, 1, 32)])
+@pytest.mark.parametrize("B,N,C", [(2, 700, 32), (1, 300, 64), (3, 1, 32), (2, 220, 16),
+                                   (2, 28, 96)])
 def test_attention_block_backward_plain_matches_jax_pallas(B, N, C):
     """All eight input gradients of the plain backward against jax.vjp of the
     JAX fused_attention_block with its Pallas backward kernel (K2) in

@@ -59,7 +59,7 @@ def _torch_linear(args, dtype):
 # K3: LinearAttention alone
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("C", [32, 64])
+@pytest.mark.parametrize("C", [16, 32, 64, 96])
 @pytest.mark.parametrize("N", [700, 1024])  # 700 = 512 + 188: masked tail
 def test_linear_attention_plain_matches_jax_f32(N, C):
     args = _linear_inputs(2, N, C, seed=N + C)
