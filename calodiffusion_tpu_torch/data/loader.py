@@ -13,8 +13,11 @@ rank reads its share of the files (the JAX package shards by
 ``jax.process_index()``).  ``h5py`` is imported only where an h5 file is
 opened: with every cache present and ``nevts`` -1, loading never needs it.
 
-Not ported yet: HGCal data and the ``pre-embed`` geometry embed (ROADMAP
-M10b).
+HGCal files (``HGCAL``) go through ``hgcal_utils.load_hgcal_h5`` (the
+``MAX_CELLS`` slice, ``SHOWERSCALE``, the three ``gen_info`` columns as E);
+with the ``"pre-embed"`` the showers are GLaM-encoded first, by the
+process's one converter of the config, on the device the caller gives (the
+card unless it asks for the CPU).
 """
 
 from __future__ import annotations
@@ -25,12 +28,6 @@ from typing import Iterator, Sequence
 import numpy as np
 
 from calodiffusion_tpu_torch.utils import preprocessing
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not yet ported to calodiffusion_tpu_torch (ROADMAP M10b)"
-    )
 
 
 def get_files(flist, folder: str = "") -> list[str]:
@@ -130,9 +127,10 @@ def _raw_nevts(dataset: str) -> int:
 
 def _preprocess_one(
     dataset: str, config: dict, flags, nevts_to_load: int, nholdout: int,
-    evt_start: int = 0,
+    NN_embed=None, evt_start: int = 0, device=None,
 ) -> tuple[str, int]:
-    """Produce (or reuse) the npz cache for one source HDF5."""
+    """Produce (or reuse) the npz cache for one source HDF5; ``NN_embed``
+    (HGCal's pre-embed converter) encodes on ``device``."""
     orig_shape = "orig" in config.get("SHOWER_EMBED", "")
 
     tag = ".npz"
@@ -150,10 +148,12 @@ def _preprocess_one(
     shape = config.get("SHAPE_PAD") or config.get("SHAPE_FINAL")
 
     if not os.path.exists(path_clean) or getattr(flags, "reclean", False):
-        if config.get("HGCAL", False):
-            raise _not_ported("HGCal data")
-        showers, E, layers = preprocessing.load_calochallenge_h5(
-            dataset,
+        # default 200.0 matches the reference loader (utils.py:871).
+        # NOTE the reference's shipped CaloChallenge configs spell the key
+        # SHOWER_SCALE, which neither the reference nor this code reads, so
+        # those configs run with this default - quirk preserved for
+        # byte-identical unit scaling (see PARITY.md).
+        common = dict(
             shape=shape,
             emax=config["EMAX"], emin=config["EMIN"],
             nevts=nevts_to_load,
@@ -161,17 +161,22 @@ def _preprocess_one(
             max_deposit=config["MAXDEP"],
             logE=config["logE"],
             showerMap=config["SHOWERMAP"],
-            # default 200.0 matches the reference loader (utils.py:871).
-            # NOTE the reference's shipped CaloChallenge configs spell the
-            # key SHOWER_SCALE, which neither the reference nor this code
-            # reads, so those configs run with this default - quirk
-            # preserved for byte-identical unit scaling (see PARITY.md).
             shower_scale=config.get("SHOWERSCALE", 200.0),
             nholdout=nholdout,
             dataset_num=config.get("DATASET_NUM", 2),
             orig_shape=orig_shape,
             evt_start=evt_start,
         )
+        if config.get("HGCAL", False):
+            from calodiffusion_tpu_torch.utils import hgcal_utils
+
+            showers, E, layers = hgcal_utils.load_hgcal_h5(
+                dataset, max_cells=config.get("MAX_CELLS", None), config=config,
+                embed="pre-embed" in config.get("SHOWER_EMBED", ""), NN_embed=NN_embed,
+                device=device, **common,
+            )
+        else:
+            showers, E, layers = preprocessing.load_calochallenge_h5(dataset, **common)
         file_nevts = showers.shape[0]
         layers = np.reshape(layers, (layers.shape[0], -1)) if layers is not None \
             else np.zeros((showers.shape[0], 1), np.float32)
@@ -197,12 +202,21 @@ def _process_rank() -> tuple[int, int]:
     return 0, 1
 
 
-def load_data(flags, config: dict, eval: bool = False):
-    """Build (train_loader, val_loader); reference utils.load_data parity."""
+def load_data(flags, config: dict, eval: bool = False, device=None):
+    """Build (train_loader, val_loader); reference utils.load_data parity.
+    HGCal's pre-embed encodes on ``device`` (else ``flags.device``, else the
+    card)."""
     nholdout = config.get("HOLDOUT", 0)
     batch_size = config["BATCH"]
-    if "pre-embed" in config.get("SHOWER_EMBED", ""):
-        raise _not_ported("SHOWER_EMBED 'pre-embed'")
+    pre_embed = "pre-embed" in config.get("SHOWER_EMBED", "")
+    if pre_embed and not config.get("HGCAL", False):
+        # the JAX package fails here too, unpickling BIN_FILE as a geometry
+        raise ValueError(
+            f"SHOWER_EMBED={config['SHOWER_EMBED']!r} needs HGCAL: the pre-embed is the "
+            "HGCal GLaM encode and BIN_FILE an HGCal geometry pickle"
+        )
+    if device is None:
+        device = getattr(flags, "device", None)
 
     if (
         hasattr(flags, "batch_size")
@@ -218,6 +232,12 @@ def load_data(flags, config: dict, eval: bool = False):
     else:
         files = get_files(config["FILES"], folder=data_folder)
         val_file_list = get_files(config.get("VAL_FILES", []), folder=data_folder)
+
+    NN_embed = None
+    if pre_embed:
+        from calodiffusion_tpu_torch.utils import hgcal_utils
+
+        NN_embed = hgcal_utils.make_pre_embed_converter(config, device=device)
 
     train_files, val_files = [], []
     nevts_to_load = getattr(flags, "nevts", -1)
@@ -257,7 +277,7 @@ def load_data(flags, config: dict, eval: bool = False):
         path_clean, file_nevts = _preprocess_one(
             dataset, config, flags, nevts_to_load,
             nholdout if (i == len(files) - 1) else 0,
-            evt_start=evt_start,
+            NN_embed=NN_embed, evt_start=evt_start, device=device,
         )
         evt_start = 0
         if dataset in files:

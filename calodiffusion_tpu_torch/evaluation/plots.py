@@ -9,10 +9,10 @@ gate throughput numbers on fidelity programmatically.
 
 All math is host-side numpy on final physical-unit showers.
 
-A copy of the CaloChallenge part of ``calodiffusion_tpu/evaluation/plots.py``
-(the port imports nothing of the JAX package).  ``matplotlib`` is imported
-when a plot is drawn, not with the module, so the port imports where it is
-not installed.  Not ported yet: the HGCal plots (ROADMAP M10b).
+A copy of ``calodiffusion_tpu/evaluation/plots.py`` (the port imports
+nothing of the JAX package), the HGCal plots and the shower-drawing helpers
+among it.  ``matplotlib`` is imported when a plot is drawn, not with the
+module, so the port imports where it is not installed.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from calodiffusion_tpu_torch.evaluation.metrics_utils import (
     ang_center_spread,
     get_width,
     separation_power,
+    weighted_mean,
 )
 
 
@@ -593,3 +594,198 @@ class Plot_Shower_2D(Plot):
                         title=f"{key} Shower {i}, layer number {layer}",
                         vmax=vmax, vmin=vmin,
                     )
+
+
+class RadialEnergyHGCal(Plot):
+    """HGCal ring-energy profile (reference :716-741)."""
+
+    def __call__(self, data_dict, energies):
+        from calodiffusion_tpu_torch.utils import hgcal_utils
+
+        geom = hgcal_utils.load_geom(self.config.get("BIN_FILE", ""))
+        r_vals = geom.ring_map[:, : geom.max_ncell]
+        feed_dict = {}
+        for key in data_dict:
+            nrings = int(np.max(geom.nrings))
+            r_bins = np.zeros((data_dict[key].shape[0], nrings))
+            for i in range(nrings):
+                mask = r_vals == i
+                r_bins[:, i] = np.sum(data_dict[key] * mask, axis=(1, 2))
+            feed_dict[key] = r_bins
+        fig, ax0 = self._plot(feed_dict, xlabel="R-bin", ylabel="Avg. Energy")
+        for name in self.save_names("EnergyR"):
+            self.save_fig(name, fig, ax0)
+        return feed_dict
+
+
+class RCenterHGCal(Plot):
+    """HGCal per-layer R centroid/width (reference :744-803)."""
+
+    def __call__(self, data_dict, energies):
+        from calodiffusion_tpu_torch.utils import hgcal_utils
+
+        geom = hgcal_utils.load_geom(self.config.get("BIN_FILE", ""))
+        r_vals = (
+            geom.xmap[:, : geom.max_ncell] ** 2
+            + geom.ymap[:, : geom.max_ncell] ** 2
+        ) ** 0.5
+
+        fd_C_hist, fd_C_avg, fd_W_hist, fd_W_avg = {}, {}, {}, {}
+        for key, data in data_dict.items():
+            p = data.reshape(data.shape[0], self.shape_plot[2], -1)
+            layer_sum = np.sum(p, axis=-1)
+            totalE = np.sum(p, axis=(1, 2)).reshape(-1, 1)
+            layer_zero = layer_sum < (1e-6 * totalE)
+
+            r_centers = weighted_mean(r_vals, np.squeeze(data))
+            r2_centers = weighted_mean(r_vals, np.squeeze(data), power=2)
+            r_centers[layer_zero] = 0.0
+            r2_centers[layer_zero] = 0.0
+            fd_C_hist[key] = r_centers.reshape(-1)
+            fd_C_avg[key] = np.mean(r_centers, axis=0)
+            r_widths = get_width(r_centers, r2_centers)
+            fd_W_hist[key] = r_widths.reshape(-1)
+            fd_W_avg[key] = np.mean(r_widths, axis=0)
+
+        fig, ax0 = self._hist(fd_C_hist, xlabel="Shower R Center", normalize=True)
+        for name in self.save_names("RCenter"):
+            self.save_fig(name, fig, ax0)
+        fig, ax0 = self._plot(fd_C_avg, ylabel="Avg. Shower R Center",
+                              xlabel="Layer", no_mean=True)
+        for name in self.save_names("RCenterLayer"):
+            self.save_fig(name, fig, ax0)
+        fig, ax0 = self._hist(fd_W_hist, xlabel="Shower R Width", normalize=True)
+        for name in self.save_names("RWidth"):
+            self.save_fig(name, fig, ax0)
+        fig, ax0 = self._plot(fd_W_avg, ylabel="Avg. Shower R Width",
+                              xlabel="Layer", no_mean=True)
+        for name in self.save_names("RWidthLayer"):
+            self.save_fig(name, fig, ax0)
+
+
+class PhiCenterHGCal(Plot):
+    """HGCal per-layer phi centroid/width (reference :806-877)."""
+
+    def __call__(self, data_dict, energies):
+        from calodiffusion_tpu_torch.utils import hgcal_utils
+
+        geom = hgcal_utils.load_geom(self.config.get("BIN_FILE", ""))
+        phi_vals = geom.theta_map[:, : geom.max_ncell]
+
+        fd_C_hist, fd_C_avg, fd_W_hist, fd_W_avg = {}, {}, {}, {}
+        for key, data in data_dict.items():
+            p = data.reshape(data.shape[0], self.shape_plot[2], -1)
+            layer_sum = np.sum(p, axis=-1)
+            totalE = np.sum(p, axis=(1, 2)).reshape(-1, 1)
+            layer_zero = layer_sum < (1e-6 * totalE)
+
+            phi_centers, phi_widths = ang_center_spread(phi_vals, np.squeeze(data))
+            phi_centers[layer_zero] = 0.0
+            phi_widths[layer_zero] = 0.0
+            fd_C_hist[key] = phi_centers.reshape(-1)
+            fd_C_avg[key] = np.mean(phi_centers, axis=0)
+            fd_W_hist[key] = phi_widths.reshape(-1)
+            fd_W_avg[key] = np.mean(phi_widths, axis=0)
+
+        fig, ax0 = self._hist(fd_C_hist, xlabel="Shower Phi Center",
+                              normalize=True)
+        for name in self.save_names("PhiCenter"):
+            self.save_fig(name, fig, ax0)
+        fig, ax0 = self._plot(fd_C_avg, ylabel="Avg. Shower Phi Center",
+                              xlabel="Layer", no_mean=True)
+        for name in self.save_names("PhiCenterLayer"):
+            self.save_fig(name, fig, ax0)
+        fig, ax0 = self._hist(fd_W_hist, xlabel="Shower Phi Width",
+                              normalize=True)
+        for name in self.save_names("PhiWidth"):
+            self.save_fig(name, fig, ax0)
+        fig, ax0 = self._plot(fd_W_avg, ylabel="Avg. Shower Phi Width",
+                              xlabel="Layer", no_mean=True)
+        for name in self.save_names("PhiWidthLayer"):
+            self.save_fig(name, fig, ax0)
+
+
+# ---------------------------------------------------------------------------
+# standalone shower-drawing helpers (reference utils/plots.py:1094-1160
+# plot_shower_layer; plot_shower_hex is called by the reference's legacy
+# scripts but defined nowhere - implemented working here)
+# ---------------------------------------------------------------------------
+
+def plot_shower_layer(data, fname="", title=None, fig=None,
+                      subplot=(1, 1, 1), vmin=None, vmax=None,
+                      r_edges=None):
+    """Polar (phi x R) heatmap of one regular-grid layer; ``data`` is
+    (n_phi, n_rad)."""
+    from matplotlib.colors import LogNorm
+
+    plt = _pyplot()
+    if fig is None:
+        fig = plt.figure(figsize=(5, 5), dpi=200)
+    n_phi, n_rad = data.shape
+    pts = 50
+    if r_edges is None:
+        r_edges = np.arange(n_rad + 1)
+    phi_bins = 2.0 * np.pi * np.arange(pts * n_phi + 1) / (pts * n_phi)
+    theta, rad = np.meshgrid(phi_bins, np.asarray(r_edges, float))
+    rep = np.repeat(data.reshape(n_phi, -1), pts, axis=0)
+    ax = fig.add_subplot(*subplot, polar=True)
+    ax.grid(False)
+    if vmax is None:
+        vmax = max(float(np.max(data)), 1e-12)
+    if vmin is None:
+        vmin = 1e-2 if vmax > 1e-3 else vmax / 100.0
+    pcm = ax.pcolormesh(theta, rad, rep.T + 1e-16,
+                        norm=LogNorm(vmin=vmin, vmax=vmax))
+    ax.axes.get_xaxis().set_visible(False)
+    ax.axes.get_yaxis().set_visible(False)
+    ax.set_rmax(float(np.max(r_edges)))
+    if title is not None:
+        ax.set_title(title, fontsize=10)
+    fig.colorbar(pcm, ax=ax, fraction=0.05, orientation="horizontal",
+                 label="Energy (GeV)")
+    if fname:
+        fig.savefig(fname, facecolor="white")
+        plt.close(fig)
+    return fig
+
+
+def plot_shower_hex(x, y, values, nrings=None, fout="", title=None,
+                    vmin=None, vmax=None):
+    """Hexagonal-cell heatmap of one HGCal layer: cell centers (x, y) with
+    energies ``values`` drawn as hex markers (log color scale)."""
+    from matplotlib.colors import LogNorm
+
+    plt = _pyplot()
+    x = np.asarray(x, float)
+    y = np.asarray(y, float)
+    values = np.asarray(values, float)
+    fig, ax = plt.subplots(figsize=(5.5, 5), dpi=200)
+    pos = values > 0
+    vmax = vmax or max(float(values.max()), 1e-12)
+    vmin = vmin or max(vmax * 1e-4, 1e-12)
+    extent = float(max(np.abs(x).max(), np.abs(y).max())) * 1.1 + 1e-9
+    # marker area scaled to the cell pitch so hexes tile without gaps
+    # (geometry pickles may carry nrings as a per-layer array)
+    if nrings is not None and np.size(nrings):
+        nrings = int(np.max(nrings))
+    if nrings:
+        pitch_pts = (ax.get_window_extent().width / (2.2 * nrings))
+    else:
+        pitch_pts = 6.0
+    sc = ax.scatter(
+        x[pos], y[pos], c=values[pos], marker="h", s=pitch_pts**2,
+        norm=LogNorm(vmin=vmin, vmax=vmax), cmap="viridis",
+        edgecolors="none",
+    )
+    ax.scatter(x[~pos], y[~pos], color="0.92", marker="h", s=pitch_pts**2,
+               edgecolors="none")
+    ax.set_xlim(-extent, extent)
+    ax.set_ylim(-extent, extent)
+    ax.set_aspect("equal")
+    if title:
+        ax.set_title(title, fontsize=10)
+    fig.colorbar(sc, ax=ax, label="Energy (GeV)")
+    if fout:
+        fig.savefig(fout, facecolor="white")
+        plt.close(fig)
+    return fig

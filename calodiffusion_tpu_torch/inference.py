@@ -8,8 +8,11 @@
 samplers (``--sample-algo``), ``sample layer --layer-model CKPT`` through
 the two-stage cascade (the layer energies sampled first, then the showers
 on them; ``--model-loc`` holds the base U-Net), and each writes
-reference-compatible HDF5 (gzip ``showers`` + ``incident_energies``);
-``plot`` runs the histogram/separation-power evaluation suite.  The flags,
+reference-compatible HDF5 (gzip ``showers`` + ``incident_energies``, or
+HGCal's ``gen_info``); ``plot`` runs the histogram/separation-power
+evaluation suite (HGCal's ring, R and phi profiles with ``--hgcal`` or the
+config's ``HGCAL``).  HGCal's ``--sparse-decoding`` (``--sparse-per-batch``)
+draws the decode's cells from a numpy Generator seeded from ``--seed``.  The flags,
 subcommands and defaults are the JAX CLI's, in argparse; ``--device``
 (default ``cuda``) is the port's own: ``--device cpu`` runs on the CPU.
 Sampling draws from a ``torch.Generator`` on the model's device seeded from
@@ -19,8 +22,7 @@ Sampling draws from a ``torch.Generator`` on the model's device seeded from
 or write h5 or draw (``--debug``'s trajectory plots among them), so
 sampling from npz caches needs neither.
 
-Not ported yet: ``--int8`` (ROADMAP M12), ``--sparse-decoding`` and
-HGCal (M10b).
+Not ported yet: ``--int8`` (ROADMAP M12).
 """
 
 from __future__ import annotations
@@ -192,7 +194,10 @@ def process_data_dict(flags, config):
 
     NN_embed = None
     if flags.hgcal:
-        raise _not_ported("HGCal evaluation", "M10b")
+        if flags.plot_reshape:  # the geometric GLaM (the JAX CLI's init())
+            from calodiffusion_tpu_torch.utils import hgcal_utils
+
+            NN_embed = hgcal_utils.cached_converter(config, norm=False, device=flags.device)
     elif dataset_num <= 1:
         bins = XMLHandler(config["PART_TYPE"], config["BIN_FILE"])
         NN_embed = GeomConverter(bins)
@@ -266,23 +271,38 @@ def LoadSamples(fp, flags, config, NN_embed=None, evt_start=0):
     """
     import h5py
 
-    if flags.hgcal:
-        raise _not_ported("HGCal evaluation", "M10b")
     end = None if flags.nevts < 0 else evt_start + flags.nevts
     shower_scale = config.get("SHOWERSCALE", 0.001)
 
     if config.get("DATASET_NUM", 2) <= 1:
         flags.plot_reshape = True
-    shape_plot = config["SHAPE_FINAL"]
+
+    if (not flags.hgcal) or flags.plot_reshape:
+        shape_plot = config["SHAPE_FINAL"]
+    else:
+        shape_plot = config["SHAPE_PAD"]
 
     with h5py.File(fp, "r") as h5f:
-        generated = h5f["showers"][evt_start:end] * shower_scale
-        energies = h5f["incident_energies"][evt_start:end] * shower_scale
+        if flags.hgcal:
+            generated = (
+                h5f["showers"][evt_start:end, :, : config["MAX_CELLS"]]
+                * shower_scale
+            )
+            energies = h5f["gen_info"][evt_start:end, 0]
+        else:
+            generated = h5f["showers"][evt_start:end] * shower_scale
+            energies = h5f["incident_energies"][evt_start:end] * shower_scale
 
     energies = np.reshape(energies, (-1, 1))
-    if flags.plot_reshape and config.get("DATASET_NUM", 2) <= 1:
-        generated = NN_embed.convert(NN_embed.reshape(generated))
-    generated = np.reshape(generated, shape_plot)
+    if flags.plot_reshape:
+        if config.get("DATASET_NUM", 2) <= 1:
+            generated = NN_embed.convert(NN_embed.reshape(generated))
+        elif flags.hgcal:  # the GLaM grid, encoded on --device
+            generated = np.asarray(generated, np.float32).reshape(config["SHAPE_PAD"])
+            generated = NN_embed.enc_numpy(generated, device=flags.device)
+
+    if flags.plot_reshape or not flags.hgcal:
+        generated = np.reshape(generated, shape_plot)
 
     if flags.EMin > 0.0:
         from calodiffusion_tpu_torch.evaluation.metrics_utils import apply_mask_conserveE
@@ -353,8 +373,6 @@ def plot_results(flags, config, data_dict, energies) -> dict:
     plot's separation powers (``Plot.last_separations``) by plot name."""
     from calodiffusion_tpu_torch.evaluation import plots
 
-    if flags.hgcal:
-        raise _not_ported("HGCal plots", "M10b")
     plot_routines = {
         "Energy per layer": plots.ELayer(flags, config),
         "Energy": plots.HistEtot(flags, config),
@@ -362,7 +380,16 @@ def plot_results(flags, config, data_dict, energies) -> dict:
         "Energy Ratio split": plots.HistERatio(flags, config),
         "Layer Sparsity": plots.SparsityLayer(flags, config),
     }
-    if not flags.layer_only:
+    if flags.hgcal and not flags.plot_reshape:
+        plot_routines.update({
+            "Energy R": plots.RadialEnergyHGCal(flags, config),
+            "Energy R Center": plots.RCenterHGCal(flags, config),
+            "Energy Phi Center": plots.PhiCenterHGCal(flags, config),
+            "Nhits": plots.HistNhits(flags, config),
+            "Max voxel": plots.HistMaxELayer(flags, config),
+            "VoxelE": plots.HistVoxelE(flags, config),
+        })
+    elif not flags.layer_only:
         plot_routines.update({
             "Nhits": plots.HistNhits(flags, config),
             "VoxelE": plots.HistVoxelE(flags, config),
@@ -397,8 +424,6 @@ def generate_showers(flags, config):
     get_sampler(flags.sample_algo)  # an unknown name raises before anything loads
     if config.get("QUANT_INT8", False):
         raise _not_ported("int8 sampling (--int8, QUANT_INT8)", "M12")
-    if flags.sparse_decoding or flags.sparse_per_batch:
-        raise _not_ported("sparse decoding", "M10b")
 
     data_loader, _ = load_data(flags, config, eval=True)
     if flags.model == "layer":
@@ -427,6 +452,8 @@ def generate_showers(flags, config):
     generated, energies = model.generate(
         data_loader, sample_steps, generator=generator,
         sample_offset=flags.sample_offset, debug=flags.debug,
+        sparse_decoding=flags.sparse_decoding, sparse_per_batch=flags.sparse_per_batch,
+        rng=np.random.default_rng(int(flags.seed)),
     )
     return generated, energies, fout
 

@@ -51,9 +51,10 @@ class NNConverter(nn.Module):
                                  f"{gc.alpha_out})")
 
     def enc(self, x_flat: torch.Tensor) -> torch.Tensor:
-        """(B, total_bins) -> (B, num_layers, alpha_out, dim_r_out), f32."""
+        """(B, total_bins) (or any (B, ...) of as many) -> (B, num_layers,
+        alpha_out, dim_r_out), f32."""
         gc = self.gc
-        x_flat = x_flat.float()
+        x_flat = x_flat.reshape(x_flat.shape[0], -1).float()
         outs = []
         for i in range(gc.num_layers):
             lo, hi = int(gc.layer_boundaries[i]), int(gc.layer_boundaries[i + 1])

@@ -2,12 +2,16 @@
 
 Port of ``calodiffusion_tpu/models/diffusion.py`` (reference:
 calodiffusion/models/diffusion.py, calodiffusion.py).  Showers enter and
-leave as ``(B, 1, Z, A, R)``, or flat ``(B, N)`` for dataset 1's in-model
-geometry embed (``SHOWER_EMBED: "orig-NN"``), as in the JAX package; the
-network inside is NCDHW.
+leave as ``(B, 1, Z, A, R)``, flat ``(B, N)`` for dataset 1's in-model
+geometry embed (``SHOWER_EMBED: "orig-NN"``), or HGCal's cells ``(B, L,
+ncell)`` through the in-model GLaM (``HGCAL`` without "pre-embed"), as in
+the JAX package; the network inside is NCDHW.  HGCal's shipped configs
+(``"NN-pre-embed"``) take the loader's GLaM-encoded grid, and ``generate``
+decodes it in ``hgcal_utils.reverse_norm_hgcal`` (dense on the model's
+device, or the sparse draws).
 
-Not ported yet: HGCal and the ``pre-embed`` (ROADMAP M10b), the network
-variants and the cold-diffusion prior (M11) and int8 sampling (M12).
+Not ported yet: the network variants and the cold-diffusion prior (ROADMAP
+M11) and int8 sampling (M12).
 """
 
 from __future__ import annotations
@@ -19,18 +23,19 @@ import torch
 from torch import nn
 
 from calodiffusion_tpu_torch.models.converters import NNConverter
+from calodiffusion_tpu_torch.models.hgcal_converter import HGCalConverterModule
 from calodiffusion_tpu_torch.models.losses import get_loss
 from calodiffusion_tpu_torch.models.nn_modules import CondUnet
 from calodiffusion_tpu_torch.samplers.base import randn
-from calodiffusion_tpu_torch.utils import preprocessing
+from calodiffusion_tpu_torch.utils import hgcal_utils, preprocessing
 from calodiffusion_tpu_torch.utils.config import load_config
 from calodiffusion_tpu_torch.utils.device import resolve_device
 from calodiffusion_tpu_torch.utils.geom import GeomConverter
 from calodiffusion_tpu_torch.utils.xml_handler import XMLHandler
 
 # config options not ported yet, with the ROADMAP item that ports each
-_NOT_PORTED = {"HGCAL": "M10b", "COLD_DIFFU": "M11", "QUANT_INT8": "M12"}
-EMBED = "NN_embed."  # the state_dict prefix of the dataset-1 embed's weights
+_NOT_PORTED = {"COLD_DIFFU": "M11", "QUANT_INT8": "M12"}
+EMBED = "NN_embed."  # the state_dict prefix of the in-model embed's weights
 
 
 def net_key(key: str) -> str:
@@ -40,20 +45,22 @@ def net_key(key: str) -> str:
 
 
 class CaloDiffusionNet(nn.Module):
-    """The denoiser network: the optional dataset-1 geometry embed
-    (``NN_embed``), the constant R/Z and phi images concatenated to the
-    shower on channels ([x, R, Z, phi]), the U-Net, and the embed's decode.
+    """The denoiser network: the optional in-model geometry embed
+    (``NN_embed``: dataset 1's ``NNConverter`` or HGCal's
+    ``HGCalConverterModule``), the constant R/Z and phi images concatenated
+    to the shower on channels ([x, R, Z, phi]), the U-Net, and the embed's
+    decode.
 
     forward(x, E, t_emb, layers) -> prediction with x's layout: (B, 1, Z, A,
-    R), or flat (B, N) through the embed.
+    R), or the embed's cells: flat (B, N), or HGCal's (B, [1,] L, ncell).
     """
 
     def __init__(self, unet_kwargs: dict, layer_cond: bool, rz_images, dtype, generator=None,
-                 phi_image=None, nn_embed_gc: Optional[GeomConverter] = None):
+                 phi_image=None, nn_embed: Optional[nn.Module] = None):
         super().__init__()
         self.layer_cond = layer_cond
         self.unet = CondUnet(**unet_kwargs, dtype=dtype, generator=generator)
-        self.NN_embed = None if nn_embed_gc is None else NNConverter(nn_embed_gc)
+        self.NN_embed = nn_embed
         images = ([] if rz_images is None else list(rz_images)) + (
             [] if phi_image is None else [phi_image])
         if images:  # (n, Z, A, R): R image, Z image, phi image
@@ -67,8 +74,8 @@ class CaloDiffusionNet(nn.Module):
         if self.layer_cond and layers is not None:
             E = torch.cat([E, layers], dim=1)
         orig_shape = x.shape
-        if self.NN_embed is not None:  # flat (B, N) -> (B, 1, Z, A, R), f32
-            x = self.NN_embed.enc(x.reshape(x.shape[0], -1))[:, None]
+        if self.NN_embed is not None:  # cells -> (B, 1, Z, A, R), f32
+            x = self.NN_embed.enc(x)[:, None]
         if self.images is not None:
             img = self.images.expand(x.shape[0], -1, *x.shape[2:])
             x = torch.cat([x, img.to(x.dtype)], dim=1)
@@ -94,11 +101,19 @@ class CaloDiffusion:
         self.loss_type = loss_type
 
         shower_embed = c.get("SHOWER_EMBED", "")
-        if shower_embed and (shower_embed != "orig-NN" or c.get("HGCAL", False)):
-            item = "M11" if "FCN" in shower_embed else "M10b"
+        self.hgcal = bool(c.get("HGCAL", False))
+        self.pre_embed = "pre-embed" in shower_embed
+        if "FCN" in shower_embed:
             raise NotImplementedError(
                 f"SHOWER_EMBED={shower_embed!r} is not yet ported to "
-                f"calodiffusion_tpu_torch (ROADMAP {item}; dataset 1's 'orig-NN' is)"
+                "calodiffusion_tpu_torch (ROADMAP M11)"
+            )
+        if self.pre_embed and not self.hgcal:
+            # the JAX package fails here too: its loader unpickles BIN_FILE
+            # as an HGCal geometry (and its model at an "orig-" layout)
+            raise ValueError(
+                f"SHOWER_EMBED={shower_embed!r} needs HGCAL: the pre-embed is the "
+                "loader's HGCal GLaM encode and BIN_FILE an HGCal geometry pickle"
             )
         unported = [k for k in _NOT_PORTED if c.get(k, False)]
         if unported:
@@ -129,15 +144,20 @@ class CaloDiffusion:
         if c.get("PHI_INPUT", False):
             phi_image = preprocessing.create_phi_image(shape=shape_final)[0]
 
-        # dataset 1's geometry embed: the pion configs set DATASET_NUM 0
-        nn_embed_gc = None
-        if "NN" in shower_embed:
+        # the in-model embed: dataset 1's (its pion configs set DATASET_NUM
+        # 0), or HGCal's GLaM where the loader has not encoded (JAX
+        # diffusion.py:147-157)
+        nn_embed = None
+        if "NN" in shower_embed and not self.hgcal:
             part = "photon" if self.dataset_num == 1 else "pion"
-            nn_embed_gc = GeomConverter(XMLHandler(part, c["BIN_FILE"]))
+            nn_embed = NNConverter(GeomConverter(XMLHandler(part, c["BIN_FILE"])))
+        elif self.hgcal and not self.pre_embed:
+            nn_embed = HGCalConverterModule(c, device=self.device)
 
-        # network sizing (reference calodiffusion.py:39-81)
+        # network sizing (reference calodiffusion.py:39-81); HGCal's E holds
+        # three gen-info columns
         in_channels = (3 if rz_images is not None else 1) + (phi_image is not None)
-        cond_size = 2 + c["SHAPE_FINAL"][2] if self.layer_cond else 1
+        cond_size = (2 + c["SHAPE_FINAL"][2] if self.layer_cond else 1) + 2 * self.hgcal
         unet_kwargs = dict(
             cond_dim=c["COND_SIZE_UNET"],
             out_dim=1,
@@ -157,14 +177,17 @@ class CaloDiffusion:
         self.dtype = torch.bfloat16 if c.get("PRECISION", "f32") == "bf16" else torch.float32
         self.net = CaloDiffusionNet(
             unet_kwargs, self.layer_cond, rz_images, self.dtype, generator,
-            phi_image=phi_image, nn_embed_gc=nn_embed_gc,
+            phi_image=phi_image, nn_embed=nn_embed,
         ).to(self.device).eval()
 
     # -- weights -------------------------------------------------------------
     def state_dict(self) -> dict:
         """The network's weights under the reference names: the CondUnet's
-        keys, and the embed's ``NN_embed.encs.{i}.weight`` and
-        ``NN_embed.decs.{i}.weight`` where the config has one."""
+        keys, and the embed's where the config has one: dataset 1's
+        ``NN_embed.encs.{i}.weight`` and ``NN_embed.decs.{i}.weight``, a
+        trainable GLaM's ``NN_embed.embeder.mat`` and
+        ``NN_embed.decoder.mat`` (a frozen one's matrices are not weights:
+        the geometry gives them)."""
         return {k.removeprefix("unet."): v for k, v in self.net.state_dict().items()}
 
     def load_state_dict(self, state_dict: dict) -> None:
@@ -190,7 +213,7 @@ class CaloDiffusion:
         if embed is None:
             return x
         with torch.no_grad():
-            return embed.dec(embed.enc(x.reshape(x.shape[0], -1))).reshape(x.shape)
+            return embed.dec(embed.enc(x)).reshape(x.shape)
 
     # -- diffusion math ------------------------------------------------------
     def do_time_embed(self, sigma):
@@ -269,7 +292,9 @@ class CaloDiffusion:
     def generate(self, data_loader: Iterable, sample_steps: int,
                  generator: Optional[torch.Generator] = None,
                  sample_offset: int = 0, sampler=None,
-                 debug: bool = False, roundtrip: bool = False) -> tuple[Any, Any]:
+                 debug: bool = False, roundtrip: bool = False,
+                 sparse_decoding: bool = False, sparse_per_batch: bool = False,
+                 rng: Optional[np.random.Generator] = None) -> tuple[Any, Any]:
         """Sample every ``(E, layers, batch)`` of ``data_loader`` and invert
         the preprocessing (reference diffusion.py:118-197).  Returns numpy
         (showers of SHAPE_ORIG, energies).  With ``debug`` the first batch's
@@ -277,8 +302,9 @@ class CaloDiffusion:
         (``_debug_sample_plot``).  ``roundtrip`` samples nothing: the
         loader's own showers pass through the embed's encode and decode
         (``embed_roundtrip``) before the inverse preprocessing, the showers
-        of a perfect diffusion model behind this embed."""
-        c = self.config
+        of a perfect diffusion model behind this embed.  HGCal's decode
+        takes ``sparse_decoding`` / ``sparse_per_batch`` and draws from
+        ``rng`` (``reverse_norm``)."""
         if sampler is None:
             sampler = self.make_sampler()
 
@@ -306,22 +332,41 @@ class CaloDiffusion:
             if self.layer_cond:
                 layers_all.append(np.asarray(layers_, np.float32))
 
-        generated = np.concatenate(generated)
-        energies = np.concatenate(energies)
         layers_np = np.concatenate(layers_all) if layers_all else None
-        generated, energies = preprocessing.reverse_norm(
-            generated, energies,
-            shape=c["SHAPE_FINAL"], config=c,
-            emax=c["EMAX"], emin=c["EMIN"], layerE=layers_np,
-            logE=c["logE"], binning_file=c["BIN_FILE"],
+        generated, energies = self.reverse_norm(
+            np.concatenate(generated), np.concatenate(energies), layers_np,
+            sparse_decoding=sparse_decoding, sparse_per_batch=sparse_per_batch, rng=rng)
+        if not self.orig_shape:
+            generated = generated.reshape(self.config["SHAPE_ORIG"])
+        energies = np.reshape(energies, (energies.shape[0], -1))
+        return generated, energies
+
+    def reverse_norm(self, generated, energies, layers=None, sparse_decoding: bool = False,
+                     sparse_per_batch: bool = False,
+                     rng: Optional[np.random.Generator] = None):
+        """Invert the preprocessing of numpy showers and energies, with
+        ``layers`` as the layer energies; HGCal's through
+        ``hgcal_utils.reverse_norm_hgcal``: the pre-embed's GLaM decode
+        (the process's one converter) dense on the model's device, or
+        sparse, drawn from ``rng`` (a fresh Generator where None, as in the
+        JAX package)."""
+        c = self.config
+        kwargs = dict(
+            shape=c["SHAPE_FINAL"], config=c, emax=c["EMAX"], emin=c["EMIN"],
+            layerE=layers, logE=c["logE"], binning_file=c["BIN_FILE"],
             max_deposit=c["MAXDEP"], showerMap=c["SHOWERMAP"],
             dataset_num=self.dataset_num, orig_shape=self.orig_shape,
             ecut=float(c["ECUT"]),
         )
-        if not self.orig_shape:
-            generated = generated.reshape(c["SHAPE_ORIG"])
-        energies = np.reshape(energies, (energies.shape[0], -1))
-        return generated, energies
+        if not self.hgcal:
+            return preprocessing.reverse_norm(generated, energies, **kwargs)
+        return hgcal_utils.reverse_norm_hgcal(
+            generated, energies, embed=self.pre_embed,
+            NN_embed=(hgcal_utils.make_pre_embed_converter(c, device=self.device)
+                      if self.pre_embed else None),
+            sparse_decoding=sparse_decoding, sparse_per_batch=sparse_per_batch, rng=rng,
+            device=self.device, **kwargs,
+        )
 
     def _debug_sample_plot(self, xs, x0s, data_batch, plot_folder: str = "./plots/"):
         """Histogram the normalized-voxel distribution at checkpoints along

@@ -19,9 +19,11 @@ The layer net computes in f32 whatever ``PRECISION`` says: the JAX package
 builds it without a dtype.  ``set_layer_state(True)`` makes
 ``compute_loss`` train the layer net alone (the base U-Net then gets no
 gradient).  Dataset 1's flat showers through the in-model embed take the
-same path (``generate`` inverts them in their ``SHAPE_ORIG`` layout).  Not
-ported yet: HGCal and the pre-embed (ROADMAP M10b), the network variants
-(M11) and int8 sampling (M12); ``CaloDiffusion`` refuses their configs.
+same path (``generate`` inverts them in their ``SHAPE_ORIG`` layout), and so
+does HGCal: its layer net is conditioned on the three gen-info columns,
+and ``generate`` decodes each batch (the pre-embed's converter built once,
+dense or sparse).  Not ported yet: the network variants (ROADMAP M11) and
+int8 sampling (M12); ``CaloDiffusion`` refuses their configs.
 """
 
 from __future__ import annotations
@@ -34,7 +36,6 @@ import torch
 from calodiffusion_tpu_torch.models.diffusion import CaloDiffusion
 from calodiffusion_tpu_torch.models.nn_modules import ResNetDense
 from calodiffusion_tpu_torch.samplers.base import randn
-from calodiffusion_tpu_torch.utils import preprocessing
 
 BASE, LAYER, WHITEN = "base_model.", "layer_model.", "layer_model.whiten."
 
@@ -74,8 +75,9 @@ class LayerDiffusion(CaloDiffusion):
         self.layer_loss = False
         self.layer_sampler_name = c.get("LAYER_SAMPLER", "DDim")
         self.layer_steps = c.get("LAYER_STEPS", n_steps)
-        self.layer_net = ResNetDense(
-            dim_in=c["SHAPE_FINAL"][2] + 1, num_layers=5, cond_size=1, generator=generator,
+        self.layer_net = ResNetDense(  # HGCal's E: three gen-info columns (JAX :49)
+            dim_in=c["SHAPE_FINAL"][2] + 1, num_layers=5, cond_size=3 if self.hgcal else 1,
+            generator=generator,
         ).to(self.device).eval()
         self.whiten: Optional[dict] = None  # {"mean", "std"} f32 (dim,) buffers
 
@@ -221,10 +223,13 @@ class LayerDiffusion(CaloDiffusion):
 
     def generate(self, data_loader: Iterable, sample_steps: int,
                  generator: Optional[torch.Generator] = None, sample_offset: int = 0,
-                 sampler=None, debug: bool = False, oracle_layers: bool = False):
+                 sampler=None, debug: bool = False, oracle_layers: bool = False,
+                 sparse_decoding: bool = False, sparse_per_batch: bool = False,
+                 rng: Optional[np.random.Generator] = None):
         """Sample every ``(E, layers, batch)`` of ``data_loader`` through
         both stages and invert the preprocessing batch by batch with the
-        stage-1 layers as ``layerE`` (reference layerdiffusion.py:165-256).
+        stage-1 layers as ``layerE`` (reference layerdiffusion.py:165-256;
+        HGCal's decode as ``CaloDiffusion.reverse_norm``).
         ``oracle_layers`` conditions stage 2 on the loader's layers instead.
         Returns numpy (showers of SHAPE_ORIG, energies)."""
         c = self.config
@@ -239,14 +244,9 @@ class LayerDiffusion(CaloDiffusion):
             out = self.sample(E_t, layers=lay, num_steps=sample_steps, generator=generator,
                               sample_offset=sample_offset, debug=debug, sampler=sampler,
                               return_layers=True)
-            gen, E_out = preprocessing.reverse_norm(
-                out["x"].float().cpu().numpy(), E_np,
-                shape=c["SHAPE_FINAL"], config=c, emax=c["EMAX"], emin=c["EMIN"],
-                layerE=out["layers"].float().cpu().numpy(), logE=c["logE"],
-                binning_file=c["BIN_FILE"], max_deposit=c["MAXDEP"],
-                showerMap=c["SHOWERMAP"], dataset_num=self.dataset_num,
-                orig_shape=self.orig_shape, ecut=float(c["ECUT"]),
-            )
+            gen, E_out = self.reverse_norm(
+                out["x"].float().cpu().numpy(), E_np, out["layers"].float().cpu().numpy(),
+                sparse_decoding=sparse_decoding, sparse_per_batch=sparse_per_batch, rng=rng)
             generated.append(gen)
             energies.append(E_out)
         generated = np.concatenate(generated)

@@ -432,6 +432,14 @@ def attention_block_reference(x, gn_pre_scale, gn_pre_bias, w_qkv, w_out,
     return x + y
 
 
+def attention_block_reference_f32(x, *params, **kw):
+    """The plain block computed in f32 from the values of ``x`` and the
+    parameters, rounded to ``x``'s dtype: K1's arithmetic (bf16 in and out,
+    f32 inside, as the Pallas kernel), what K1 is held to
+    (ops/tolerances.py).  In f32 it is ``attention_block_reference``."""
+    return attention_block_reference(x.float(), *(p.float() for p in params), **kw).to(x.dtype)
+
+
 def attention_block_backward_reference(x, gn_pre_scale, gn_pre_bias, w_qkv, w_out,
                                        b_out, gn_post_scale, gn_post_bias, g,
                                        dim_head: int = DIM_HEAD, eps: float = 1e-5):

@@ -8,14 +8,19 @@ each gradient, max|kernel - plain| / max|plain|, by dtype.
 
 import torch
 
-# K1 (the attention block's forward) against attention_block_reference:
+# K1 (the attention block's forward) against attention_block_reference_f32,
+# the plain version in f32 from the same bf16 values, rounded to bf16:
 # - f32 (TF32 off on both sides): only the order of f32 sums differs, over
 #   up to N*C = 207k terms in the GroupNorm statistics: 1e-4 absolute.
 # - bf16: the kernel keeps the q/k projections and the softmax numerators in
-#   f32 (as the Pallas kernel does) where the plain version rounds them to
-#   bf16 first, so the unit-scale post-GN term may differ by a few bf16 ulps
-#   (1/64 each below 2), and the residual sum rounds to bf16 at the output's
-#   magnitude: 0.0625 plus 2 ulps of the output (2 * 2^-7 relative).
+#   f32 (as the Pallas kernel does), so the unit-scale post-GN term may
+#   differ by a few bf16 ulps (1/64 each below 2), and the residual sum
+#   rounds to bf16 at the output's magnitude: 0.0625 plus 2 ulps of the
+#   output (2 * 2^-7 relative).  The plain version run in bf16 rounds the
+#   projections and numerators to bf16 first; at C = 96 and N >= 105 (HGCal's
+#   deep blocks) that alone puts it up to 0.117 from float64 (CPU, B = 128,
+#   chip_smoke's inputs), past this bound, while the f32 plain version
+#   rounded to bf16 stays within 0.031: so K1 is held to the latter.
 K1_TOL = {torch.bfloat16: (0.0625, 2.0**-6), torch.float32: (1e-4, 0.0)}
 
 # K2 (its backward) against attention_block_backward_reference:

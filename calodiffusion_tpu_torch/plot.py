@@ -1,5 +1,7 @@
 """Standalone plotting CLI (port of ``calodiffusion_tpu/plot.py``): the
-same argparse front end over the port's plot pipeline in ``inference.py``.
+same argparse front end over the port's plot pipeline in ``inference.py``
+(HGCal's plots with ``--hgcal`` or the config's ``HGCAL``; ``--plot-reshape``
+encodes HGCal showers on the card: ``inference.py plot`` takes ``--device``).
 
 Usage:
   python -m calodiffusion_tpu_torch.plot -c config.json -g generated.h5 \\

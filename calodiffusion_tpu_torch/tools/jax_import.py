@@ -1,4 +1,5 @@
-"""Import of the JAX package's CondUnet parameters into the port.
+"""Import of the JAX package's CondUnet parameters (and its in-model
+geometry embeds') into the port.
 
 ``params_to_state_dict`` turns a flax parameter tree of
 ``calodiffusion_tpu`` (nested dicts of numpy arrays, as ``model.init`` or a
@@ -147,7 +148,11 @@ def params_to_state_dict(params, config) -> dict[str, torch.Tensor]:
     (``{"params": {"CondUnet_0": ...}}``) or the CondUnet subtree.  A whole
     tree's dataset-1 embed (``NN_embed``: ``enc_i`` (dim_r_out, dim_in) and
     ``dec_i`` (dim_in, dim_r_out), as torch's Linear weights) becomes
-    ``NN_embed.encs.{i}.weight`` and ``NN_embed.decs.{i}.weight``."""
+    ``NN_embed.encs.{i}.weight`` and ``NN_embed.decs.{i}.weight``, and a
+    trainable HGCal GLaM's ``enc_mat`` (L, out, ncell) and ``dec_mat`` (L,
+    ncell, out) ``NN_embed.embeder.mat`` and ``NN_embed.decoder.mat`` (the
+    inverse of ``torch_import.py:249-252``; a frozen GLaM has no
+    parameters)."""
     tree = _subtree(params)
     embed = tree.get("NN_embed", {})
     if "CondUnet_0" in tree:
@@ -158,6 +163,9 @@ def params_to_state_dict(params, config) -> dict[str, torch.Tensor]:
         w.sd[f"NN_embed.encs.{i}.weight"] = _tensor(embed[f"enc_{i}"])
         w.sd[f"NN_embed.decs.{i}.weight"] = _tensor(embed[f"dec_{i}"])
         i += 1
+    if "enc_mat" in embed:
+        w.sd["NN_embed.embeder.mat"] = _tensor(embed["enc_mat"])
+        w.sd["NN_embed.decoder.mat"] = _tensor(embed["dec_mat"])
     n_res = len(config["LAYER_SIZE_UNET"]) - 1
     block_attn = config.get("BLOCK_ATTN", False)
     mid_attn = config.get("MID_ATTN", False)

@@ -63,7 +63,7 @@ class Train:
         self.batch_size = config.get("BATCH", 256)
         self.device = resolve_device(device)
         if load_data and loader_train is None and loader_val is None:
-            loader_train, loader_val = load_data_fn(flags, config)
+            loader_train, loader_val = load_data_fn(flags, config, device=self.device)
         self.loader_train, self.loader_val = loader_train, loader_val
 
         # checkpoint-dir naming parity (reference train.py:23-41)

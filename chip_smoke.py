@@ -18,12 +18,15 @@ prints no result:
             times (CUDA events around a call, and the device time with the
             card kept busy while the host launches), the plain versions'
             times and the card's bound: K1 (forward) against
-            attention_block_reference, K2 (backward) against
+            attention_block_reference_f32 (the plain version in f32 from
+            the same values, rounded to bf16; the plain version run in bf16
+            printed beside it), K2 (backward) against
             attention_block_backward_reference, each with the cluster size it
             chose and which of its tensors it kept on chip; then K1 and K2 at
             every (C, N) of the two dataset-1 U-Nets (C = 16, 32, 64, 96;
             batch 128) and K3 (LinearAttention alone) at (1610, 16) and
-            (28, 96)
+            (28, 96); then K1 and K2 at every (C, N) of the three HGCal
+            U-Nets (HGCAL_ATTENTION_BLOCKS; batch 128)
 4. main     dataset-2 shower generation at the full width of
             configs/config_dataset2.json (bf16, 400-step DDIM, batch 128)
             through CaloDiffusion.generate, from seeded random weights; the
@@ -144,13 +147,40 @@ prints no result:
             them) card against CPU, within phase 4's and phase 5's
             tolerances, and generate(roundtrip=True) on the sampling batch:
             (128, 368) and (128, 533), finite, >= 0
-12. result  {"kernels": [...]} (each kernel's launches by path: generate,
+12. hgcal   CMS HGCal through the GLaM pre-embed, photons and pions, in the
+            cli phase's directory: synthetic geometries (HGCAL_DATA: SHAPE_
+            FINAL's layers, exactly MAX_CELLS cells a layer, 2076 and
+            22,268, every ring inside the R bins), the pre-embed converter
+            (its pseudo-inverses on the card), npz caches of synthetic raw
+            showers (n, L, MAX_CELLS) and gen_info through the GLaM encode on
+            the card and preprocess_hgcal_shower, as _preprocess_one would
+            write them; copies of configs/config_HGCal_{photons,pions}.json
+            at full width and depth cut to one epoch; training.main (4 steps
+            at the config's BATCH, 256 and 128, and a val batch) and the
+            sample CLI (one batch of BATCH, 400-step DDim, microbatches of
+            128): showers finite, >= 0, (256, 47, 2076) and (128, 47,
+            22,268), K1 7 times a step and a denoise, K2 7 times a train
+            step; the GLaM walls apart (converter init, cache encode, the
+            decode in reverse_norm_hgcal).  On photons the sample CLI once
+            more with --sparse-decoding: each layer's energy at its target
+            in both runs and the same in both within 1e-4 where the layer
+            rescale applies (check_sparse_decoding), every lit cell one a
+            decode weight reaches; then the in-model trainable GLaM
+            (SHOWER_EMBED "NN") on the photon geometry: 2 bf16 train steps
+            (K1, K2 7 a step), embeder.mat moved only where its mask is set,
+            the card's pseudo-inverses within 1e-5 of numpy's, one f32
+            denoise and one f32 train step card against CPU (the GLaM
+            matrices' gradients among them, their masked entries 0)
+13. result  {"kernels": [...]} (each kernel's launches by path: generate,
             train, the cli paths, samplers, bns, variants, cascade_train,
             cascade_sample, distill_train, distill_val, distill_sample,
             ds1_photon_train, ds1_photon_sample, ds1_pion_train,
-            ds1_pion_sample; K1's and K2's "launches" sum the last four, this
-            slice's paths; their "ds1" holds one dataset-1 U-Net call's
-            times) and, last, {"ok": true, "device": {...}}
+            ds1_pion_sample, hgcal_photons_train, hgcal_photons_sample,
+            hgcal_photons_sparse_sample, hgcal_glam_train, hgcal_pions_train,
+            hgcal_pions_sample; K1's and K2's "launches" sum the last six,
+            this slice's paths; their "ds1" and "hgcal" hold one U-Net
+            call's times of each config) and, last, {"ok": true, "device":
+            {...}}
 """
 
 from __future__ import annotations
@@ -204,9 +234,20 @@ DS1_ATTENTION_BLOCKS = {
     "photon": [(32, 1500), (64, 225), (96, 28), (96, 28), (64, 28), (32, 225), (32, 1500)],
     "pion": [(16, 1610), (16, 220), (32, 20), (32, 20), (16, 20), (16, 220), (16, 1610)],
 }
-# the 7 blocks of each U-Net the cli and ds1 phases drive, by name
+# and of HGCal's (configs/config_HGCal{,_photons,_pions}.json: grids (28, 12,
+# 21), (47, 12, 21), (47, 12, 48), widths [32, 32, 64, 96]; the (3, 4, 4)
+# stride-2 downsampling with compress Z halves each dimension rounding up)
+HGCAL_ATTENTION_BLOCKS = {
+    "hgcal": [(32, 7056), (64, 840), (96, 105), (96, 105), (64, 105), (32, 840), (32, 7056)],
+    "hgcal_photons": [(32, 11844), (64, 1440), (96, 180), (96, 180), (64, 180), (32, 1440),
+                      (32, 11844)],
+    "hgcal_pions": [(32, 27072), (64, 3456), (96, 432), (96, 432), (64, 432), (32, 3456),
+                    (32, 27072)],
+}
+# the 7 blocks of each U-Net the cli, ds1 and hgcal phases drive, by name
 ATTENTION_BLOCKS = {"ds2": DS2_ATTENTION_BLOCKS, "ds3": DS3_ATTENTION_BLOCKS,
-                    **{f"ds1_{part}": b for part, b in DS1_ATTENTION_BLOCKS.items()}}
+                    **{f"ds1_{part}": b for part, b in DS1_ATTENTION_BLOCKS.items()},
+                    **HGCAL_ATTENTION_BLOCKS}
 BATCH = 128
 D = 32  # dim_head
 
@@ -410,10 +451,14 @@ def check_attention_kernel(attn, blocks=DS2_ATTENTION_BLOCKS, B=BATCH, dataset="
             args = block_inputs(B, N, C, dtype, seed=C + N)
             got = attn.fused_attention_block(*args)
             torch.cuda.synchronize()
-            want = attn.attention_block_reference(*args)
+            want = attn.attention_block_reference_f32(*args)
             atol, rtol = K1_TOL[dtype]
             err = elementwise_err("fused_attention_block", got, want, K1_TOL[dtype],
                                   f"C={C}, N={N}, {dtype}")
+            # for the record: the plain version run in the kernel's dtype
+            plain = attn.attention_block_reference(*args).float()
+            err_plain = (got.float() - plain).abs().max().item()
+            plain_off = (plain - want.float()).abs().max().item()
             reps = BIG_N_REPS if N > 8192 else {}
             k_ms = time_ms(lambda: attn.fused_attention_block(*args), **reps)
             d_ms = device_ms(lambda: attn.fused_attention_block(*args), reps=5 if reps else 10)
@@ -425,9 +470,12 @@ def check_attention_kernel(attn, blocks=DS2_ATTENTION_BLOCKS, B=BATCH, dataset="
                 dtype=dtype_name(dtype), max_abs_err=err, tol={"atol": atol, "rtol": rtol},
                 kernel_ms=k_ms, device_ms=d_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                 launches_per_call=blocks.count((C, N)), cluster_plan=plan,
+                max_abs_err_vs_plain_in_dtype=err_plain, plain_in_dtype_vs_f32=plain_off,
             ))
             print(f"kernel fused_attention_block B={B} N={N} C={C} {cases[-1]['dtype']}: "
-                  f"max_abs_err {err:.3g} (tol {atol} + {rtol} * |plain|), kernel {k_ms:.4f} ms "
+                  f"max_abs_err {err:.3g} (tol {atol} + {rtol} * |plain|; against the plain "
+                  f"version run in {cases[-1]['dtype']} {err_plain:.3g}, which lies "
+                  f"{plain_off:.3g} from it), kernel {k_ms:.4f} ms "
                   f"(device {d_ms:.4f}), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
                   f"{plan_text(plan)}", flush=True)
     return cases
@@ -504,14 +552,20 @@ def synthetic_loader(batches, n_layers, seed):
                rng.standard_normal((BATCH, n_layers)).astype(np.float32), None)
 
 
-def synthetic_batch(batch, n_layers, seed, shape=(1, 45, 16, 9)):
+def synthetic_batch(batch, n_layers, seed, shape=(1, 45, 16, 9), n_cond=1):
     """(E, layers, showers) as the training loader yields them: showers in
     the preprocessed layout ``shape`` (ds2's (1, 45, 16, 9); dataset 1's
-    flat voxels), roughly unit scale."""
+    flat voxels; HGCal's cells), roughly unit scale; E of ``n_cond``
+    columns (HGCal's three gen-info ones)."""
     rng = np.random.default_rng(seed)
-    return (rng.uniform(0.0, 1.0, (batch, 1)).astype(np.float32),
+    return (rng.uniform(0.0, 1.0, (batch, n_cond)).astype(np.float32),
             rng.standard_normal((batch, n_layers)).astype(np.float32),
             rng.standard_normal((batch, *shape)).astype(np.float32))
+
+
+def n_cond(cfg) -> int:
+    """The columns of E: HGCal's three gen-info ones, else the energy."""
+    return 3 if cfg.get("HGCAL", False) else 1
 
 
 def data_shape(cfg) -> tuple:
@@ -529,7 +583,7 @@ def check_card_vs_cpu(cfg, state_dict, seed, phase="main"):
     shape = data_shape(cfg)
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.standard_normal((2, *shape)).astype(np.float32))
-    E = torch.from_numpy(rng.uniform(0, 1, (2, 1)).astype(np.float32))
+    E = torch.from_numpy(rng.uniform(0, 1, (2, n_cond(cfg))).astype(np.float32))
     lay = torch.from_numpy(rng.standard_normal((2, cfg["SHAPE_FINAL"][2] + 1))
                            .astype(np.float32))
     sigma = torch.full((2,) + (1,) * len(shape), 0.7)
@@ -550,11 +604,13 @@ def check_card_vs_cpu(cfg, state_dict, seed, phase="main"):
 
 def check_train_step_card_vs_cpu(cfg, state_dict, seed, attn, phase="train"):
     """One f32 train step's loss and parameter gradients (dataset 1's
-    embed's among them), card against CPU."""
+    embed's or a trainable GLaM's among them), card against CPU; a GLaM
+    matrix's gradient must be exactly 0 wherever its mask is."""
     from calodiffusion_tpu_torch.models.diffusion import CaloDiffusion
 
     cfg = dict(cfg, PRECISION="f32")
-    E, layers, data = synthetic_batch(2, cfg["SHAPE_FINAL"][2] + 1, seed, data_shape(cfg))
+    E, layers, data = synthetic_batch(2, cfg["SHAPE_FINAL"][2] + 1, seed, data_shape(cfg),
+                                      n_cond(cfg))
     rng = np.random.default_rng(seed + 1)
     noise = rng.standard_normal(data.shape).astype(np.float32)
     rnd = rng.standard_normal(2).astype(np.float32)
@@ -571,6 +627,10 @@ def check_train_step_card_vs_cpu(cfg, state_dict, seed, attn, phase="train"):
         launched = attn.attention_block_backward.launches - k2
         if launched != (len(DS2_ATTENTION_BLOCKS) if dev == "cuda" else 0):
             fail(f"f32 train step on {dev} launched K2 {launched} times")
+        for k in ("embeder", "decoder"):  # a trainable GLaM: masked entries get no gradient
+            mat = getattr(getattr(m.net, "NN_embed", None), k, None)
+            if mat is not None and (mat.mat.grad[mat.mask == 0] != 0).any():
+                fail(f"{phase}: NN_embed.{k}.mat has a gradient where its mask is 0 on {dev}")
         results.append((loss.item(), {k: p.grad.detach().cpu().double()
                                       for k, p in m.named_parameters()}))
     (l_card, g_card), (l_cpu, g_cpu) = results
@@ -705,6 +765,11 @@ DS1_DATA = {
 }
 
 
+def cli_spec(name: str) -> dict:
+    """The caches' spec of one dataset of the cli, ds1 or hgcal phase."""
+    return {**CLI_DATA, **DS1_DATA, **HGCAL_DATA}[name]
+
+
 def raw_showers(rng, n, voxels):
     """Showers as a CaloChallenge h5 file holds them (MeV): exponential
     deposits, 80 % of the voxels zero; incident energies 1 GeV - 1 TeV."""
@@ -740,7 +805,7 @@ def make_cli_data(root: Path, name: str, seed: int, **overrides):
     """The caches and the config of one dataset under ``root``: the
     shipped config at full width and depth, its training cut to one epoch
     (and ``overrides``: dataset 1's BIN_FILE)."""
-    spec = CLI_DATA[name] if name in CLI_DATA else DS1_DATA[name]
+    spec = cli_spec(name)
     cfg = json.loads((ROOT / "configs" / spec["config"]).read_text())
     cfg.update(spec["overrides"], MAXEPOCH=1, **overrides)
     data = root / name / "data"
@@ -809,18 +874,20 @@ def synced(fn, walls, first_only=False, outputs=None):
     return wrapper
 
 
-def run_cli(name, cfg, cfg_path, data, ckpt, seed, attn, card, phase="cli"):
+def run_cli(name, cfg, cfg_path, data, ckpt, seed, attn, card, phase="cli", showers_out=None):
     """training.main, then the sample CLI's parsing, loading and generation
     (inference.parse_flags + generate_showers: all but the h5 write), on one
-    dataset; K1 and K2 counts reset just before each and read just after."""
+    dataset; K1 and K2 counts reset just before each and read just after.
+    The sample batch is the spec's ``sample_batch`` (CLI_SAMPLE_BATCH), run
+    in microbatches of 128 (sample_cli).  The showers are appended to
+    ``showers_out`` where it is a list."""
     from unittest import mock
 
-    from calodiffusion_tpu_torch import inference, training
-    from calodiffusion_tpu_torch.models.diffusion import CaloDiffusion
+    from calodiffusion_tpu_torch import training
     from calodiffusion_tpu_torch.train.trainer import TrainDiffusion
 
     n_blocks = len(ATTENTION_BLOCKS[name])
-    spec = CLI_DATA[name] if name in CLI_DATA else DS1_DATA[name]
+    spec = cli_spec(name)
     recorder = Recorder(TrainDiffusion.train_step, attn)
     common = ["-c", cfg_path, "-d", data, "--seed", str(seed)]
     torch.cuda.synchronize()
@@ -856,62 +923,87 @@ def run_cli(name, cfg, cfg_path, data, ckpt, seed, attn, card, phase="cli"):
           f"peak memory {train_mem:.2f} GiB; losses {[round(s['loss'], 4) for s in steps]}",
           flush=True)
 
-    # sample: parse, load the EVAL caches and the weights, generate
-    flags = inference.parse_flags(common + ["-n", "-1", "sample", "--batch-size",
-                                            str(CLI_SAMPLE_BATCH), "--sample-steps", "400",
-                                            "--model-loc", str(folder / "final.ckpt"),
-                                            "diffusion"])
-    first, gen_s = [], []
-    torch.cuda.synchronize()
-    attn.fused_attention_block.launches = attn.attention_block_backward.launches = 0
-    t0 = time.perf_counter()
-    # the first denoise synchronised apart: the cold start
-    with mock.patch.object(CaloDiffusion, "denoise",
-                           synced(CaloDiffusion.denoise, first, first_only=True)), \
-            mock.patch.object(CaloDiffusion, "generate", synced(CaloDiffusion.generate, gen_s)):
-        showers, energies, fout = inference.generate_showers(flags, flags.config)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    k1s, k2s = attn.fused_attention_block.launches, attn.attention_block_backward.launches
-    n, voxels = CLI_SAMPLE_BATCH, spec["voxels"]
-    if showers.shape != (n, voxels) or energies.shape != (n, 1):
-        fail(f"{phase} {name}: showers {showers.shape}, energies {energies.shape}; expected "
-             f"({n}, {voxels}), ({n}, 1)")
-    if not np.isfinite(showers).all() or (showers < 0).any():
-        fail(f"{phase} {name}: showers are not finite and >= 0")
-    if (k1s, k2s) != (n_blocks * 400, 0):
-        fail(f"{phase} {name}: sampling launched K1 {k1s} times (expected {n_blocks * 400}) and "
-             f"K2 {k2s} (expected 0)")
-    steady_gen = (gen_s[0] - first[0]) * 400 / 399
-    sample = dict(wall_s=wall, setup_s=wall - gen_s[0], generate_s=gen_s[0],
-                  first_denoise_s=first[0], showers_per_s=n / gen_s[0],
-                  showers_per_s_after_first_step=n / steady_gen, k1=k1s, k2=k2s)
-    print(f"{phase} {name} sample: inference CLI, {n} showers, 400-step DDim, bf16, batch "
-          f"{CLI_SAMPLE_BATCH}: generate {gen_s[0]:.2f} s, {sample['showers_per_s']:.3f} "
-          f"showers/s on {card} (first, cold denoise {first[0]:.3f} s; the other 399 steps at "
-          f"{sample['showers_per_s_after_first_step']:.3f} showers/s); loading data and "
-          f"weights {sample['setup_s']:.2f} s; K1 launches {k1s} ({n_blocks} a step), K2 {k2s}",
-          flush=True)
-
+    sample, showers = sample_cli(name, cfg, common, folder, attn, card, phase)
     results = dict(train=train, sample=sample, checkpoint=str(folder / "final.ckpt"))
     if name == "ds2":
         results["sample_dpmpp2m"] = run_cli_sampler(common, folder, attn, card, n_blocks,
                                                     "DPMPP2M", 20, 19)
+    if showers_out is not None:
+        showers_out.append(showers)
+    return results
+
+
+def sample_cli(name, cfg, common, folder, attn, card, phase, sample_args=(), path="sample"):
+    """The sample CLI's parsing, loading and generation of ``name``'s EVAL
+    cache (400-step DDim) from ``folder``'s final.ckpt, ``sample_args``
+    given to ``sample`` (HGCal's ``--sparse-decoding``), its checks, HGCal's
+    GLaM decode timed apart, and its h5 write where h5py is installed;
+    returns (results, showers)."""
+    from unittest import mock
+
+    from calodiffusion_tpu_torch import inference
+    from calodiffusion_tpu_torch.models.diffusion import CaloDiffusion
+    from calodiffusion_tpu_torch.utils import hgcal_utils
+
+    n_blocks = len(ATTENTION_BLOCKS[name])
+    n = cli_spec(name).get("sample_batch", CLI_SAMPLE_BATCH)
+    flags = inference.parse_flags(common + ["-n", "-1", "sample", "--batch-size", str(n),
+                                            "--sample-steps", "400", "--model-loc",
+                                            str(folder / "final.ckpt"), *sample_args,
+                                            "diffusion"])
+    first, gen_s, dec_s = [], [], []
+    torch.cuda.synchronize()
+    attn.fused_attention_block.launches = attn.attention_block_backward.launches = 0
+    t0 = time.perf_counter()
+    # the first denoise synchronised apart: the cold start; HGCal's decode apart
+    with mock.patch.object(CaloDiffusion, "denoise",
+                           synced(CaloDiffusion.denoise, first, first_only=True)), \
+            mock.patch.object(CaloDiffusion, "generate", synced(CaloDiffusion.generate, gen_s)), \
+            mock.patch.object(hgcal_utils.HGCalConverter, "dec_batches",
+                              synced(hgcal_utils.HGCalConverter.dec_batches, dec_s)):
+        showers, energies, fout = inference.generate_showers(flags, flags.config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1s, k2s = attn.fused_attention_block.launches, attn.attention_block_backward.launches
+    shape, n_e = (n, *cfg["SHAPE_ORIG"][1:]), 3 if cfg.get("HGCAL") else 1
+    if showers.shape != shape or energies.shape != (n, n_e):
+        fail(f"{phase} {name}: showers {showers.shape}, energies {energies.shape}; expected "
+             f"{shape}, ({n}, {n_e})")
+    if not np.isfinite(showers).all() or (showers < 0).any():
+        fail(f"{phase} {name}: showers are not finite and >= 0")
+    denoises = 400 * -(-n // CLI_SAMPLE_BATCH)  # 400 steps a microbatch of 128
+    if (k1s, k2s) != (n_blocks * denoises, 0):
+        fail(f"{phase} {name}: sampling launched K1 {k1s} times (expected "
+             f"{n_blocks * denoises}) and K2 {k2s} (expected 0)")
+    steady_gen = (gen_s[0] - first[0]) * denoises / (denoises - 1)
+    sample = dict(wall_s=wall, setup_s=wall - gen_s[0], generate_s=gen_s[0],
+                  first_denoise_s=first[0], showers_per_s=n / gen_s[0],
+                  showers_per_s_after_first_step=n / steady_gen, k1=k1s, k2=k2s,
+                  glam_decode_s=sum(dec_s) if dec_s else None, args=list(sample_args))
+    decode = f"; GLaM decode {sum(dec_s):.3f} s" if dec_s else ""
+    print(f"{phase} {name} {path}: inference CLI {' '.join(sample_args)}, {n} showers, 400-step "
+          f"DDim, bf16, batch {n}: generate {gen_s[0]:.2f} s, {sample['showers_per_s']:.3f} "
+          f"showers/s on {card} (first, cold denoise {first[0]:.3f} s; the other "
+          f"{denoises - 1} denoises at {sample['showers_per_s_after_first_step']:.3f} "
+          f"showers/s{decode}); loading data and weights {sample['setup_s']:.2f} s; K1 launches "
+          f"{k1s} ({n_blocks} a denoise), K2 {k2s}", flush=True)
 
     if importlib.util.find_spec("h5py") is None:
-        print(f"{phase} {name} sample: write_out (the h5 file) not run: this machine has no h5py; "
-              "the CPU tests cover it (tests/test_torch_port_cli.py)", flush=True)
+        tests = "_hgcal_cli" if cfg.get("HGCAL") else "_cli"
+        print(f"{phase} {name} {path}: write_out (the h5 file) not run: this machine has no "
+              f"h5py; the CPU tests cover it (tests/test_torch_port{tests}.py)", flush=True)
     else:
         import h5py
 
-        out = str(Path(ckpt) / f"generated_{name}.h5")
+        out = str(folder.parent / f"generated_{name}_{path}.h5")
         inference.write_out(out, flags, flags.config, showers, energies)
+        key = "gen_info" if cfg.get("HGCAL") else "incident_energies"
         with h5py.File(out, "r") as f:
-            shapes = (f["showers"].shape, f["incident_energies"].shape)
-        if shapes != ((n, voxels), (n, 1)):
+            shapes = (f["showers"].shape, f[key].shape)
+        if shapes != (shape, (n, n_e)):
             fail(f"{phase} {name}: the h5 file holds {shapes}")
-        print(f"{phase} {name} sample: write_out wrote {out}: {shapes}", flush=True)
-    return results
+        print(f"{phase} {name} {path}: write_out wrote {out}: {shapes}", flush=True)
+    return sample, showers
 
 
 def run_cli_sampler(common, folder, attn, card, n_blocks, algo, steps, evals):
@@ -1850,8 +1942,9 @@ DS1_BINNING = {
 }
 
 
-# the paths of this slice's phase (11, ds1), in the kernels line's launches_by_path
-SLICE_PATHS = ("ds1_photon_train", "ds1_photon_sample", "ds1_pion_train", "ds1_pion_sample")
+# the paths of this slice's phase (12, hgcal), in the kernels line's launches_by_path
+SLICE_PATHS = ("hgcal_photons_train", "hgcal_photons_sample", "hgcal_photons_sparse_sample",
+               "hgcal_glam_train", "hgcal_pions_train", "hgcal_pions_sample")
 
 
 def ds1_binning_xml(part: str) -> str:
@@ -1931,6 +2024,286 @@ def run_ds1_phase(root: Path, seed, attn, card):
     return results
 
 
+# ---------------------------------------------------------------------------
+# 12. hgcal: CMS HGCal photons and pions through the GLaM pre-embed
+# ---------------------------------------------------------------------------
+
+# The HGCal configs the hgcal phase drives at full width and depth (cut to
+# one epoch), the npz caches it writes (4 train steps at the config's BATCH,
+# a val batch, one sampling batch of BATCH, in microbatches of 128) and the
+# synthetic geometry of each (the detector pickles are not in the
+# repository): rings of cells_per_ring * r cells around a central cell, the
+# last ring filled in part so that every layer holds exactly MAX_CELLS
+# cells (2076 and 22,268), and every ring inside SHAPE_FINAL's R bins under
+# init_map's compression (rings past 22 merged 3:1): photons rings 0-20 of R
+# bins 0-20 (21 bins), pions rings 0-86 of R bins 0-44 (48 bins)
+HGCAL_DATA = {
+    f"hgcal_{part}": dict(
+        config=f"config_HGCal_{part}.json", batch=batch, sample_batch=batch,
+        cells_per_ring=cells_per_ring, nrings=nrings,
+        files={f"hgcal_{part}_1.h5": 4 * batch, f"hgcal_{part}_val.h5": batch,
+               f"hgcal_{part}_2.h5": batch},
+        overrides=dict(FILES=[f"hgcal_{part}_1.h5"], VAL_FILES=[f"hgcal_{part}_val.h5"],
+                       EVAL=[f"hgcal_{part}_2.h5"]))
+    for part, batch, cells_per_ring, nrings in (("photons", 256, 10, 20), ("pions", 128, 6, 86))
+}
+# the card's pseudo-inverses of the photon geometry against numpy's (init on
+# the CPU), max |card - numpy| over max |numpy|: float64 Gram matrices on
+# the card, float32 SVDs on the host; 6e-8 measured
+# (scripts/torch_hgcal_glam.py), so 1e-5
+GLAM_PINV_RTOL = 1e-5
+# HGCal's layer rescale (reverse_norm_hgcal): a layer's energy becomes its
+# target times prev / (prev + 1e-10), prev the decode's layer sum, wherever
+# the target and prev are above eps = 1e-8
+HGCAL_EPS = 1e-8
+LAYER_E_RTOL = 1e-4
+
+
+def hgcal_r_bin(ring):
+    """init_map's ring -> R bin compression (inner 23 rings 1:1, then 3 a bin)."""
+    ring = np.asarray(ring, dtype=int)
+    return np.where(ring < 23, ring, (ring - 23) // 3 + 23)
+
+
+def hgcal_geom_file(root: Path, name: str, cfg: dict) -> str:
+    """Build, check and pickle the synthetic geometry of ``HGCAL_DATA[name]``
+    for ``cfg`` (the port's make_synthetic_geom and save_geom); returns its
+    path."""
+    from calodiffusion_tpu_torch.utils import hgcal_utils
+
+    spec = HGCAL_DATA[name]
+    geom = hgcal_utils.make_synthetic_geom(
+        nlayers=cfg["SHAPE_FINAL"][2], cells_per_ring=spec["cells_per_ring"],
+        nrings=spec["nrings"], seed=0, max_cells=cfg["MAX_CELLS"])
+    rings = geom.ring_map[geom.ring_map >= 0]
+    if geom.nlayers != cfg["SHAPE_FINAL"][2] or geom.max_ncell != cfg["MAX_CELLS"]:
+        fail(f"{name}: geometry of {geom.nlayers} layers and {geom.max_ncell} cells; the config "
+             f"says {cfg['SHAPE_FINAL'][2]} and {cfg['MAX_CELLS']}")
+    if not (geom.ncells == cfg["MAX_CELLS"]).all() or hgcal_r_bin(rings).max() >= \
+            cfg["SHAPE_FINAL"][-1]:
+        fail(f"{name}: a layer holds fewer than MAX_CELLS cells, or ring {rings.max()} falls "
+             f"past the {cfg['SHAPE_FINAL'][-1]} R bins")
+    path = root / f"{name}_geom.pkl"
+    hgcal_utils.save_geom(geom, str(path))
+    return str(path)
+
+
+def raw_hgcal_showers(rng, n, cfg):
+    """Showers as an HGCal h5 file holds them: (n, L, MAX_CELLS) cell
+    energies, 90 % zero, summing to about the incident energy over
+    SHOWERSCALE; gen_info (n, 3) inside EMIN and EMAX."""
+    L, C = cfg["SHAPE_ORIG"][1:]
+    emin, emax = np.asarray(cfg["EMIN"]), np.asarray(cfg["EMAX"])
+    gen_info = (emin + (emax - emin) * rng.random((n, 3))).astype(np.float32)
+    u = rng.random((n, L, C), dtype=np.float32)
+    scale = 2 * gen_info[:, :1, None] / (cfg.get("SHOWERSCALE", 200.0) * 0.1 * L * C)
+    return np.where(u > 0.9, (u - 0.9) * 10 * scale, 0).astype(np.float32), gen_info
+
+
+def write_hgcal_cache(path, chunks, cfg, conv, device="cuda"):
+    """The npz cache data/loader._preprocess_one writes for an HGCal h5 file
+    of these (raw showers, gen_info) chunks: load_hgcal_h5's MAX_CELLS slice
+    and SHOWERSCALE, the pre-embed's GLaM encode (``conv`` on ``device``),
+    preprocess_hgcal_shower, the gen_info normalisation, then the loader's
+    layers and SHAPE_PAD layout.  Returns the encode's wall."""
+    from calodiffusion_tpu_torch.utils import hgcal_utils
+
+    grids, infos, enc_s = [], [], 0.0
+    for raw, gen_info in chunks:
+        shower = raw[:, :, :cfg["MAX_CELLS"]].astype(np.float32) * cfg.get("SHOWERSCALE", 200.0)
+        t0 = time.perf_counter()
+        grids.append(conv.enc_batches(shower, device=device))
+        enc_s += time.perf_counter() - t0
+        infos.append(gen_info.astype(np.float32))
+    gen_info = np.concatenate(infos)
+    shower, layers = hgcal_utils.preprocess_hgcal_shower(
+        np.concatenate(grids), gen_info[:, 0], cfg["SHAPE_PAD"], cfg["SHOWERMAP"],
+        dataset_num=cfg["DATASET_NUM"], max_deposit=cfg["MAXDEP"])
+    emin, emax = np.array(cfg["EMIN"]), np.array(cfg["EMAX"])
+    np.savez_compressed(path, E=((gen_info - emin) / (emax - emin)).astype(np.float32),
+                        layers=np.reshape(layers.astype(np.float32), (layers.shape[0], -1)),
+                        showers=np.reshape(shower.astype(np.float32), cfg["SHAPE_PAD"]))
+    return enc_s
+
+
+def make_hgcal_data(root: Path, name: str, seed: int, card: str):
+    """The geometry, the pre-embed converter (its pseudo-inverses on the
+    card), the npz caches and the config of one HGCal config under
+    ``root``; returns (config, config path, data folder, GLaM walls)."""
+    from calodiffusion_tpu_torch.utils import hgcal_utils
+
+    spec = HGCAL_DATA[name]
+    cfg = json.loads((ROOT / "configs" / spec["config"]).read_text())
+    cfg.update(spec["overrides"], MAXEPOCH=1)
+    (root / name).mkdir()
+    cfg["BIN_FILE"] = hgcal_geom_file(root / name, name, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    conv = hgcal_utils.make_pre_embed_converter(cfg, device="cuda")
+    init_s = time.perf_counter() - t0
+    data = root / name / "data"
+    data.mkdir()
+    rng = np.random.default_rng(seed)
+    enc_s = 0.0
+    t0 = time.perf_counter()
+    for fname, n in spec["files"].items():
+        chunks = (raw_hgcal_showers(rng, min(128, n - i), cfg) for i in range(0, n, 128))
+        enc_s += write_hgcal_cache(data / f"{fname}.npz", chunks, cfg, conv)
+    cache_s = time.perf_counter() - t0
+    cfg_path = root / name / "config.json"
+    cfg_path.write_text(json.dumps(cfg))
+    L, out, ncell = conv.enc_mat.shape
+    walls = dict(converter_init_s=init_s, cache_encode_s=enc_s, cache_write_s=cache_s,
+                 events=sum(spec["files"].values()), glam=[L, out, ncell])
+    print(f"hgcal {name}: geometry ({L} layers, {out} bins, {ncell} cells); GLaM converter "
+          f"init {init_s:.2f} s (pseudo-inverses on the card); npz caches of {walls['events']} "
+          f"synthetic showers in {cache_s:.1f} s, of it the GLaM encode {enc_s:.2f} s on "
+          f"{card}", flush=True)
+    return cfg, str(cfg_path), str(data) + "/", walls
+
+
+def check_sparse_decoding(cfg, data, dense, sparse, dense_dec, sparse_dec):
+    """The --sparse-decoding showers against the dense ones of the same
+    EVAL cache: each layer's energy is its target (from the cache's layer
+    energies) times prev / (prev + 1e-10) in both, prev the decode's layer
+    sum, within LAYER_E_RTOL wherever the target and both prevs are above
+    HGCAL_EPS, so the two runs' layers agree where the guard moves neither
+    by 1e-4 (prev >= 1e-6); every lit cell is one a decode weight above
+    1e-6 reaches in its layer."""
+    from calodiffusion_tpu_torch.utils import hgcal_utils
+
+    c = hgcal_utils.consts.dataset_params[cfg["DATASET_NUM"]]
+    with np.load(f"{data}{cfg['EVAL'][0]}.npz") as f:
+        layerE, E = f["layers"].astype(np.float64), f["E"].astype(np.float64)
+    total = layerE[:, :1] * c["totalE_std"] + c["totalE_mean"]
+    layers = hgcal_utils.reverse_logit(layerE[:, 1:] * c["layers_std"] + c["layers_mean"])
+    target = layers / layers.sum(1, keepdims=True) * total  # (n, L)
+    energy = (cfg["EMIN"][0] + (cfg["EMAX"][0] - cfg["EMIN"][0]) * E[:, :1]) * cfg["MAXDEP"]
+    sums = {k: v.astype(np.float64).sum(-1) / energy for k, v in (("dense", dense),
+                                                                  ("sparse", sparse))}
+    prev = {k: np.maximum(v, 0).astype(np.float64).reshape(target.shape + (-1,)).sum(-1)
+            for k, v in (("dense", dense_dec), ("sparse", sparse_dec))}  # (n, [1,] L, ncell)
+    mask = (target >= HGCAL_EPS) & (prev["dense"] >= HGCAL_EPS) & (prev["sparse"] >= HGCAL_EPS)
+    worst = {}
+    for k in ("dense", "sparse"):
+        want = target * prev[k] / (prev[k] + 1e-10)
+        worst[k] = float((np.abs(sums[k] - want) / want)[mask].max())
+    both = mask & (prev["dense"] >= 1e-6) & (prev["sparse"] >= 1e-6)
+    worst["sparse_vs_dense"] = float((np.abs(sums["sparse"] - sums["dense"])
+                                      / sums["dense"])[both].max())
+    if not all(v <= LAYER_E_RTOL for v in worst.values()):
+        fail(f"hgcal sparse decoding: layer energies off by {worst} > {LAYER_E_RTOL}")
+    conv = hgcal_utils.make_pre_embed_converter(cfg, device="cuda")
+    reach = (conv.dec_mat > 1e-6).any(-1)  # (L, ncell)
+    stray = int((sparse > 0)[:, ~reach].sum())
+    lit = {k: float((v > 0).mean()) for k, v in (("dense", dense), ("sparse", sparse))}
+    if stray or not lit["sparse"] < lit["dense"]:
+        fail(f"hgcal sparse decoding: {stray} lit cells no decode weight reaches; lit share "
+             f"{lit}")
+    print(f"hgcal sparse decoding: layer energies at their targets within {worst['dense']:.3g} "
+          f"(dense) and {worst['sparse']:.3g} (sparse), sparse vs dense "
+          f"{worst['sparse_vs_dense']:.3g} (tol {LAYER_E_RTOL}) over {int(mask.sum())} and {int(both.sum())} of {mask.size} "
+          f"layers; lit cells {lit['dense']:.4f} dense, {lit['sparse']:.4f} sparse, each one a "
+          f"decode weight reaches", flush=True)
+    return dict(worst=worst, compared=int(mask.sum()), compared_both=int(both.sum()),
+                layers=int(mask.size), lit=lit)
+
+
+def run_glam_in_model(cfg, seed, attn, card):
+    """The in-model GLaM on the photon geometry (SHOWER_EMBED "NN",
+    TRAINABLE_EMBED): 2 bf16 train steps at the config's BATCH (K1 and K2 7
+    a step), embeder.mat moved only where its mask is set; then its pseudo-
+    inverses taken on the card against numpy's, and one f32 denoise and one
+    f32 train step card against CPU from the trained weights."""
+    from calodiffusion_tpu_torch.train.trainer import TrainDiffusion
+    from calodiffusion_tpu_torch.utils import hgcal_utils
+    from calodiffusion_tpu_torch.utils.config import default_flags
+
+    L, C = cfg["SHAPE_ORIG"][1:]
+    cfg = dict(cfg, SHOWER_EMBED="NN", TRAINABLE_EMBED=True, SHAPE_PAD=[-1, L, C])
+    B = cfg["BATCH"]
+    batches = [synthetic_batch(B, L + 1, seed + i, (L, C), 3) for i in range(3)]
+    recorder = Recorder(TrainDiffusion.train_step, attn)
+
+    class Recorded(TrainDiffusion):
+        train_step = recorder.bind()
+
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        trainer = Recorded(default_flags(checkpoint_folder=ckpt_dir, seed=seed), cfg,
+                           loader_train=batches[:2], loader_val=batches[2:])
+        trainer.init_model()
+        embed = trainer.model.net.NN_embed
+        before = embed.embeder.mat.detach().clone()
+        trainer.train()
+        torch.cuda.synchronize()
+    n = len(HGCAL_ATTENTION_BLOCKS["hgcal_photons"])
+    recorder.check("hgcal glam train step", 2, (n, n))
+    moved = (embed.embeder.mat.detach() - before) != 0
+    mask = embed.embeder.mask != 0
+    if (moved & ~mask).any() or not moved.any():
+        fail(f"hgcal glam: embeder.mat moved at {int((moved & ~mask).sum())} masked entries, "
+             f"{int(moved.sum())} in all")
+    steady = recorder.calls[1]["s"]
+    print(f"hgcal glam: in-model trainable GLaM, 2 bf16 train steps of {B} photon showers: "
+          f"losses {[round(c['loss'], 4) for c in recorder.calls]}, second step "
+          f"{1e3 * steady:.1f} ms ({B / steady:.1f} samples/s) on {card}; embeder.mat moved at "
+          f"{int(moved.sum())} of {int(mask.sum())} unmasked entries and no masked one",
+          flush=True)
+    state = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+
+    card_dec = hgcal_utils.cached_converter(cfg, norm=False, device="cuda").dec_mat
+    cpu_dec = hgcal_utils.cached_converter(cfg, norm=False, device="cpu").dec_mat
+    pinv_err = float(np.abs(card_dec - cpu_dec).max() / np.abs(cpu_dec).max())
+    if not pinv_err <= GLAM_PINV_RTOL:
+        fail(f"hgcal glam: the card's pseudo-inverses differ from numpy's by {pinv_err:.3g} "
+             f"> {GLAM_PINV_RTOL}")
+    print(f"hgcal glam: pseudo-inverses of the photon geometry, card vs numpy {pinv_err:.3g} "
+          f"of max |numpy| (tol {GLAM_PINV_RTOL})", flush=True)
+    return dict(losses=[c["loss"] for c in recorder.calls],
+                step_s=[c["s"] for c in recorder.calls],
+                k1=sum(c["k1"] for c in recorder.calls), k2=sum(c["k2"] for c in recorder.calls),
+                moved=int(moved.sum()), unmasked=int(mask.sum()), pinv_rel_err=pinv_err,
+                card_vs_cpu_denoise=check_card_vs_cpu(cfg, state, seed + 5, phase="hgcal glam"),
+                card_vs_cpu_step=check_train_step_card_vs_cpu(cfg, state, seed + 6, attn,
+                                                              phase="hgcal glam"))
+
+
+def run_hgcal_phase(root: Path, seed, attn, card):
+    """CMS HGCal photons and pions at the full width and depth of their
+    shipped configs through the GLaM pre-embed, on synthetic geometries and
+    showers: the caches, training.main and the sample CLI (run_cli); on
+    photons the sample CLI once more with --sparse-decoding, and the
+    in-model trainable GLaM."""
+    from unittest import mock
+
+    from calodiffusion_tpu_torch.utils import hgcal_utils
+
+    results = {}
+    for i, name in enumerate(HGCAL_DATA):
+        cfg, cfg_path, data, walls = make_hgcal_data(root, name, seed + i, card)
+        ckpt = str(root / name / "ckpt")
+        dense, dense_dec = [], []
+        with mock.patch.object(hgcal_utils.HGCalConverter, "dec_batches", synced(
+                hgcal_utils.HGCalConverter.dec_batches, [], outputs=dense_dec)):
+            res = run_cli(name, cfg, cfg_path, data, ckpt, seed + 10 + i, attn, card,
+                          phase="hgcal", showers_out=dense)
+        res["glam"] = dict(walls, decode_s=res["sample"]["glam_decode_s"])
+        if name == "hgcal_photons":
+            sparse, sparse_dec = [], []
+            with mock.patch.object(hgcal_utils.HGCalConverter, "dec_batches", synced(
+                    hgcal_utils.HGCalConverter.dec_batches, [], outputs=sparse_dec)):
+                common = ["-c", cfg_path, "-d", data, "--seed", str(seed + 10 + i)]
+                res["sparse_sample"], showers = sample_cli(
+                    name, cfg, common, Path(res["checkpoint"]).parent, attn, card, "hgcal",
+                    ("--sparse-decoding",), "sparse_sample")
+                sparse.append(showers)
+            res["sparse_check"] = check_sparse_decoding(cfg, data, dense[0], sparse[0],
+                                                        dense_dec[0], sparse_dec[0])
+            res["glam_in_model"] = run_glam_in_model(cfg, seed + 20, attn, card)
+        results[name] = res
+    return results
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batches", type=int, default=2)
@@ -1991,6 +2364,10 @@ def main() -> None:
         k1_cases += check_attention_kernel(attn, blocks, BATCH, f"ds1_{part}")
         k2_cases += check_backward_kernel(attn, blocks, BATCH, f"ds1_{part}")
     k3_cases = check_linear_kernel(attn, K3_DS1_SHAPES)
+    # HGCal's: its three configs' (C, N), C = 32, 64 and 96
+    for name, blocks in HGCAL_ATTENTION_BLOCKS.items():
+        k1_cases += check_attention_kernel(attn, blocks, BATCH, name)
+        k2_cases += check_backward_kernel(attn, blocks, BATCH, name)
 
     # 4. main path: generation
     cfg = load_config(str(CONFIG))
@@ -2062,9 +2439,14 @@ def main() -> None:
     t0 = time.perf_counter()
     ds1 = run_ds1_phase(root, args.seed + 60, attn, card)
     print(f"ds1: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 12. hgcal
+    t0 = time.perf_counter()
+    hgcal = run_hgcal_phase(root, args.seed + 70, attn, card)
+    print(f"hgcal: {time.perf_counter() - t0:.1f} s", flush=True)
     tmp.cleanup()
 
-    # 12. result
+    # 13. result
     launches = {"fused_attention_block": (gen_launches[0], train["k1"]),
                 "attention_block_backward": (gen_launches[1], train["k2"])}
     kernels = []
@@ -2088,9 +2470,13 @@ def main() -> None:
         })
         for ds, res in ds1.items():
             by_path.update({f"{ds}_train": res["train"][key], f"{ds}_sample": res["sample"][key]})
+        for ds, res in hgcal.items():
+            by_path.update({f"{ds}_train": res["train"][key], f"{ds}_sample": res["sample"][key]})
+        by_path["hgcal_photons_sparse_sample"] = hgcal["hgcal_photons"]["sparse_sample"][key]
+        by_path["hgcal_glam_train"] = hgcal["hgcal_photons"]["glam_in_model"][key]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            # launches on this slice's paths: dataset 1's training and sampling
+            # launches on this slice's paths: HGCal's training and sampling
             launches=sum(by_path[k] for k in SLICE_PATHS),
             launches_by_path=by_path,
             max_abs_err=max(c["max_abs_err"] for c in bf16),
@@ -2110,6 +2496,10 @@ def main() -> None:
             ds1={ds: {k: per_call(cases, k, dataset=ds)
                       for k in ("kernel_ms", "device_ms", "plain_ms", "bound_ms")}
                  for ds in ds1},
+            # and of one U-Net call of each HGCal config, B = 128
+            hgcal={ds: {k: per_call(cases, k, dataset=ds)
+                        for k in ("kernel_ms", "device_ms", "plain_ms", "bound_ms")}
+                   for ds in HGCAL_ATTENTION_BLOCKS},
             cases=cases,
         ))
     # K3-K5 and K4's backward: the times of their launches in one bf16 run
@@ -2146,7 +2536,8 @@ def main() -> None:
                       "train_step_s": [s["s"] for s in train["steps"]],
                       "card_vs_cpu_step": step_check, "cli": cli, "variants": var_results,
                       "samplers": zoo, "samplers_card_vs_cpu": zoo_cpu, "bns": bns,
-                      "cascade": cascade, "distill": distill, "ds1": ds1, "card": card}),
+                      "cascade": cascade, "distill": distill, "ds1": ds1, "hgcal": hgcal,
+                      "card": card}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

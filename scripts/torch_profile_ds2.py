@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where the time of dataset-2 (or dataset-3, dataset-1) generation and
-training goes, on one CUDA card.
+"""Where the time of dataset-2 (or dataset-3, dataset-1, HGCal) generation
+and training goes, on one CUDA card.
 
     python3 scripts/torch_profile_ds2.py [--dataset 2] [--particle photon] [--calls 10]
                                          [--generate-reps 3] [--generate-batches 2]
@@ -9,14 +9,18 @@ training goes, on one CUDA card.
 Builds calodiffusion_tpu_torch's CaloDiffusion at the full width of
 configs/config_dataset2.json (``--dataset 3``: config_dataset3.json;
 ``--dataset 1``: config_dataset1_{photon,pion}.json on chip_smoke.py's
-synthetic binning of ``--particle``; bf16, seeded random weights).  First, while the process is cold, times
+synthetic binning of ``--particle``; ``--dataset hgcal``:
+config_HGCal_{photons,pions}.json on chip_smoke.py's synthetic geometry of
+``--particle``, its GLaM decode in ``generate``; bf16, seeded random
+weights).  First, while the process is cold, times
 ``generate`` over ``--generate-batches`` batches of 128 with 400-step DDim
 ``--generate-reps`` times (host clock, synchronised), as chip_smoke.py
 times it once.  Then warms up, times ``--calls`` denoise calls at batch 128
 with CUDA events, traces the same calls with torch.profiler and sums device
 time by kernel family.  Then does the same for ``--train-steps`` steps of
 ``TrainDiffusion.train_step`` (forward, backward, Adam) on one batch of the
-config's BATCH (128 for ds2, 64 for ds3).  Prints the top kernels and one
+config's BATCH (128 for ds2, 64 for ds3, 256 and 128 for HGCal's photons
+and pions).  Prints the top kernels and one
 JSON line; ``--out`` also writes them to a JSON file.
 """
 
@@ -118,9 +122,9 @@ def summary(event_ms, wall_ms, by_kernel, unit):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--dataset", type=int, choices=(1, 2, 3), default=2)
+    ap.add_argument("--dataset", choices=("1", "2", "3", "hgcal"), default="2")
     ap.add_argument("--particle", choices=("photon", "pion"), default="photon",
-                    help="dataset 1's config")
+                    help="dataset 1's or HGCal's config")
     ap.add_argument("--calls", type=int, default=10)
     ap.add_argument("--generate-reps", type=int, default=3)
     ap.add_argument("--generate-batches", type=int, default=2)
@@ -136,7 +140,7 @@ def main() -> None:
         capture_output=True, text=True, timeout=60,
     ).stdout.strip()
     linear_attention.build_all()  # the kernels' build is set-up, not generation
-    if args.dataset == 1:  # the binning XML is not in the repository: chip_smoke's synthetic one
+    if args.dataset == "1":  # the binning XML is not in the repository: chip_smoke's synthetic one
         import tempfile
 
         import chip_smoke
@@ -145,15 +149,25 @@ def main() -> None:
         xml.write_text(chip_smoke.ds1_binning_xml(args.particle))
         cfg = load_config(str(ROOT / "configs" / f"config_dataset1_{args.particle}.json"))
         cfg["BIN_FILE"] = str(xml)
+    elif args.dataset == "hgcal":  # the geometry pickle is not in the repository either
+        import tempfile
+
+        import chip_smoke
+
+        name = f"hgcal_{args.particle}s"
+        cfg = load_config(str(ROOT / "configs" / chip_smoke.HGCAL_DATA[name]["config"]))
+        cfg["BIN_FILE"] = chip_smoke.hgcal_geom_file(Path(tempfile.mkdtemp()), name, cfg)
     else:
         cfg = load_config(str(ROOT / "configs" / f"config_dataset{args.dataset}.json"))
     model = CaloDiffusion(cfg, generator=torch.Generator().manual_seed(args.seed))
     g = torch.Generator(device="cuda").manual_seed(args.seed)
     B, n_layers = 128, cfg["SHAPE_FINAL"][2] + 1
     shape, nb = model._data_shape, args.generate_batches
+    n_cond = 3 if cfg.get("HGCAL") else 1  # HGCal's E: three gen-info columns
+    TB = cfg["BATCH"]
 
     rng = np.random.default_rng(args.seed)
-    loader = [(rng.uniform(0.0, 1.0, (B, 1)).astype(np.float32),
+    loader = [(rng.uniform(0.0, 1.0, (B, n_cond)).astype(np.float32),
                rng.standard_normal((B, n_layers)).astype(np.float32), None) for _ in range(nb)]
     generate_s = []
     for rep in range(args.generate_reps):
@@ -165,14 +179,15 @@ def main() -> None:
         print(f"generate {rep}: {nb * B} showers in {generate_s[-1]:.3f} s", flush=True)
 
     x = torch.randn(B, *shape, generator=g, device="cuda")
-    E = torch.rand(B, 1, generator=g, device="cuda")
-    layers = (torch.randn(B, n_layers, generator=g, device="cuda") if model.layer_cond
-              else None)
+    E = torch.rand(max(B, TB), n_cond, generator=g, device="cuda")
+    layers = (torch.randn(max(B, TB), n_layers, generator=g, device="cuda")
+              if model.layer_cond else None)
     sigma = torch.full((B,) + (1,) * len(shape), 0.7, device="cuda")
 
     def call():
         with torch.inference_mode():
-            return model.denoise(x, E=E, sigma=sigma, layers=layers)
+            return model.denoise(x, E=E[:B], sigma=sigma,
+                                 layers=None if layers is None else layers[:B])
 
     event_ms, wall_ms, by_kernel = time_and_profile(call, args.calls)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:25]
@@ -182,7 +197,6 @@ def main() -> None:
                              save_model=False)
     trainer.init_model()
     trainer.make_optimizer(float(cfg["LR"]))
-    TB = cfg["BATCH"]
     data = torch.randn(TB, *shape, generator=g, device="cuda")
     t_event, t_wall, t_kernels = time_and_profile(
         lambda: trainer.train_step(data, E[:TB], None if layers is None else layers[:TB]),
@@ -196,7 +210,8 @@ def main() -> None:
 
     result = {
         "card": card, "dataset": args.dataset,
-        "particle": args.particle if args.dataset == 1 else None, "batch": B, "train_batch": TB,
+        "particle": args.particle if args.dataset in ("1", "hgcal") else None, "batch": B,
+        "train_batch": TB,
         "calls": args.calls,
         "denoise_ms_events": event_ms, "denoise_ms_host_wall": wall_ms,
         "profiled_device_ms_per_call": denoise["profiled_device_ms_per_call"],

@@ -386,24 +386,13 @@ def test_process_data_dict_and_load_samples_match_jax(workspace, generated, emin
     (["sample", "--model-loc", "m.ckpt", "--sample-algo", "Karras", "diffusion"], ValueError,
      "sampler 'Karras' is not supported; pick from"),
     (["sample", "--model-loc", "m.ckpt", "--int8", "diffusion"], NotImplementedError, "M12"),
-    (["sample", "--model-loc", "m.ckpt", "--sparse-decoding", "diffusion"], NotImplementedError,
-     "M10"),
     # the cascade (M9) is ported; it still refuses int8 sampling
     (["sample", "--model-loc", "m.ckpt", "--int8", "layer", "--layer-model", "l.ckpt"],
      NotImplementedError, "M12"),
-], ids=["argv0-M8", "argv1-M12", "argv2-M10", "argv3-M9"])
+], ids=["argv0-M8", "argv1-M12", "argv3-M9"])
 def test_unported_sample_options_raise(argv, error, item):
     with pytest.raises(error, match=item):
         tinf.main(["--device", "cpu"] + argv)
-
-
-# layer (M9) and distill (M13) are ported; both still refuse HGCal data (M10)
-@pytest.mark.parametrize("cmd,item", [("layer", "M10"), ("distill", "M10")],
-                         ids=["layer-M9", "distill-M13"])
-def test_unported_train_commands_raise(workspace, cmd, item):
-    _, data, cfg = workspace
-    with pytest.raises(NotImplementedError, match=item):
-        ttrain.main(["-c", cfg, "-d", data, "--device", "cpu", "--hgcal", cmd])
 
 
 def test_jax_checkpoint_is_refused_with_a_message(tmp_path):

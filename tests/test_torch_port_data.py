@@ -227,14 +227,21 @@ def test_get_files_keeps_the_substring_quirk(tmp_path):
 
 
 def test_hgcal_and_pre_embed_raise(sources, tmp_path):
+    """HGCal data is ported (tests/test_torch_port_hgcal.py): a CaloChallenge
+    file read as HGCal has no gen_info, in both loaders; a pre-embed without
+    HGCAL is refused, where the JAX loader fails reading BIN_FILE ("") as a
+    geometry."""
     d = str(tmp_path) + "/"
     shutil.copy(sources / "dataset_2_1.hdf5", d)
-    with pytest.raises(NotImplementedError, match="M10"):
-        tloader.load_data(default_flags(data_folder=d),
-                          tiny_ds2_config(FILES=["dataset_2_1.hdf5"], HGCAL=True))
-    with pytest.raises(NotImplementedError, match="M10"):
-        tloader.load_data(default_flags(data_folder=d),
-                          tiny_ds2_config(SHOWER_EMBED="pre-embed"))
+    cfg = tiny_ds2_config(FILES=["dataset_2_1.hdf5"], HGCAL=True)
+    for mod in (jloader, tloader):
+        with pytest.raises(KeyError, match="gen_info"):
+            mod.load_data(default_flags(data_folder=d, device="cpu"), dict(cfg))
+    cfg = tiny_ds2_config(SHOWER_EMBED="pre-embed")
+    with pytest.raises(ValueError, match="needs HGCAL"):
+        tloader.load_data(default_flags(data_folder=d), dict(cfg))
+    with pytest.raises(FileNotFoundError):
+        jloader.load_data(default_flags(data_folder=d), dict(cfg))
 
 
 @pytest.mark.parametrize("config", ["config_dataset2.json", "config_dataset3.json"])

@@ -8,6 +8,7 @@ and noise are made with numpy from a seed and fed to both sides."""
 
 import json
 import os
+import pickle
 
 import h5py
 import numpy as np
@@ -162,19 +163,35 @@ def test_shipped_configs_build_with_the_embed(xmls, part, monkeypatch):
     assert blocks == chip_smoke.DS1_ATTENTION_BLOCKS[part]
 
 
-@pytest.mark.parametrize("config", ["config_HGCal.json", "config_HGCal_photons.json",
-                                    "config_HGCal_pions.json"])
-def test_hgcal_configs_raise_naming_m10b(config):
-    with open(os.path.join(CONFIGS, config)) as f:
-        cfg = json.load(f)
-    with pytest.raises(NotImplementedError, match="M10b"):
-        CaloDiffusion(cfg, device="cpu")
-
-
 def test_pre_embed_and_other_embeds_raise(xmls):
-    for embed, item in (("orig-pre-embed", "M10b"), ("NN", "M10b"), ("FCN", "M11")):
-        with pytest.raises(NotImplementedError, match=item):
-            CaloDiffusion(ds1_config("photon", xmls["photon"], SHOWER_EMBED=embed), device="cpu")
+    """FCN is not ported (M11); a pre-embed without HGCAL is refused with a
+    message, where the JAX package fails too (its model at the orig layout,
+    its loader unpickling the binning XML as an HGCal geometry)."""
+    with pytest.raises(NotImplementedError, match="M11"):
+        CaloDiffusion(ds1_config("photon", xmls["photon"], SHOWER_EMBED="FCN"), device="cpu")
+    for embed in ("orig-pre-embed", "NN-pre-embed"):
+        cfg = ds1_config("photon", xmls["photon"], SHOWER_EMBED=embed, FILES=[], VAL_FILES=[])
+        with pytest.raises(ValueError, match="needs HGCAL"):
+            CaloDiffusion(dict(cfg), device="cpu")
+        with pytest.raises(pickle.UnpicklingError):
+            jloader.load_data(default_flags(data_folder="/nonexistent/"), dict(cfg))
+    with pytest.raises(ValueError, match="broadcast"):
+        JaxModel(ds1_config("photon", xmls["photon"], SHOWER_EMBED="orig-pre-embed")).init(
+            jax.random.PRNGKey(0))
+
+
+def test_nn_embed_without_orig_builds_as_jax(xmls):
+    """SHOWER_EMBED "NN" (no "orig") on dataset 1 builds as in the JAX
+    package: the embed in the model, showers in SHAPE_PAD's (1, 368)."""
+    cfg = ds1_config("photon", xmls["photon"], SHOWER_EMBED="NN")
+    m = CaloDiffusion(dict(cfg), device="cpu", generator=torch.Generator().manual_seed(0))
+    assert isinstance(m.net.NN_embed, NNConverter)
+    assert m._data_shape == JaxModel(dict(cfg))._data_shape == (1, 368)
+    x, E, layers = _batch(cfg, 2, seed=3)
+    with torch.no_grad():
+        out = m.denoise(torch.from_numpy(x[:, None]), E=torch.from_numpy(E),
+                        sigma=torch.full((2, 1, 1), 0.7), layers=torch.from_numpy(layers))
+    assert out.shape == (2, 1, 368) and torch.isfinite(out).all()
 
 
 # ---------------------------------------------------------------------------

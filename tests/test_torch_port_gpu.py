@@ -37,6 +37,9 @@ DS3_SHAPES = [(2, 40500, 32), (2, 5175, 32), (2, 576, 32)]
 # 32, photons at 32, 64 and 96), at B = 4
 DS1_SHAPES = [(4, 1610, 16), (4, 220, 16), (4, 20, 16), (4, 20, 32), (4, 1500, 32),
               (4, 225, 32), (4, 225, 64), (4, 28, 64), (4, 28, 96)]
+# and one HGCal (C, N) of each new N (chip_smoke.HGCAL_ATTENTION_BLOCKS:
+# photons' level 0, pions' level 2 at C = 96), at B = 4
+HGCAL_SHAPES = [(4, 11844, 32), (4, 432, 96)]
 
 
 @pytest.fixture(autouse=True)
@@ -64,7 +67,7 @@ def _block_args(B, N, C, dtype, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
-@pytest.mark.parametrize("B,N,C", SHAPES + DS3_SHAPES + DS1_SHAPES)
+@pytest.mark.parametrize("B,N,C", SHAPES + DS3_SHAPES + DS1_SHAPES + HGCAL_SHAPES)
 def test_attention_block_kernel_matches_plain(B, N, C, dtype):
     args = _block_args(B, N, C, dtype, seed=B + N + C)
     before = tattn.fused_attention_block.launches
@@ -72,7 +75,7 @@ def test_attention_block_kernel_matches_plain(B, N, C, dtype):
     torch.cuda.synchronize()
     assert tattn.fused_attention_block.launches == before + 1
     assert got.shape == (B, N, C) and got.dtype == dtype
-    want = tattn.attention_block_reference(*args).float()
+    want = tattn.attention_block_reference_f32(*args).float()
     atol, rtol = K1_TOL[dtype]
     torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
 
@@ -92,7 +95,7 @@ def test_attention_block_kernel_at_forced_cluster_sizes(C, N, cluster, dtype):
     lib = tattn._kernel_library(tattn.FORWARD_KERNEL, args[0])
     got = tattn.launch_forward(lib, *args, 1e-5, cluster=cluster)
     torch.cuda.synchronize()
-    want = tattn.attention_block_reference(*args).float()
+    want = tattn.attention_block_reference_f32(*args).float()
     atol, rtol = K1_TOL[dtype]
     torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
 
@@ -169,7 +172,7 @@ def test_dataset1_denoise_on_card_matches_cpu(tmp_path, part):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
-@pytest.mark.parametrize("B,N,C", SHAPES + DS3_SHAPES + DS1_SHAPES)
+@pytest.mark.parametrize("B,N,C", SHAPES + DS3_SHAPES + DS1_SHAPES + HGCAL_SHAPES)
 def test_attention_block_backward_kernel_matches_plain(B, N, C, dtype):
     args = _block_args(B, N, C, dtype, seed=B + N + C + 1)
     g = torch.from_numpy(np.random.default_rng(N).standard_normal((B, N, C)).astype(np.float32))
@@ -732,3 +735,27 @@ def test_cascade_and_distill_step_on_card_match_cpu():
     G = max(g.abs().max().item() for g in g_cpu.values())
     for k, g in g_cpu.items():
         assert ((g_card[k] - g).abs().max() / (g.abs().max() + 1e-3 * G)).item() <= 5e-3, k
+
+
+def test_glam_products_and_pseudo_inverses_on_card_match_cpu(tmp_path):
+    """HGCal's GLaM on a synthetic geometry (12 layers, 13 rings): the
+    pseudo-inverses taken on the card within 1e-5 of numpy's (max-norm
+    relative), and the dense encode and decode on the card within 1e-5 of
+    the CPU's from the same matrices."""
+    from calodiffusion_tpu_torch.utils import hgcal_utils
+
+    path = str(tmp_path / "geom.pkl")
+    hgcal_utils.save_geom(hgcal_utils.make_synthetic_geom(nlayers=12, cells_per_ring=6,
+                                                          nrings=13, max_cells=500), path)
+    bins = [-1, 1, 12, 12, 14]
+    cpu = hgcal_utils.HGCalConverter(bins=bins, geom_file=path).init(norm=False, device="cpu")
+    card = hgcal_utils.HGCalConverter(bins=bins, geom_file=path).init(norm=False, device="cuda")
+    assert card.enc_mat.tobytes() == cpu.enc_mat.tobytes()
+    assert np.abs(card.dec_mat - cpu.dec_mat).max() <= 1e-5 * np.abs(cpu.dec_mat).max()
+    rng = np.random.default_rng(0)
+    x = rng.exponential(1.0, (16, 12, 500)).astype(np.float32)
+    y = rng.standard_normal((16, 12, 12, 14)).astype(np.float32)
+    for got, want in ((cpu.enc(x, device="cuda"), cpu.enc(x, device="cpu")),
+                      (cpu.dec(y, device="cuda"), cpu.dec(y, device="cpu"))):
+        assert got.shape == want.shape
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()

@@ -151,10 +151,12 @@ def test_generate_end_to_end_on_cpu(pair):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="SHOWER_EMBED"):
-        CaloDiffusion(_cfg(SHOWER_EMBED="NN"), device="cpu")
-    with pytest.raises(NotImplementedError, match="HGCAL.*M10b"):
-        CaloDiffusion(_cfg(HGCAL=True), device="cpu")
+    # the in-model embeds are ported: without their geometry file (BIN_FILE
+    # "") both packages raise where they read it
+    for kw in (dict(SHOWER_EMBED="NN"), dict(HGCAL=True)):
+        for model, extra in ((CaloDiffusion, dict(device="cpu")), (JaxModel, {})):
+            with pytest.raises(FileNotFoundError):
+                model(_cfg(**kw), **extra)
     # every sampler is ported: an unknown name raises with the JAX wording
     with pytest.raises(ValueError, match="sampler 'Karras' is not supported; pick from"):
         get_sampler("Karras")
