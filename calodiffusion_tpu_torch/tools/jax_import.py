@@ -19,7 +19,10 @@ U-Net's call order exactly as ``torch_import.import_condunet`` does.
 (``Attention``, ``LinearAttention``, ``PreNormResidual``, and the cascade's
 ``ResNetDense`` with its whitening statistics), and
 ``layer_params_to_state_dict`` for the cascade's two-part tree
-``{"base_model": ..., "layer_model": ...}``.
+``{"base_model": ..., "layer_model": ...}``.  ``dnn_params_to_state_dict``
+and ``comparison_params_to_state_dict`` carry the evaluation networks (the
+classifier's DNN, CNNCompare's ComparisonNetwork; Conv2d (kh, kw, Cin, Cout)
+-> (Cout, Cin, kh, kw)).
 """
 
 from __future__ import annotations
@@ -221,3 +224,34 @@ def layer_params_to_state_dict(params, config) -> dict[str, torch.Tensor]:
     layer = module_params_to_state_dict(params["layer_model"], "ResNetDense")
     sd.update({f"layer_model.{k}": v for k, v in layer.items()})
     return sd
+
+
+def dnn_params_to_state_dict(params) -> dict[str, torch.Tensor]:
+    """The flax tree of ``calodiffusion_tpu.evaluation.classifier.DNN``
+    (``Dense_0`` .. ``Dense_n``) -> the port ``DNN``'s state_dict
+    (``dense.{i}``; kernels (in, out) -> (out, in))."""
+    tree = _subtree(params)
+    w = _Writer(tree)
+    for i in range(len(tree)):
+        w.linear([f"Dense_{i}"], f"dense.{i}")
+    return w.sd
+
+
+def comparison_params_to_state_dict(params) -> dict[str, torch.Tensor]:
+    """The flax tree of ``calodiffusion_tpu.evaluation.evaluate.
+    ComparisonNetwork`` -> the port ``ComparisonNetwork``'s state_dict:
+    ``Conv_i`` -> ``convs.{i}`` (kernels (kh, kw, Cin, Cout) -> (Cout, Cin,
+    kh, kw)), ``GroupNorm_i`` -> ``norms.{i}`` (scale -> weight),
+    ``Dense_i`` -> ``dense.{i}`` ((in, out) -> (out, in))."""
+    tree = _subtree(params)
+    w = _Writer(tree)
+    i = 0
+    while f"Conv_{i}" in tree:
+        n = tree[f"Conv_{i}"]
+        w.sd[f"convs.{i}.weight"] = _tensor(np.transpose(np.asarray(n["kernel"]), (3, 2, 0, 1)))
+        w.sd[f"convs.{i}.bias"] = _tensor(n["bias"])
+        w.groupnorm([f"GroupNorm_{i}"], f"norms.{i}")
+        i += 1
+    for j in range(2):
+        w.linear([f"Dense_{j}"], f"dense.{j}")
+    return w.sd

@@ -171,13 +171,36 @@ prints no result:
             the card's pseudo-inverses within 1e-5 of numpy's, one f32
             denoise and one f32 train step card against CPU (the GLaM
             matrices' gradients among them, their masked entries 0)
-13. result  {"kernels": [...]} (each kernel's launches by path: generate,
+13. evaluate the evaluation and optimisation paths on the cli phase's ds2
+            caches and U-Net, in its directory: a synthetic ds2 binning XML
+            (DS2_BINNING: 6480 voxels, the config's SHAPE_FINAL grid);
+            fidelity_metrics on the card (its DNN classifier trains there)
+            for every raw synthetic ds2 shower of the caches against the 128
+            the cli phase's sample CLI generated: AUC in [0, 1], JSD >= 0,
+            FPD and its error finite; one f32 train_classifier card against
+            CPU (probabilities within 1e-4); CNNCompare with
+            RETRAIN_EVAL_NETWORK (cut: one epoch over 2 batches of 128 of
+            the eval caches, NSTEPS 400 -> 10): K1 7 a denoise, K2 never,
+            the score finite and <= 0, its .pt weights file written, a fresh
+            CNNCompare that loads it scoring alike (1e-6) with the same
+            seed, the ComparisonNetwork's f32 logits card against CPU (1e-4,
+            TF32 off); then one random-search trial of the optimize CLI
+            (-o COUNT FPD CNN, --model diffusion) on a full-width copy of
+            the ds2 config with OPTIMIZE {LR, SAMPLER_SETTINGS}, SAMPLER
+            DDim and the synthetic binning (cut: MAXEPOCH 1, the cli
+            phase's caches, NSTEPS 400 -> 10): the report's params the
+            random study's draw, every value finite, not None and not its
+            objective's failure(), K1 and K2 7 a train step, K1 7 a denoise
+            and K2 none in sampling; the walls of the classifier, the CNN
+            and the trial (its training and each objective apart)
+14. result  {"kernels": [...]} (each kernel's launches by path: generate,
             train, the cli paths, samplers, bns, variants, cascade_train,
             cascade_sample, distill_train, distill_val, distill_sample,
             ds1_photon_train, ds1_photon_sample, ds1_pion_train,
             ds1_pion_sample, hgcal_photons_train, hgcal_photons_sample,
             hgcal_photons_sparse_sample, hgcal_glam_train, hgcal_pions_train,
-            hgcal_pions_sample; K1's and K2's "launches" sum the last six,
+            hgcal_pions_sample, evaluate_cnn_sample, optimize_train,
+            optimize_sample; K1's and K2's "launches" sum the last three,
             this slice's paths; their "ds1" and "hgcal" hold one U-Net
             call's times of each config) and, last, {"ok": true, "device":
             {...}}
@@ -186,6 +209,7 @@ prints no result:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib.util
 import json
 import statistics
@@ -801,10 +825,11 @@ def write_cache(path, showers, energies, cfg):
                         showers=np.reshape(shower, cfg["SHAPE_ORIG" if orig else "SHAPE_PAD"]))
 
 
-def make_cli_data(root: Path, name: str, seed: int, **overrides):
+def make_cli_data(root: Path, name: str, seed: int, raw=None, **overrides):
     """The caches and the config of one dataset under ``root``: the
     shipped config at full width and depth, its training cut to one epoch
-    (and ``overrides``: dataset 1's BIN_FILE)."""
+    (and ``overrides``: dataset 1's BIN_FILE).  Each file's raw showers and
+    incident energies go into ``raw`` where it is a dict."""
     spec = cli_spec(name)
     cfg = json.loads((ROOT / "configs" / spec["config"]).read_text())
     cfg.update(spec["overrides"], MAXEPOCH=1, **overrides)
@@ -812,7 +837,10 @@ def make_cli_data(root: Path, name: str, seed: int, **overrides):
     data.mkdir(parents=True)
     rng = np.random.default_rng(seed)
     for fname, n in spec["files"].items():
-        write_cache(data / f"{fname}.npz", *raw_showers(rng, n, spec["voxels"]), cfg)
+        showers, energies = raw_showers(rng, n, spec["voxels"])
+        write_cache(data / f"{fname}.npz", showers, energies, cfg)
+        if raw is not None:
+            raw[fname] = (showers, energies)
     cfg_path = root / name / "config.json"
     cfg_path.write_text(json.dumps(cfg))
     return cfg, str(cfg_path), str(data) + "/"
@@ -879,8 +907,8 @@ def run_cli(name, cfg, cfg_path, data, ckpt, seed, attn, card, phase="cli", show
     (inference.parse_flags + generate_showers: all but the h5 write), on one
     dataset; K1 and K2 counts reset just before each and read just after.
     The sample batch is the spec's ``sample_batch`` (CLI_SAMPLE_BATCH), run
-    in microbatches of 128 (sample_cli).  The showers are appended to
-    ``showers_out`` where it is a list."""
+    in microbatches of 128 (sample_cli).  The showers and their energies
+    are appended to ``showers_out`` where it is a list."""
     from unittest import mock
 
     from calodiffusion_tpu_torch import training
@@ -923,13 +951,13 @@ def run_cli(name, cfg, cfg_path, data, ckpt, seed, attn, card, phase="cli", show
           f"peak memory {train_mem:.2f} GiB; losses {[round(s['loss'], 4) for s in steps]}",
           flush=True)
 
-    sample, showers = sample_cli(name, cfg, common, folder, attn, card, phase)
+    sample, showers, energies = sample_cli(name, cfg, common, folder, attn, card, phase)
     results = dict(train=train, sample=sample, checkpoint=str(folder / "final.ckpt"))
     if name == "ds2":
         results["sample_dpmpp2m"] = run_cli_sampler(common, folder, attn, card, n_blocks,
                                                     "DPMPP2M", 20, 19)
     if showers_out is not None:
-        showers_out.append(showers)
+        showers_out.append((showers, energies))
     return results
 
 
@@ -938,7 +966,7 @@ def sample_cli(name, cfg, common, folder, attn, card, phase, sample_args=(), pat
     cache (400-step DDim) from ``folder``'s final.ckpt, ``sample_args``
     given to ``sample`` (HGCal's ``--sparse-decoding``), its checks, HGCal's
     GLaM decode timed apart, and its h5 write where h5py is installed;
-    returns (results, showers)."""
+    returns (results, showers, energies)."""
     from unittest import mock
 
     from calodiffusion_tpu_torch import inference
@@ -1003,7 +1031,7 @@ def sample_cli(name, cfg, common, folder, attn, card, phase, sample_args=(), pat
         if shapes != (shape, (n, n_e)):
             fail(f"{phase} {name}: the h5 file holds {shapes}")
         print(f"{phase} {name} {path}: write_out wrote {out}: {shapes}", flush=True)
-    return sample, showers
+    return sample, showers, energies
 
 
 def run_cli_sampler(common, folder, attn, card, n_blocks, algo, steps, evals):
@@ -1037,17 +1065,20 @@ def run_cli_sampler(common, folder, attn, card, n_blocks, algo, steps, evals):
 
 def run_cli_phase(root: Path, seed, attn, card):
     """The cli phase on ds2 and ds3 under ``root`` (a temporary directory
-    that phases 9 and 10 reuse); returns the results and, by dataset, its
-    (config, config path, data folder)."""
-    results = {}
+    that phases 9-13 reuse); returns the results, by dataset its (config,
+    config path, data folder), and ds2's raw showers by file and generated
+    (showers, energies), which phase 13 compares."""
+    results, ds2 = {}, {"raw": {}, "generated": []}
     t0 = time.perf_counter()
-    made = {name: make_cli_data(root, name, seed + i) for i, name in enumerate(CLI_DATA)}
+    made = {name: make_cli_data(root, name, seed + i, raw=ds2["raw"] if name == "ds2" else None)
+            for i, name in enumerate(CLI_DATA)}
     print(f"cli: npz caches of {sum(sum(s['files'].values()) for s in CLI_DATA.values())} "
           f"synthetic showers written in {time.perf_counter() - t0:.1f} s", flush=True)
     for i, (name, (cfg, cfg_path, data)) in enumerate(made.items()):
         results[name] = run_cli(name, cfg, cfg_path, data, str(root / name / "ckpt"),
-                                seed + 10 + i, attn, card)
-    return results, made
+                                seed + 10 + i, attn, card,
+                                showers_out=ds2["generated"] if name == "ds2" else None)
+    return results, made, ds2
 
 
 # ---------------------------------------------------------------------------
@@ -1942,16 +1973,32 @@ DS1_BINNING = {
 }
 
 
-# the paths of this slice's phase (12, hgcal), in the kernels line's launches_by_path
-SLICE_PATHS = ("hgcal_photons_train", "hgcal_photons_sample", "hgcal_photons_sparse_sample",
-               "hgcal_glam_train", "hgcal_pions_train", "hgcal_pions_sample")
+
+
+# and of the dataset-2 binning (CaloChallenge/code/binning_dataset_2.xml,
+# not in the repository either): 45 layers of 9 radial and 16 alpha bins,
+# 6480 voxels, the grid of config_dataset2.json's SHAPE_FINAL (45, 16, 9);
+# the radial edges are synthetic
+DS2_PARTICLE = "electron"
+DS2_BINNING = [(i, "0,4.65,9.3,13.95,18.6,27.9,37.2,46.5,55.8,74.4", 16) for i in range(45)]
+
+
+def binning_xml(part: str, rows) -> str:
+    """The binning XML of (layer id, radial edges, alpha bins) ``rows``, as
+    XMLHandler reads it."""
+    layers = "\n".join(f'  <Layer id="{i}" r_edges="{edges}" n_bin_alpha="{alphas}"/>'
+                        for i, edges, alphas in rows)
+    return f'<Bins>\n<Particle name="{part}">\n{layers}\n</Particle>\n</Bins>\n'
 
 
 def ds1_binning_xml(part: str) -> str:
-    """The binning XML of ``DS1_BINNING[part]``, as XMLHandler reads it."""
-    rows = "\n".join(f'  <Layer id="{i}" r_edges="{edges}" n_bin_alpha="{alphas}"/>'
-                     for i, edges, alphas in DS1_BINNING[part])
-    return f'<Bins>\n<Particle name="{part}">\n{rows}\n</Particle>\n</Bins>\n'
+    """The binning XML of ``DS1_BINNING[part]``."""
+    return binning_xml(part, DS1_BINNING[part])
+
+
+def ds2_binning_xml() -> str:
+    """The binning XML of ``DS2_BINNING``."""
+    return binning_xml(DS2_PARTICLE, DS2_BINNING)
 
 
 def check_ds1_binning(part: str, xml: str, cfg: dict) -> None:
@@ -2293,15 +2340,312 @@ def run_hgcal_phase(root: Path, seed, attn, card):
             with mock.patch.object(hgcal_utils.HGCalConverter, "dec_batches", synced(
                     hgcal_utils.HGCalConverter.dec_batches, [], outputs=sparse_dec)):
                 common = ["-c", cfg_path, "-d", data, "--seed", str(seed + 10 + i)]
-                res["sparse_sample"], showers = sample_cli(
+                res["sparse_sample"], showers, _ = sample_cli(
                     name, cfg, common, Path(res["checkpoint"]).parent, attn, card, "hgcal",
                     ("--sparse-decoding",), "sparse_sample")
                 sparse.append(showers)
-            res["sparse_check"] = check_sparse_decoding(cfg, data, dense[0], sparse[0],
+            res["sparse_check"] = check_sparse_decoding(cfg, data, dense[0][0], sparse[0],
                                                         dense_dec[0], sparse_dec[0])
             res["glam_in_model"] = run_glam_in_model(cfg, seed + 20, attn, card)
         results[name] = res
     return results
+
+
+# ---------------------------------------------------------------------------
+# 13. evaluate: the fidelity metrics, CNNCompare and one optimize-CLI trial
+# on the cli phase's ds2 caches and U-Net
+# ---------------------------------------------------------------------------
+
+# the paths of this slice's phase (13, evaluate), in the kernels line's
+# launches_by_path
+SLICE_PATHS = ("evaluate_cnn_sample", "optimize_train", "optimize_sample")
+# CNNCompare and the optimize trial sample with 10 DDim steps (NSTEPS), not
+# the config's 400
+EVAL_NSTEPS = 10
+# CNNCompare retrains its CNN for one epoch (not TRAIN_HP's 48) over the cli
+# phase's two ds2 caches of 128 that the U-Net did not train on
+EVAL_FILES = ["dataset_2_2.hdf5", "dataset_2_val.hdf5"]
+# the optimize trial's search space: one learning rate, the config's sampler
+OPTIMIZE_SPACE = {"LR": [1e-4, 1e-3], "SAMPLER_SETTINGS": {}}
+# Card against CPU, f32, TF32 off, same inputs and weights.  The classifier's
+# probabilities after 3 epochs of Adam: the products sum 256-wide rows in
+# other orders (1e-7 relative a product), which a few dozen Adam steps carry
+# into the weights; 1e-4.  The ComparisonNetwork's logits: four convolutions
+# and GroupNorms of sums over up to 864 terms, then two dense layers; 1e-4.
+CLASSIFIER_PROB_TOL = 1e-4
+CNN_LOGIT_TOL = 1e-4
+# two CNNCompare scores from the same weights file and generator seed (the
+# same draws, the same deterministic kernels)
+CNN_SCORE_TOL = 1e-6
+
+
+class tf32_off:
+    """TF32 off for cuBLAS and cuDNN inside the block; the state before
+    restored after."""
+
+    def __enter__(self):
+        self.prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = self.prev
+
+
+def check_ds2_binning(xml: str, cfg: dict) -> None:
+    """The synthetic binning's voxel count is the config's SHAPE_ORIG and
+    its grid (layers, alpha bins, radial bins) the config's SHAPE_FINAL."""
+    from calodiffusion_tpu_torch.utils.xml_handler import XMLHandler
+
+    bins = XMLHandler(DS2_PARTICLE, xml)
+    grids = {(len(bins.GetRelevantLayers()), a, r) for a, r in zip(bins.a_bins, bins.r_bins)}
+    if grids != {tuple(cfg["SHAPE_FINAL"][2:])} or \
+            bins.GetTotalNumberOfBins() != cfg["SHAPE_ORIG"][1]:
+        fail(f"evaluate: the ds2 binning gives grids {grids} and {bins.GetTotalNumberOfBins()} "
+             f"voxels; the config says {cfg['SHAPE_FINAL'][2:]} and {cfg['SHAPE_ORIG'][1]}")
+
+
+def run_fidelity(cfg, ds2_showers, seed, card):
+    """``fidelity_metrics`` on the card (the DNN classifier trains there):
+    the raw synthetic ds2 showers of the cli phase's caches, in the loader's
+    units (SHOWERSCALE), against the 128 showers its sample CLI generated;
+    then one f32 ``train_classifier`` (3 epochs) on the card against the
+    CPU from the same weights and batches."""
+    from calodiffusion_tpu_torch.evaluation import classifier, evaluate
+
+    scale = cfg.get("SHOWERSCALE", 200.0)  # the loader's default, as write_cache
+    ref = np.concatenate([s for s, _ in ds2_showers["raw"].values()]) * scale
+    ref_e = np.concatenate([e for _, e in ds2_showers["raw"].values()])[:, 0] * scale
+    gen, gen_e = ds2_showers["generated"][0]
+    nlayers = cfg["SHAPE_FINAL"][2]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = evaluate.fidelity_metrics(ref, ref_e, gen, gen_e[:, 0], nlayers=nlayers,
+                                        generator=torch.Generator().manual_seed(seed))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    auc, jsd, fpd, fpd_err = (metrics[k] for k in ("classifier_auc", "classifier_jsd", "fpd",
+                                                    "fpd_err"))
+    if not (0.0 <= auc <= 1.0 and jsd >= 0.0 and np.isfinite([fpd, fpd_err]).all()):
+        fail(f"evaluate fidelity_metrics: {metrics}")
+    print(f"evaluate fidelity_metrics: {len(ref)} raw synthetic ds2 showers against the "
+          f"{len(gen)} the cli phase generated: classifier AUC {auc:.4f}, JSD {jsd:.4f}, FPD "
+          f"{fpd:.4f} +- {fpd_err:.4f}; {wall:.2f} s on {card} (the DNN trains there, 20 "
+          f"epochs)", flush=True)
+
+    f_ref = evaluate.shower_feature_matrix(ref, ref_e, nlayers)
+    f_gen = evaluate.shower_feature_matrix(gen, gen_e, nlayers)
+    init = classifier.flax_init_(classifier.DNN(f_ref.shape[1]),
+                                 torch.Generator().manual_seed(seed + 1)).state_dict()
+    probs = {}
+    with tf32_off():
+        for dev in ("cuda", "cpu"):
+            apply_fn, _, (X_val, _, _, mu, sd) = classifier.train_classifier(
+                f_ref, f_gen, epochs=3, device=dev, init_state=init)
+            probs[dev] = apply_fn(X_val * sd + mu)
+    err = float(np.abs(probs["cuda"] - probs["cpu"]).max())
+    if not err <= CLASSIFIER_PROB_TOL:
+        fail(f"evaluate: the classifier's f32 probabilities on the card differ from the CPU's "
+             f"by {err:.3g} > {CLASSIFIER_PROB_TOL}")
+    print(f"evaluate: f32 train_classifier (3 epochs) card vs CPU: probabilities max_abs_err "
+          f"{err:.3g} (tol {CLASSIFIER_PROB_TOL})", flush=True)
+    return dict(metrics, wall_s=wall, n_ref=len(ref), n_gen=len(gen),
+                classifier_card_vs_cpu=err)
+
+
+def launch_counts(attn) -> tuple[int, int]:
+    """K1's and K2's launch counters."""
+    return attn.fused_attention_block.launches, attn.attention_block_backward.launches
+
+
+def run_cnn_compare(cfg, data, checkpoint, root, seed, attn, card):
+    """CNNCompare with RETRAIN_EVAL_NETWORK on the cli phase's ds2 U-Net
+    (bf16): its CNN retrained on the EVAL_FILES caches (cut: one epoch, 2
+    batches of 128; NSTEPS 400 -> 10), the weights file written, the score
+    of those batches' generated showers; then a fresh CNNCompare that loads
+    the file scores them alike with the same seed, and the trained CNN's
+    f32 forward on the card against the CPU."""
+    from unittest import mock
+
+    from calodiffusion_tpu_torch.data.loader import load_data
+    from calodiffusion_tpu_torch.evaluation import evaluate
+    from calodiffusion_tpu_torch.models.diffusion import CaloDiffusion
+    from calodiffusion_tpu_torch.train import checkpoint as ckpt_io
+    from calodiffusion_tpu_torch.utils.config import default_flags
+
+    n_blocks = len(DS2_ATTENTION_BLOCKS)
+    model = CaloDiffusion(cfg)
+    model.load_state_dict(ckpt_io.load_inference_weights(checkpoint, "cuda"))
+    flags = default_flags(data_folder=data, results_folder=str(root / "evaluate"))
+    ecfg = dict(cfg, EVAL=EVAL_FILES, NSTEPS=EVAL_NSTEPS, RETRAIN_EVAL_NETWORK=True,
+                flags=flags)
+    eval_data, _ = load_data(flags, ecfg, eval=True)
+    n_batches = len(eval_data)
+    want = (n_blocks * EVAL_NSTEPS * n_batches, 0)
+
+    torch.cuda.synchronize()
+    attn.fused_attention_block.launches = attn.attention_block_backward.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.dict(evaluate.TRAIN_HP, {2: dict(evaluate.TRAIN_HP[2], epochs=1)}):
+        cnn = evaluate.CNNCompare(model, ecfg, flags, seed=seed)
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    k_train = launch_counts(attn)
+    weights = Path(cnn._weights_path())
+    if not weights.exists():
+        fail(f"evaluate CNNCompare: train_network wrote no {weights}")
+    cnn.generator.manual_seed(seed)
+    attn.fused_attention_block.launches = attn.attention_block_backward.launches = 0
+    t0 = time.perf_counter()
+    score = cnn(eval_data)
+    torch.cuda.synchronize()
+    score_wall = time.perf_counter() - t0
+    k_score = launch_counts(attn)
+    for what, got in (("train_network", k_train), ("score", k_score)):
+        if got != want:
+            fail(f"evaluate CNNCompare {what}: K1 {got[0]}, K2 {got[1]} launches; expected "
+                 f"{want} ({n_blocks} a denoise, {EVAL_NSTEPS} denoises a batch, {n_batches} "
+                 "batches)")
+    if not (np.isfinite(score) and score <= 0):
+        fail(f"evaluate CNNCompare: score {score} (a mean log posterior: finite, <= 0)")
+
+    fresh = evaluate.CNNCompare(model, dict(ecfg, RETRAIN_EVAL_NETWORK=False), flags, seed=seed)
+    again = fresh(eval_data)
+    if not abs(again - score) <= CNN_SCORE_TOL:
+        fail(f"evaluate CNNCompare: a fresh instance from {weights.name} scores {again}, the "
+             f"trained one {score}")
+
+    state = {k: v.detach().cpu() for k, v in cnn.cnn.state_dict().items()}
+    E, _, showers = next(iter(eval_data))
+    x = torch.from_numpy(np.asarray(showers, np.float32)[:16]).reshape(-1, *cnn.data_shape)
+    E = torch.from_numpy(np.asarray(E, np.float32)[:16])
+    logits = {}
+    with tf32_off(), torch.no_grad():
+        for dev in ("cuda", "cpu"):
+            net = evaluate.ComparisonNetwork(cnn.data_shape)
+            net.load_state_dict(state)
+            logits[dev] = net.to(dev)(x.to(dev), E.to(dev)).cpu()
+    err = float((logits["cuda"] - logits["cpu"]).abs().max())
+    if not err <= CNN_LOGIT_TOL:
+        fail(f"evaluate: ComparisonNetwork f32 logits card vs CPU {err:.3g} > {CNN_LOGIT_TOL}")
+    tf32 = torch.backends.cudnn.allow_tf32
+    print(f"evaluate CNNCompare: RETRAIN_EVAL_NETWORK, 1 epoch over {n_batches} batches of "
+          f"{cfg['BATCH']}, {EVAL_NSTEPS}-step DDim, bf16 U-Net: train_network {train_wall:.2f} s "
+          f"(K1 {k_train[0]}, K2 {k_train[1]}), score {score:.5f} in {score_wall:.2f} s (K1 "
+          f"{k_score[0]}, K2 {k_score[1]}) on {card}; {weights.name} written, a fresh instance "
+          f"scores {again:.5f}; f32 logits card vs CPU max_abs_err {err:.3g} (tol "
+          f"{CNN_LOGIT_TOL}, TF32 off); the path ran with cuDNN TF32 "
+          f"{'on' if tf32 else 'off'}", flush=True)
+    return dict(score=score, fresh_score=again, train_s=train_wall, score_s=score_wall,
+                k1=k_train[0] + k_score[0], k2=k_train[1] + k_score[1], batches=n_batches,
+                logits_card_vs_cpu=err, cudnn_tf32=tf32)
+
+
+def run_optimize_trial(cfg, data, xml, root, seed, attn, card):
+    """One random-search trial of the optimize CLI (``--model diffusion -o
+    COUNT FPD CNN``) on a copy of the ds2 config at full width with
+    OPTIMIZE_SPACE, SAMPLER DDim and the synthetic binning (cuts: MAXEPOCH
+    1, the cli phase's caches, NSTEPS 400 -> 10): the report's params are
+    the random study's draw, every value finite, not None and not its
+    objective's failure(); K1 and K2 7 a train step, K1 7 a denoise and K2
+    none in sampling."""
+    from unittest import mock
+
+    from calodiffusion_tpu_torch import optimize as optimize_cli
+    from calodiffusion_tpu_torch.models.diffusion import CaloDiffusion
+    from calodiffusion_tpu_torch.train import optimize as topt
+    from calodiffusion_tpu_torch.train.trainer import TrainDiffusion
+    from calodiffusion_tpu_torch.utils.config import dotdict
+
+    n_blocks = len(DS2_ATTENTION_BLOCKS)
+    folder = root / "optimize"
+    folder.mkdir()
+    ocfg = dict(cfg, NSTEPS=EVAL_NSTEPS, OPTIMIZE=OPTIMIZE_SPACE, SAMPLER="DDim", BIN_FILE=xml,
+                PART_TYPE=DS2_PARTICLE)
+    (folder / "config.json").write_text(json.dumps(ocfg))
+    recorder = Recorder(TrainDiffusion.train_step, attn)
+    sampled, sample = [], CaloDiffusion.sample
+
+    def counted_sample(model, *a, **kw):
+        before = launch_counts(attn)
+        out = sample(model, *a, **kw)
+        torch.cuda.synchronize()
+        after = launch_counts(attn)
+        sampled.append(dict(steps=kw.get("num_steps"), k1=after[0] - before[0],
+                            k2=after[1] - before[1]))
+        return out
+
+    walls = {name: [] for name in ("train", "COUNT", "FPD", "CNN")}
+    patches = [mock.patch.object(TrainDiffusion, "train_step", recorder.bind()),
+               mock.patch.object(CaloDiffusion, "sample", counted_sample),
+               mock.patch.object(topt.Optimize, "train", synced(topt.Optimize.train,
+                                                                 walls["train"]))]
+    for name, cls in (("COUNT", topt.Count), ("FPD", topt.FPD), ("CNN", topt.CNNMetric)):
+        patches.append(mock.patch.object(cls, "__call__", synced(cls.__call__, walls[name])))
+    torch.cuda.synchronize()
+    attn.fused_attention_block.launches = attn.attention_block_backward.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for patch in patches:
+            stack.enter_context(patch)
+        study = optimize_cli.optimize(["-c", str(folder / "config.json"), "-d", data, "-o",
+                                       "COUNT", "FPD", "CNN", "--model", "diffusion",
+                                       "--n-trials", "1", "--study-name", "smoke",
+                                       "--results-folder", str(folder / "results")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2 = launch_counts(attn)
+
+    report = json.loads((folder / "results" / "smoke_report.json").read_text())
+    trial = topt._RandomTrial(np.random.default_rng(0), 0)
+    topt.Optimize(dotdict(config=ocfg), None, ["COUNT"]).suggest_config(trial)
+    if report.get("number") != [0] or report.get("params") != [trial.params]:
+        fail(f"optimize: report {report}; expected one trial with params {trial.params}")
+    values = report["values"][0]
+    objectives = (topt.Count, topt.FPD, topt.CNNMetric)
+    if values is None or len(values) != 3 or not all(
+            v is not None and np.isfinite(v) and v != obj.failure()
+            for v, obj in zip(values, objectives)):
+        fail(f"optimize: the trial's values {values} (each finite, not None, not its "
+             f"objective's failure {[obj.failure() for obj in objectives]})")
+    n_train = CLI_DATA["ds2"]["files"]["dataset_2_1.hdf5"] // cfg["BATCH"]
+    recorder.check("optimize train step", n_train, (n_blocks, n_blocks))
+    bad = [s for s in sampled if (s["k1"], s["k2"]) != (n_blocks * s["steps"], 0)]
+    if len(sampled) != 3 or bad or any(s["steps"] != EVAL_NSTEPS for s in sampled):
+        fail(f"optimize: sampling calls {sampled}: expected 3 (COUNT, FPD, CNN) of "
+             f"{EVAL_NSTEPS} steps, K1 {n_blocks} a denoise, K2 none")
+    k1_sample = sum(s["k1"] for s in sampled)
+    k1_train, k2_train = k1 - k1_sample, k2
+    if (k1_train, k2_train) != (n_blocks * (n_train + 1), n_blocks * n_train):
+        fail(f"optimize: training launched K1 {k1_train} and K2 {k2_train} times; expected "
+             f"{n_blocks} each a step and K1 {n_blocks} the val batch")
+    split = {k: v[0] for k, v in walls.items()}
+    print(f"optimize: one random-search trial (-o COUNT FPD CNN, --model diffusion), ds2 full "
+          f"width, bf16, {n_train} train steps of {cfg['BATCH']} and a val batch, then "
+          f"{EVAL_NSTEPS}-step DDim on the val batch for each objective: {wall:.2f} s on {card} "
+          f"(train {split['train']:.2f} s, COUNT {split['COUNT']:.2f} s, FPD {split['FPD']:.2f} "
+          f"s, CNN {split['CNN']:.2f} s); params {trial.params}, values {values}; K1 "
+          f"{k1_train} + {k1_sample}, K2 {k2_train} + 0 (train + sampling)", flush=True)
+    return dict(wall_s=wall, walls_s=split, params=trial.params, values=values,
+                train=dict(k1=k1_train, k2=k2_train, steps=n_train),
+                sample=dict(k1=k1_sample, k2=0, calls=len(sampled)),
+                study_trials=len(study.trials))
+
+
+def run_evaluate_phase(root: Path, made, ds2_showers, cli, seed, attn, card):
+    """Phase 13 on the cli phase's ds2 caches and U-Net, in its directory:
+    the synthetic ds2 binning, fidelity_metrics, CNNCompare and one optimize
+    trial."""
+    cfg, _, data = made["ds2"]
+    xml = root / "ds2_binning.xml"
+    xml.write_text(ds2_binning_xml())
+    check_ds2_binning(str(xml), cfg)
+    print(f"evaluate: synthetic ds2 binning: {cfg['SHAPE_ORIG'][1]} voxels, grid "
+          f"{cfg['SHAPE_FINAL'][2:]}", flush=True)
+    return dict(
+        fidelity=run_fidelity(cfg, ds2_showers, seed, card),
+        cnn=run_cnn_compare(cfg, data, cli["ds2"]["checkpoint"], root, seed + 1, attn, card),
+        optimize=run_optimize_trial(cfg, data, str(xml), root, seed + 2, attn, card),
+    )
 
 
 def main() -> None:
@@ -2405,7 +2749,7 @@ def main() -> None:
     tmp = tempfile.TemporaryDirectory()
     root = Path(tmp.name)
     t0 = time.perf_counter()
-    cli, made = run_cli_phase(root, args.seed + 20, attn, card)
+    cli, made, ds2_showers = run_cli_phase(root, args.seed + 20, attn, card)
     print(f"cli: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 7. samplers
@@ -2444,9 +2788,14 @@ def main() -> None:
     t0 = time.perf_counter()
     hgcal = run_hgcal_phase(root, args.seed + 70, attn, card)
     print(f"hgcal: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 13. evaluate, on the cli phase's ds2 caches and U-Net
+    t0 = time.perf_counter()
+    evaluation = run_evaluate_phase(root, made, ds2_showers, cli, args.seed + 80, attn, card)
+    print(f"evaluate: {time.perf_counter() - t0:.1f} s", flush=True)
     tmp.cleanup()
 
-    # 13. result
+    # 14. result
     launches = {"fused_attention_block": (gen_launches[0], train["k1"]),
                 "attention_block_backward": (gen_launches[1], train["k2"])}
     kernels = []
@@ -2474,9 +2823,15 @@ def main() -> None:
             by_path.update({f"{ds}_train": res["train"][key], f"{ds}_sample": res["sample"][key]})
         by_path["hgcal_photons_sparse_sample"] = hgcal["hgcal_photons"]["sparse_sample"][key]
         by_path["hgcal_glam_train"] = hgcal["hgcal_photons"]["glam_in_model"][key]
+        by_path.update({
+            "evaluate_cnn_sample": evaluation["cnn"][key],
+            "optimize_train": evaluation["optimize"]["train"][key],
+            "optimize_sample": evaluation["optimize"]["sample"][key],
+        })
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            # launches on this slice's paths: HGCal's training and sampling
+            # launches on this slice's paths: CNNCompare's sampling, the
+            # optimize trial's training and sampling
             launches=sum(by_path[k] for k in SLICE_PATHS),
             launches_by_path=by_path,
             max_abs_err=max(c["max_abs_err"] for c in bf16),
@@ -2537,7 +2892,7 @@ def main() -> None:
                       "card_vs_cpu_step": step_check, "cli": cli, "variants": var_results,
                       "samplers": zoo, "samplers_card_vs_cpu": zoo_cpu, "bns": bns,
                       "cascade": cascade, "distill": distill, "ds1": ds1, "hgcal": hgcal,
-                      "card": card}),
+                      "evaluate": evaluation, "card": card}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -759,3 +759,38 @@ def test_glam_products_and_pseudo_inverses_on_card_match_cpu(tmp_path):
                       (cpu.dec(y, device="cuda"), cpu.dec(y, device="cpu"))):
         assert got.shape == want.shape
         assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_classifier_training_on_card_matches_cpu():
+    """The fidelity classifier (DNN, Adam, 3 epochs) trained in f32 on the
+    card and on the CPU from the same weights and batches: the validation
+    probabilities within 1e-4."""
+    from calodiffusion_tpu_torch.evaluation import classifier
+
+    rng = np.random.default_rng(0)
+    real = rng.normal(size=(600, 12)).astype(np.float32)
+    gen = rng.normal(0.3, 1.1, (600, 12)).astype(np.float32)
+    init = classifier.flax_init_(classifier.DNN(12), torch.Generator().manual_seed(0)).state_dict()
+    probs = []
+    for dev in ("cuda", "cpu"):
+        apply_fn, _, (X_val, _, _, mu, sd) = classifier.train_classifier(
+            real, gen, epochs=3, device=dev, init_state=init)
+        probs.append(apply_fn(X_val * sd + mu))
+    assert np.abs(probs[0] - probs[1]).max() <= 1e-4
+
+
+@pytest.mark.parametrize("shape", [(45, 16, 9), (45, 50, 18)])
+def test_comparison_network_on_card_matches_cpu(shape):
+    """CNNCompare's ComparisonNetwork, f32, the same weights and inputs on
+    the card (cuDNN, TF32 off) and on the CPU: the logits within 1e-4."""
+    from calodiffusion_tpu_torch.evaluation import classifier, evaluate
+
+    net = classifier.flax_init_(evaluate.ComparisonNetwork(shape),
+                                torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.normal(size=(8, *shape)).astype(np.float32))
+    E = torch.from_numpy(rng.uniform(size=(8, 1)).astype(np.float32))
+    with torch.no_grad():
+        want = net(x, E)
+        got = net.to("cuda")(x.cuda(), E.cuda()).cpu()
+    assert (got - want).abs().max().item() <= 1e-4

@@ -1,7 +1,8 @@
 """calodiffusion_tpu_torch stands alone: no module of the port, nor
 chip_smoke.py, imports JAX, flax or the JAX package, and the port imports
 and runs with those (and the packages the card machine lacks: h5py, yaml,
-click, matplotlib) blocked, its train and sample CLIs from npz caches too."""
+click, matplotlib, sklearn, pandas, optuna) blocked, its train and sample
+CLIs from npz caches too, and its classifier metrics and random study."""
 
 import ast
 import os
@@ -40,15 +41,24 @@ def test_no_forbidden_imports(path):
 
 
 _BLOCKED_RUN = r"""
-import importlib, importlib.abc, pkgutil, sys
+import importlib, importlib.abc, importlib.util, pkgutil, sys
 
 BLOCKED = ("jax", "flax", "calodiffusion_tpu", "h5py", "yaml", "click", "orbax",
-           "matplotlib")
+           "matplotlib", "sklearn", "pandas", "optuna")
+
+class Refuse(importlib.abc.Loader):
+    def create_module(self, spec):
+        raise ImportError(f"blocked import {spec.name}")
+
+    def exec_module(self, module):
+        pass
 
 class Block(importlib.abc.MetaPathFinder):
+    # a spec whose import raises: torch._dynamo asks find_spec for optional
+    # packages (pandas among them) and takes a raise there for a fault
     def find_spec(self, name, path=None, target=None):
         if any(name == b or name.startswith(b + ".") for b in BLOCKED):
-            raise ImportError(f"blocked import {name}")
+            return importlib.util.spec_from_loader(name, Refuse())
         return None
 
 sys.meta_path.insert(0, Block())
@@ -68,6 +78,20 @@ with torch.no_grad():
     y = m.denoise(torch.randn(2, 1, 45, 16, 9), E=torch.rand(2, 1),
                   sigma=torch.full((2, 1, 1, 1, 1), 0.5), layers=torch.randn(2, 46))
 assert y.shape == (2, 1, 45, 16, 9) and bool(torch.isfinite(y).all())
+
+# the evaluation and the optimisation harness need neither sklearn, pandas
+# nor optuna
+import numpy as np
+from calodiffusion_tpu_torch.evaluation.classifier import classifier_metrics
+from calodiffusion_tpu_torch.train.optimize import _RandomStudy, _create_study
+rng = np.random.default_rng(0)
+m = classifier_metrics(rng.normal(size=(300, 4)), rng.normal(0.5, 1.0, (300, 4)), epochs=1,
+                       device="cpu")
+assert 0 <= m["auc"] <= 1 and m["jsd"] >= 0, m
+study = _create_study("s", ["minimize"])
+assert isinstance(study, _RandomStudy)
+study.optimize(lambda trial: [trial.suggest_float("x", 0.0, 1.0)], n_trials=2)
+assert study.report()["number"] == [0, 1]
 print("ok")
 """
 
