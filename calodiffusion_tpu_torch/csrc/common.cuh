@@ -109,6 +109,10 @@ __device__ __forceinline__ void load8(const T* __restrict__ p, float* r) {
 //   B (16 x 8, col):  b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g)
 //   C (16 x 8, f32):  c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1)
 // Two bf16 share a 32-bit register, the lower index in the low half.
+// m16n8k32 with s8 inputs and s32 sums keeps the same byte positions: a
+// register holds 4 int8 of a row (A) or of a column (B), the lowest k in
+// the low byte; A a0 (g, 4t..4t+3), a1 (g+8, 4t..), a2 (g, 4t+16..), a3
+// (g+8, 4t+16..); B b0 (k 4t..4t+3, n g), b1 (k 4t+16.., n g); C as above.
 // ---------------------------------------------------------------------------
 
 // two floats rounded to bf16, packed (lo in the low half)
@@ -120,7 +124,7 @@ __device__ __forceinline__ float bf16_lo(unsigned u) { return __uint_as_float(u 
 __device__ __forceinline__ float bf16_hi(unsigned u) { return __uint_as_float(u & 0xffff0000u); }
 
 #if defined(CALO_EMULATION)
-// the emulation header defines emu_smem_addr, emu_ldmatrix, emu_mma_bf16,
+// the emulation header defines emu_smem_addr, emu_ldmatrix, emu_mma_bf16, emu_mma_s8,
 // emu_cp_async16, emu_cp_async_commit, emu_cp_async_wait
 __device__ __forceinline__ unsigned smem_addr(const void* p) { return emu_smem_addr(p); }
 __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
@@ -132,6 +136,10 @@ __device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* 
 __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const unsigned (&a)[4], unsigned b0,
                                                unsigned b1) {
   emu_mma_bf16(d, a, b0, b1);
+}
+__device__ __forceinline__ void mma_s8_16832(int (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                             unsigned b1) {
+  emu_mma_s8(d, a, b0, b1);
 }
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
   emu_cp_async16(dst, src, full);
@@ -163,6 +171,15 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const unsigned (&a
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// d += a b, m16n8k32, s8 inputs, s32 accumulators
+__device__ __forceinline__ void mma_s8_16832(int (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                             unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 // 16 bytes global -> shared, asynchronously; zeros when !full (src not read)

@@ -22,7 +22,11 @@ Sampling draws from a ``torch.Generator`` on the model's device seeded from
 or write h5 or draw (``--debug``'s trajectory plots among them), so
 sampling from npz caches needs neither.
 
-Not ported yet: ``--int8`` (ROADMAP M12).
+``--int8`` (config ``QUANT_INT8``) samples with the U-Net's convolutions
+in W8A8 int8, ``sample … diffusion`` and ``sample … layer`` alike
+(``ops/quant.py``; the calibration on the first batch's conditioning, the
+convolutions on Q1 on the card and on its plain version with ``--device
+cpu``); ``QUANT_INT8_EXCLUDE`` keeps the convs it names in float.
 """
 
 from __future__ import annotations
@@ -34,11 +38,6 @@ from datetime import datetime
 import numpy as np
 
 from calodiffusion_tpu_torch.utils.config import LoadJson, dotdict
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not yet ported to calodiffusion_tpu_torch "
-                               f"(ROADMAP {item})")
 
 
 class _Multiple(argparse.Action):
@@ -422,8 +421,6 @@ def generate_showers(flags, config):
     from calodiffusion_tpu_torch.train.trainer import TrainDiffusion
 
     get_sampler(flags.sample_algo)  # an unknown name raises before anything loads
-    if config.get("QUANT_INT8", False):
-        raise _not_ported("int8 sampling (--int8, QUANT_INT8)", "M12")
 
     data_loader, _ = load_data(flags, config, eval=True)
     if flags.model == "layer":

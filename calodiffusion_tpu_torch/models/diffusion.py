@@ -10,12 +10,19 @@ the JAX package; the network inside is NCDHW.  HGCal's shipped configs
 decodes it in ``hgcal_utils.reverse_norm_hgcal`` (dense on the model's
 device, or the sparse draws).
 
+With ``QUANT_INT8`` sampling runs the U-Net's block, residual and
+downsampling convolutions in W8A8 int8 (``ops/quant.py``; Q1 on the card):
+``prepare_int8`` calibrates their static activation scales, ``sample``
+calibrates lazily and ``generate`` on the first batch's conditioning.
+Training and the validation loss never run int8.
+
 Not ported yet: the network variants and the cold-diffusion prior (ROADMAP
-M11) and int8 sampling (M12).
+M11).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Iterable, Optional
 
 import numpy as np
@@ -25,7 +32,9 @@ from torch import nn
 from calodiffusion_tpu_torch.models.converters import NNConverter
 from calodiffusion_tpu_torch.models.hgcal_converter import HGCalConverterModule
 from calodiffusion_tpu_torch.models.losses import get_loss
-from calodiffusion_tpu_torch.models.nn_modules import CondUnet
+from calodiffusion_tpu_torch.models.nn_modules import CondUnet, quantizable_convs
+from calodiffusion_tpu_torch.ops import quant
+from calodiffusion_tpu_torch.samplers import schedules
 from calodiffusion_tpu_torch.samplers.base import randn
 from calodiffusion_tpu_torch.utils import hgcal_utils, preprocessing
 from calodiffusion_tpu_torch.utils.config import load_config
@@ -34,7 +43,7 @@ from calodiffusion_tpu_torch.utils.geom import GeomConverter
 from calodiffusion_tpu_torch.utils.xml_handler import XMLHandler
 
 # config options not ported yet, with the ROADMAP item that ports each
-_NOT_PORTED = {"COLD_DIFFU": "M11", "QUANT_INT8": "M12"}
+_NOT_PORTED = {"COLD_DIFFU": "M11"}
 EMBED = "NN_embed."  # the state_dict prefix of the in-model embed's weights
 
 
@@ -179,6 +188,7 @@ class CaloDiffusion:
             unet_kwargs, self.layer_cond, rz_images, self.dtype, generator,
             phi_image=phi_image, nn_embed=nn_embed,
         ).to(self.device).eval()
+        self._int8_scales: Optional[dict] = None  # {flax path: activation scale}
 
     # -- weights -------------------------------------------------------------
     def state_dict(self) -> dict:
@@ -255,6 +265,102 @@ class CaloDiffusion:
             noise=noise, time=time, layers=layers, rnd_normal=rnd_normal,
         )
 
+    # -- int8 sampling (ops/quant.py) ----------------------------------------
+    def int8_sampling_enabled(self) -> bool:
+        return bool(self.config.get("QUANT_INT8", False)) and quant.int8_allowed()
+
+    def quantizable_convs(self) -> dict:
+        """{flax path: conv} of the U-Net's quantizable convolutions; the
+        upsampling transposes only under ``CALODIFF_INT8_TRANSPOSE=1``."""
+        convs = quantizable_convs(self.net.unet)
+        if quant.transpose_allowed():
+            return convs
+        return {k: v for k, v in convs.items() if "Conv3dTranspose" not in k}
+
+    @torch.inference_mode()
+    def prepare_int8(self, n_sigmas: int = 8, batch: int = 8, E=None, layers=None,
+                     margin: float = 1.1, generator: Optional[torch.Generator] = None,
+                     noise=None) -> dict:
+        """Calibrate the static activation scales of W8A8 sampling (JAX
+        diffusion.py:362-452): ``n_sigmas`` network calls on ``noise * sigma``
+        (scaled by c_in), the sigmas geometric over the discrete table (floor
+        1e-3), each quantizable conv's input abs-max recorded by a forward
+        pre-hook; scale = max(absmax * margin, 1e-8) / 127, the max over the
+        sigmas.  ``E`` / ``layers``: the real conditioning (its first 64 rows;
+        layers tiled up to E's rows), else drawn (uniform E, normal layers).
+        ``noise``: the unit normals of each sigma, (batch, *data shape), else
+        drawn from ``generator`` (a fixed seed where None).  Then
+        ``QUANT_INT8_EXCLUDE`` drops the paths it matches.  The table is kept
+        on the model; call again after loading other weights."""
+        dev = self.device
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(4321)
+        if E is not None:
+            E = torch.as_tensor(E, dtype=torch.float32, device=dev)[:64]
+            batch = E.shape[0]
+        else:
+            E = torch.rand((batch, 3 if self.hgcal else 1), generator=generator,
+                           device=generator.device).to(dev)
+        if not self.layer_cond:
+            layers = None
+        elif layers is not None:
+            layers = torch.as_tensor(layers, dtype=torch.float32, device=dev)[:batch]
+            if layers.shape[0] < batch:  # tile up to the E rows
+                layers = layers.repeat(-(-batch // layers.shape[0]), 1)[:batch]
+        else:
+            layers = randn((batch, self.config["SHAPE_FINAL"][2] + 1), generator, dev)
+
+        sig_tab = schedules.discrete_sigmas(max(self.nsteps, 2))
+        lo, hi = max(float(sig_tab.min()), 1e-3), float(sig_tab.max())
+        shape = (batch, *self._data_shape)
+        absmax: dict = {}
+        hooks = [conv.register_forward_pre_hook(
+                     lambda _, args, path=path: absmax.__setitem__(
+                         path, args[0].abs().max().float()))
+                 for path, conv in self.quantizable_convs().items()]
+        table: dict = {}
+        try:
+            for i, s in enumerate(np.geomspace(lo, hi, n_sigmas)):
+                z = (randn(shape, generator, dev) if noise is None
+                     else torch.as_tensor(noise[i], dtype=torch.float32, device=dev))
+                sigma = torch.full((batch,) + (1,) * (len(shape) - 1), float(s), device=dev)
+                t_emb = self.do_time_embed(sigma.reshape(-1))
+                c_in = self.loss_function.get_scaling(sigma)["c_in"]
+                absmax.clear()
+                self.net(z * float(s) * c_in, E, t_emb, layers)
+                table = quant.merge_stats(table, quant.scales_from_absmax(
+                    {k: v.item() for k, v in absmax.items()}, margin))
+        finally:
+            for h in hooks:
+                h.remove()
+        # QUANT_INT8_EXCLUDE: the paths it matches (whole segments) stay float
+        excl = self.config.get("QUANT_INT8_EXCLUDE") or []
+        if excl:
+            dropped = [p for p in table if any(quant.path_matches(p, e) for e in excl)]
+            table = {p: v for p, v in table.items() if p not in dropped}
+            print(f"int8: excluding {len(dropped)} convs matching {excl}", flush=True)
+        self._int8_scales = table
+        return table
+
+    @contextlib.contextmanager
+    def int8_scope(self):
+        """Inside it, with ``QUANT_INT8`` on, each quantizable conv in the
+        scale table runs int8 (calibrated first where there is no table);
+        every conv runs float again after it.  Nothing happens otherwise."""
+        if not self.int8_sampling_enabled():
+            yield
+            return
+        if self._int8_scales is None:
+            self.prepare_int8()
+        convs = self.quantizable_convs()
+        try:
+            for path, conv in convs.items():
+                conv.int8_scale = self._int8_scales.get(path)
+            yield
+        finally:
+            for conv in convs.values():
+                conv.int8_scale = None
+
     # -- sampling ------------------------------------------------------------
     def make_sampler(self, sampler_name: Optional[str] = None):
         from calodiffusion_tpu_torch.samplers import get_sampler
@@ -269,25 +375,27 @@ class CaloDiffusion:
         """Generate one batch of showers (reference diffusion.py:77-104).
 
         Batches above ``SAMPLE_MICROBATCH`` (default 128) that it divides
-        run as sequential microbatches of that size."""
+        run as sequential microbatches of that size.  With ``QUANT_INT8``
+        the convolutions run int8 (``int8_scope``)."""
         if sampler is None:
             sampler = self.make_sampler()
         B = energy.shape[0]
         start = randn((B, *self._data_shape), generator, self.device)
 
         micro = int(self.config.get("SAMPLE_MICROBATCH", 128) or 0)
-        if not debug and micro and B > micro and B % micro == 0:
-            outs = []
-            for lo in range(0, B, micro):
-                sl = slice(lo, lo + micro)
-                outs.append(sampler(
-                    self, start[sl], energy[sl],
-                    None if layers is None else layers[sl],
-                    num_steps, sample_offset, generator, False,
-                ))
-            return torch.cat(outs)
-        return sampler(self, start, energy, layers, num_steps, sample_offset,
-                       generator, debug)
+        with self.int8_scope():
+            if not debug and micro and B > micro and B % micro == 0:
+                outs = []
+                for lo in range(0, B, micro):
+                    sl = slice(lo, lo + micro)
+                    outs.append(sampler(
+                        self, start[sl], energy[sl],
+                        None if layers is None else layers[sl],
+                        num_steps, sample_offset, generator, False,
+                    ))
+                return torch.cat(outs)
+            return sampler(self, start, energy, layers, num_steps, sample_offset,
+                           generator, debug)
 
     def generate(self, data_loader: Iterable, sample_steps: int,
                  generator: Optional[torch.Generator] = None,
@@ -304,7 +412,9 @@ class CaloDiffusion:
         (``embed_roundtrip``) before the inverse preprocessing, the showers
         of a perfect diffusion model behind this embed.  HGCal's decode
         takes ``sparse_decoding`` / ``sparse_per_batch`` and draws from
-        ``rng`` (``reverse_norm``)."""
+        ``rng`` (``reverse_norm``).  With ``QUANT_INT8`` and no scale table
+        the first batch's conditioning calibrates one, its noise drawn from
+        ``generator``."""
         if sampler is None:
             sampler = self.make_sampler()
 
@@ -316,6 +426,8 @@ class CaloDiffusion:
             E_t = torch.as_tensor(np.asarray(E, np.float32), device=self.device)
             lay = (torch.as_tensor(np.asarray(layers_, np.float32), device=self.device)
                    if self.layer_cond else None)
+            if i == 0 and self.int8_sampling_enabled() and self._int8_scales is None:
+                self.prepare_int8(E=E_t, layers=lay, generator=generator)
             if roundtrip:
                 out = self.embed_roundtrip(d_batch)
             else:

@@ -22,8 +22,11 @@ gradient).  Dataset 1's flat showers through the in-model embed take the
 same path (``generate`` inverts them in their ``SHAPE_ORIG`` layout), and so
 does HGCal: its layer net is conditioned on the three gen-info columns,
 and ``generate`` decodes each batch (the pre-embed's converter built once,
-dense or sparse).  Not ported yet: the network variants (ROADMAP M11) and
-int8 sampling (M12); ``CaloDiffusion`` refuses their configs.
+dense or sparse).  With ``QUANT_INT8`` stage 2 runs the U-Net's convs in
+int8, calibrated on the base U-Net alone (the layer net has no
+convolutions); ``generate`` calibrates on the true layers and a stage-1
+sample.  Not ported yet: the network variants (ROADMAP M11);
+``CaloDiffusion`` refuses their configs.
 """
 
 from __future__ import annotations
@@ -173,6 +176,20 @@ class LayerDiffusion(CaloDiffusion):
         return self.loss_function(denoise_fn, target, energy, generator, noise=noise,
                                   time=time, layers=layers, rnd_normal=rnd_normal)
 
+    # -- int8 sampling -------------------------------------------------------
+    def prepare_int8(self, **kw) -> dict:
+        """int8 calibration of the base U-Net alone (JAX layerdiffusion.py
+        :138-155); warns where no ``QUANT_INT8_EXCLUDE`` fences the down path."""
+        if not self.config.get("QUANT_INT8_EXCLUDE"):
+            print(
+                "WARNING: QUANT_INT8 on the layer cascade without "
+                "QUANT_INT8_EXCLUDE — down-path activation quantization "
+                "measurably breaks cascade fidelity (docs/INT8_CASCADE"
+                ".md).  Set QUANT_INT8_EXCLUDE, e.g. the down path "
+                "(ResnetBlock_0..5 + the downsample convs).", flush=True,
+            )
+        return super().prepare_int8(**kw)
+
     # -- sampling ------------------------------------------------------------
     @torch.inference_mode()
     def sample_layers(self, energy, generator: Optional[torch.Generator] = None,
@@ -200,7 +217,8 @@ class LayerDiffusion(CaloDiffusion):
         ``debug``, ``"layers"`` with ``return_layers``).  ``layers`` skips
         stage 1 (the oracle-layers diagnostic).  Stage 2 runs the whole
         batch at once, as the JAX package does.  ``layer_start`` and
-        ``start`` are the two stages' unit-normal starts, else drawn."""
+        ``start`` are the two stages' unit-normal starts, else drawn.  With
+        ``QUANT_INT8`` stage 2 runs int8 (``int8_scope``)."""
         if sampler is None:
             sampler = self.make_sampler()
         if layers is not None:
@@ -210,8 +228,9 @@ class LayerDiffusion(CaloDiffusion):
                                             debug=debug, sample_offset=sample_offset)
         if start is None:
             start = randn((energy.shape[0], *self._data_shape), generator, self.device)
-        out = sampler(self, start, energy, gen_layers, num_steps, sample_offset or 0,
-                      generator, debug)
+        with self.int8_scope():
+            out = sampler(self, start, energy, gen_layers, num_steps, sample_offset or 0,
+                          generator, debug)
         result = {}
         if debug:
             result["x"], result["xs"], result["x0s"] = out
@@ -231,7 +250,10 @@ class LayerDiffusion(CaloDiffusion):
         stage-1 layers as ``layerE`` (reference layerdiffusion.py:165-256;
         HGCal's decode as ``CaloDiffusion.reverse_norm``).
         ``oracle_layers`` conditions stage 2 on the loader's layers instead.
-        Returns numpy (showers of SHAPE_ORIG, energies)."""
+        With ``QUANT_INT8`` and no scale table, the first batch calibrates
+        one on E twice over and [the loader's layers, a stage-1 sample],
+        m = min(32, B) rows each (JAX layerdiffusion.py:263-277), drawn from
+        ``generator``.  Returns numpy (showers of SHAPE_ORIG, energies)."""
         c = self.config
         if sampler is None:
             sampler = self.make_sampler()
@@ -239,8 +261,13 @@ class LayerDiffusion(CaloDiffusion):
         for E, true_layers, _ in data_loader:
             E_np = np.asarray(E, np.float32)
             E_t = torch.as_tensor(E_np, device=self.device)
-            lay = (torch.as_tensor(np.asarray(true_layers, np.float32), device=self.device)
-                   if oracle_layers else None)
+            true_t = torch.as_tensor(np.asarray(true_layers, np.float32), device=self.device)
+            lay = true_t if oracle_layers else None
+            if self.int8_sampling_enabled() and self._int8_scales is None:
+                m = min(32, E_t.shape[0])
+                samp = self.sample_layers(E_t[:m], generator)
+                self.prepare_int8(E=torch.cat([E_t[:m], E_t[:m]]),
+                                  layers=torch.cat([true_t[:m], samp]), generator=generator)
             out = self.sample(E_t, layers=lay, num_steps=sample_steps, generator=generator,
                               sample_offset=sample_offset, debug=debug, sampler=sampler,
                               return_layers=True)

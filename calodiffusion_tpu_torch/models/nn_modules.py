@@ -26,11 +26,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from calodiffusion_tpu_torch.ops import int8_conv, quant
 from calodiffusion_tpu_torch.ops.conv import (
     conv3d,
     conv3d_transpose,
     cylindrical_conv3d,
     cylindrical_conv3d_transpose,
+    int8_conv3d_transpose,
+    subpixel_weight,
     triple,
     uniform_,
 )
@@ -42,39 +45,76 @@ from calodiffusion_tpu_torch.ops.linear_attention import (
 )
 
 
-class Conv3d(nn.Module):
+class _Quantizable(nn.Module):
+    """A convolution that may run W8A8 int8 while sampling (``quantize=True``,
+    the sites of the JAX package's nn_modules.py): ``int8_scale`` is its
+    static activation scale, set by ``CaloDiffusion``'s int8 scope and
+    ``None`` otherwise (then it runs in float, as in training), or
+    ``quant.WEIGHT_ONLY`` (int8-dequantized weights, float activations).
+    Its int8 weights are quantized from the weights cast to the layer's
+    dtype, once for each weight version, device and scale."""
+
+    quantize = False
+    int8_scale = None
+    _int8_cache = None
+
+    def _int8_cached(self, sx, compute):
+        tensors = (self.weight,) + (() if self.bias is None else (self.bias,))
+        key = (sx, self.dtype, *((t.data_ptr(), t._version) for t in tensors))
+        if self._int8_cache is None or self._int8_cache[0] != key:
+            self._int8_cache = (key, compute())
+        return self._int8_cache[1]
+
+
+class Conv3d(_Quantizable):
     """3D convolution, optionally cylindrical (circular phi padding)."""
 
     def __init__(self, in_ch, out_ch, kernel_size=3, stride=1, padding=0,
                  cylindrical=False, bias=True, dtype=torch.float32,
-                 generator=None):
+                 generator=None, quantize=False):
         super().__init__()
         k = triple(kernel_size)
         self.stride, self.padding = stride, padding
-        self.cylindrical, self.dtype = cylindrical, dtype
+        self.cylindrical, self.dtype, self.quantize = cylindrical, dtype, quantize
         fan_in = in_ch * math.prod(k)
         self.weight = nn.Parameter(uniform_(torch.empty(out_ch, in_ch, *k), fan_in, generator))
         self.bias = (
             nn.Parameter(uniform_(torch.empty(out_ch), fan_in, generator)) if bias else None
         )
 
+    def _int8_weights(self, sx):
+        """(int8 weights, f32 dequantization scale, f32 bias or None)."""
+        wq, sw = quant.quantize_weight_per_cout(self.weight.to(self.dtype))
+        b = None if self.bias is None else self.bias.to(self.dtype).float()
+        return wq, quant.dequant_scale(sw, sx), b
+
     def forward(self, x):
         op = cylindrical_conv3d if self.cylindrical else conv3d
+        w = self.weight.to(self.dtype)
         b = None if self.bias is None else self.bias.to(self.dtype)
-        return op(x.to(self.dtype), self.weight.to(self.dtype), b,
-                  stride=self.stride, padding=self.padding)
+        sx = self.int8_scale
+        if sx == quant.WEIGHT_ONLY:
+            w = quant.dequantized_weight(w).to(self.dtype)
+        elif sx is not None:
+            wq, scale, bf = self._int8_cached(sx, lambda: self._int8_weights(sx))
+            return int8_conv.int8_conv3d(x.to(self.dtype).contiguous(), wq, scale, bf,
+                                         quant.inv_scale(sx), self.stride, self.padding,
+                                         self.cylindrical)
+        return op(x.to(self.dtype), w, b, stride=self.stride, padding=self.padding)
 
 
-class Conv3dTranspose(nn.Module):
-    """Transpose 3D convolution, optionally cylindrical."""
+class Conv3dTranspose(_Quantizable):
+    """Transpose 3D convolution, optionally cylindrical.  Quantized only
+    under ``CALODIFF_INT8_TRANSPOSE=1``, as in the JAX package (its int8
+    core conv is Q1)."""
 
     def __init__(self, in_ch, out_ch, kernel_size=(3, 4, 4), stride=(1, 2, 2),
                  padding=1, output_padding=0, cylindrical=False,
-                 dtype=torch.float32, generator=None):
+                 dtype=torch.float32, generator=None, quantize=False):
         super().__init__()
         k = triple(kernel_size)
         self.stride, self.padding, self.output_padding = stride, padding, output_padding
-        self.cylindrical, self.dtype = cylindrical, dtype
+        self.cylindrical, self.dtype, self.quantize = cylindrical, dtype, quantize
         self.weight = nn.Parameter(
             uniform_(torch.empty(in_ch, out_ch, *k), in_ch * math.prod(k), generator)
         )
@@ -84,9 +124,17 @@ class Conv3dTranspose(nn.Module):
         )
 
     def forward(self, x):
+        w, b = self.weight.to(self.dtype), self.bias.to(self.dtype)
+        sx = self.int8_scale
+        if sx is not None:
+            quantized = self._int8_cached(
+                sx, lambda: quant.quantize_weight_per_cout(subpixel_weight(w, self.stride)))
+            return int8_conv3d_transpose(
+                x.to(self.dtype), w, b, sx, stride=self.stride, padding=self.padding,
+                output_padding=self.output_padding, cylindrical=self.cylindrical,
+                quantized=quantized)
         op = cylindrical_conv3d_transpose if self.cylindrical else conv3d_transpose
-        return op(x.to(self.dtype), self.weight.to(self.dtype), self.bias.to(self.dtype),
-                  stride=self.stride, padding=self.padding,
+        return op(x.to(self.dtype), w, b, stride=self.stride, padding=self.padding,
                   output_padding=self.output_padding)
 
 
@@ -168,7 +216,7 @@ class Block(nn.Module):
                  dtype=torch.float32, generator=None):
         super().__init__()
         self.proj = Conv3d(in_ch, out_ch, 3, padding=1, cylindrical=cylindrical,
-                           dtype=dtype, generator=generator)
+                           dtype=dtype, generator=generator, quantize=True)
         self.norm = GroupNorm(groups, out_ch)
 
     def forward(self, x):
@@ -189,7 +237,7 @@ class ResnetBlock(nn.Module):
         self.block2 = Block(out_ch, out_ch, groups, cylindrical, dtype, generator)
         self.res_conv = (
             Conv3d(in_ch, out_ch, 1, cylindrical=cylindrical, dtype=dtype,
-                   generator=generator)
+                   generator=generator, quantize=True)
             if in_ch != out_ch else None
         )
 
@@ -335,7 +383,7 @@ class PreNormResidual(nn.Module):
 def downsample_module(dim, cylindrical, compress_Z, dtype, generator):
     z_stride = 2 if compress_Z else 1
     return Conv3d(dim, dim, (3, 4, 4), stride=(z_stride, 2, 2), padding=1,
-                  cylindrical=cylindrical, dtype=dtype, generator=generator)
+                  cylindrical=cylindrical, dtype=dtype, generator=generator, quantize=True)
 
 
 def upsample_module(dim, extra_upsample, cylindrical, compress_Z, dtype, generator):
@@ -344,7 +392,7 @@ def upsample_module(dim, extra_upsample, cylindrical, compress_Z, dtype, generat
     extra = (0, extra_upsample[1], extra_upsample[2])
     return Conv3dTranspose(dim, dim, (z_kernel, 4, 4), stride=(z_stride, 2, 2),
                            padding=1, output_padding=extra, cylindrical=cylindrical,
-                           dtype=dtype, generator=generator)
+                           dtype=dtype, generator=generator, quantize=True)
 
 
 class CondUnet(nn.Module):
@@ -447,6 +495,43 @@ class CondUnet(nn.Module):
 
         x = self.final_conv[0](x)
         return self.final_conv[1](x).float()
+
+
+def quantizable_convs(unet: CondUnet, prefix: str = "CondUnet_0/") -> dict:
+    """{flax path: module} of ``unet``'s quantizable convolutions, named as
+    the JAX package's calibration table and ``QUANT_INT8_EXCLUDE`` name them:
+    flax counts each module type in call order within its parent
+    (``ResnetBlock_N`` across the whole U-Net, ``init_conv`` and
+    ``final_conv`` named explicitly, so the downsampling convs are
+    ``Conv3d_0, 1, ...`` and the upsampling ones ``Conv3dTranspose_0, ...``),
+    as ``tools/jax_import.params_to_state_dict`` walks them: ``ResnetBlock_N/
+    Block_{0,1}/Conv3d_0`` and the residual ``ResnetBlock_N/Conv3d_0``."""
+    out, count = {}, {"ResnetBlock": 0, "Conv3d": 0, "Conv3dTranspose": 0}
+
+    def add(kind, module):
+        name = f"{prefix}{kind}_{count[kind]}"
+        count[kind] += 1
+        if kind != "ResnetBlock":
+            out[name] = module
+            return
+        out[f"{name}/Block_0/Conv3d_0"] = module.block1.proj
+        out[f"{name}/Block_1/Conv3d_0"] = module.block2.proj
+        if module.res_conv is not None:
+            out[f"{name}/Conv3d_0"] = module.res_conv
+
+    def add_levels(levels, resample):
+        for level in levels:
+            add("ResnetBlock", level[0])
+            add("ResnetBlock", level[1])
+            if len(level) > 2:
+                add(resample, level[2])
+
+    add_levels(unet.downs, "Conv3d")
+    add("ResnetBlock", unet.mid_block1)
+    add("ResnetBlock", unet.mid_block2)
+    add_levels(unet.ups, "Conv3dTranspose")
+    add("ResnetBlock", unet.final_conv[0])
+    return out
 
 
 class ResDenseLayer(nn.Module):

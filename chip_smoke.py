@@ -7,7 +7,7 @@ Phases, each printing its own lines; any failed check exits non-zero and
 prints no result:
 
 1. card     the card's name and power limit (nvidia-smi), torch and CUDA versions
-2. build    every kernel of every path (K1-K5 and K4's backward), each
+2. build    every kernel of every path (K1-K5, K4's backward and Q1), each
             variant with its own nvcc, all at once, from this checkout; their
             register/spill lines (and ptxas's wgmma notes); the count of
             HGMMA (wgmma) instructions in K4's bf16 backward library
@@ -193,17 +193,37 @@ prints no result:
             objective's failure(), K1 and K2 7 a train step, K1 7 a denoise
             and K2 none in sampling; the walls of the classifier, the CNN
             and the trial (its training and each objective apart)
-14. result  {"kernels": [...]} (each kernel's launches by path: generate,
+14. int8     W8A8 int8 sampling (QUANT_INT8) at ds2's full width, bf16:
+            phase 4's U-Net calibrated on the first batch's E and layers (36
+            scales, its wall apart), then generate of --batches x 128 showers
+            of --steps-step DDim, finite, >= 0, Q1 (csrc/int8_conv3d.cu) 36
+            and K1 7 times a denoise and the plain version never, showers/s
+            beside phase 4's; with CALODIFF_INT8_TRANSPOSE=1 a table of 38
+            and one denoise of 38 Q1 launches, whose geometries (36 convs and
+            2 transpose cores) Q1 is then held to its plain version at, bit
+            for bit, bf16 and f32, batch 128, with its time (and device
+            time), the plain version's, cuDNN's conv3d at the same shape and
+            the bound; one f32 int8 denoise card against CPU (each quantized
+            conv equal bit for bit to the plain version on its card input,
+            the whole call within INT8_NOISE_RMS of the CPU's int8-vs-float
+            RMS gap); the sample CLI's `sample --int8 ... layer` on the
+            cascade phase's checkpoints with QUANT_INT8_EXCLUDE the JAX
+            down-path fence (INT8_FENCE): 128 showers, 400 + 400 steps, Q1 20
+            and K1 7 a stage-2 denoise, the calibration and the stages' walls
+            apart
+15. result  {"kernels": [...]} (each kernel's launches by path: generate,
             train, the cli paths, samplers, bns, variants, cascade_train,
             cascade_sample, distill_train, distill_val, distill_sample,
             ds1_photon_train, ds1_photon_sample, ds1_pion_train,
             ds1_pion_sample, hgcal_photons_train, hgcal_photons_sample,
             hgcal_photons_sparse_sample, hgcal_glam_train, hgcal_pions_train,
             hgcal_pions_sample, evaluate_cnn_sample, optimize_train,
-            optimize_sample; K1's and K2's "launches" sum the last three,
-            this slice's paths; their "ds1" and "hgcal" hold one U-Net
-            call's times of each config) and, last, {"ok": true, "device":
-            {...}}
+            optimize_sample, int8_generate, int8_cascade_sample,
+            int8_transpose; K1's and K2's "launches" sum the last six, the
+            last two slices' paths, Q1's its three; their "ds1" and "hgcal"
+            hold one U-Net call's times of each config; Q1's times are one
+            ds2 int8 denoise's 36 launches) and, last, {"ok": true,
+            "device": {...}}
 """
 
 from __future__ import annotations
@@ -212,6 +232,7 @@ import argparse
 import contextlib
 import importlib.util
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -224,8 +245,8 @@ import torch
 import torch.nn.functional as F
 
 try:
-    from calodiffusion_tpu_torch.ops.tolerances import (K1_TOL, K2_TOL, K3_TOL, K4_TOL,
-                                                        K4B_TOL, K5_TOL)
+    from calodiffusion_tpu_torch.ops.tolerances import (INT8_NOISE_RMS, K1_TOL, K2_TOL,
+                                                        K3_TOL, K4_TOL, K4B_TOL, K5_TOL)
 except ImportError as e:  # the script alone, outside a checkout of the repository
     sys.exit(f"chip_smoke FAILED: calodiffusion_tpu_torch is not importable here: {e}")
 
@@ -342,6 +363,9 @@ REPLACES = {
         "calodiffusion_tpu/ops/pallas_attention.py:35 (forward only: the JAX package has no "
         "Pallas VJP and differentiates _dense_attention, :70-77)"),
     "groupnorm_silu": "calodiffusion_tpu/ops/pallas_groupnorm.py:27",
+    "int8_conv3d": (
+        "calodiffusion_tpu/ops/quant.py:173 (int8_conv3d, not a Pallas kernel: an XLA s8 x s8 "
+        "-> s32 conv; and the stride-1 core of int8_conv3d_transpose, :205)"),
 }
 SOURCES = {
     "fused_attention_block": "calodiffusion_tpu_torch/csrc/linear_attention_block.cu",
@@ -350,6 +374,7 @@ SOURCES = {
     "blockwise_attention": "calodiffusion_tpu_torch/csrc/blockwise_attention.cu",
     "blockwise_attention_backward": "calodiffusion_tpu_torch/csrc/blockwise_attention_bwd.cu",
     "groupnorm_silu": "calodiffusion_tpu_torch/csrc/groupnorm_silu.cu",
+    "int8_conv3d": "calodiffusion_tpu_torch/csrc/int8_conv3d.cu",
 }
 
 
@@ -2356,9 +2381,8 @@ def run_hgcal_phase(root: Path, seed, attn, card):
 # on the cli phase's ds2 caches and U-Net
 # ---------------------------------------------------------------------------
 
-# the paths of this slice's phase (13, evaluate), in the kernels line's
-# launches_by_path
-SLICE_PATHS = ("evaluate_cnn_sample", "optimize_train", "optimize_sample")
+# the paths of the evaluate phase (13), in the kernels line's launches_by_path
+EVALUATE_PATHS = ("evaluate_cnn_sample", "optimize_train", "optimize_sample")
 # CNNCompare and the optimize trial sample with 10 DDim steps (NSTEPS), not
 # the config's 400
 EVAL_NSTEPS = 10
@@ -2648,6 +2672,370 @@ def run_evaluate_phase(root: Path, made, ds2_showers, cli, seed, attn, card):
     )
 
 
+# ---------------------------------------------------------------------------
+# 14. int8: W8A8 int8 sampling (M12) through Q1 at ds2's full width
+# ---------------------------------------------------------------------------
+
+# the paths of this slice's phase (14, int8), in the kernels line's
+# launches_by_path
+INT8_PATHS = ("int8_generate", "int8_cascade_sample", "int8_transpose")
+# the JAX package's down-path fence of the ds2 cascade (docs/INT8_CASCADE.md;
+# scripts/tpu_fewstep_check.py:95-103): ResnetBlock_0..5 and the two
+# downsampling convs stay float
+INT8_FENCE = [f"ResnetBlock_{i}/" for i in range(6)] + ["CondUnet_0/Conv3d_0",
+                                                       "CondUnet_0/Conv3d_1"]
+# Q1 launches in one ds2 U-Net call: its 36 quantized convs (30 Block convs,
+# the residuals of ResnetBlock_{2,4,10,12}, 2 downsampling), 20 under the
+# fence, 38 with the upsampling transposes opted in
+INT8_CONVS, INT8_CONVS_FENCED, INT8_CONVS_TRANSPOSE = 36, 20, 38
+INT8_OPS_PER_S = 1979e12  # dense int8 tensor cores (the card's data sheet)
+
+
+def rms_rel(a, b) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float(((a - b) ** 2).mean().sqrt() / (b ** 2).mean().sqrt())
+
+
+class Int8Counts:
+    """Q1's launches (its counter), the plain version's calls (counted by a
+    patch that is in place while the block runs) and K1's and K2's, all
+    reset on entry."""
+
+    def __init__(self, q1, attn):
+        self.q1, self.attn, self.plain = q1, attn, 0
+
+    def __enter__(self):
+        from unittest import mock
+
+        ref = self.q1.int8_conv3d_reference
+
+        def counted(*a, **kw):
+            self.plain += 1
+            return ref(*a, **kw)
+
+        torch.cuda.synchronize()
+        self.patch = mock.patch.object(self.q1, "int8_conv3d_reference", counted)
+        self.patch.start()
+        self.q1.int8_conv3d.launches = 0
+        self.attn.fused_attention_block.launches = self.attn.attention_block_backward.launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        self.patch.stop()
+
+    def read(self) -> dict:
+        return dict(q1=self.q1.int8_conv3d.launches, plain=self.plain,
+                    k1=self.attn.fused_attention_block.launches,
+                    k2=self.attn.attention_block_backward.launches)
+
+
+def q1_calls_of_a_denoise(model, E, layers, q1, nn_modules):
+    """One bf16 int8 denoise of ``model`` (its table with the transposes)
+    at batch 128, each Q1 call's geometry recorded: (x shape, wq shape,
+    stride, padding, cylindrical, kind), kind "transpose core" inside an
+    upsampling transpose."""
+    from unittest import mock
+
+    from calodiffusion_tpu_torch.ops.conv import triple
+
+    calls, inside = [], []
+    launch, transpose = q1.launch, nn_modules.int8_conv3d_transpose
+
+    def record(lib, x, wq, scale, bias, inv, stride=1, padding=0, cylindrical=False):
+        calls.append((tuple(x.shape), tuple(wq.shape), triple(stride), triple(padding),
+                      bool(cylindrical), "transpose core" if inside else "conv"))
+        return launch(lib, x, wq, scale, bias, inv, stride, padding, cylindrical)
+
+    def marked(*a, **kw):
+        inside.append(1)
+        try:
+            return transpose(*a, **kw)
+        finally:
+            inside.pop()
+
+    sigma = torch.full((E.shape[0], 1, 1, 1, 1), 0.7, device="cuda")
+    x = torch.randn((E.shape[0], *model._data_shape), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(7))
+    with mock.patch.object(q1, "launch", record), \
+            mock.patch.object(nn_modules, "int8_conv3d_transpose", marked), \
+            torch.inference_mode(), model.int8_scope():
+        y = model.denoise(x, E=E, sigma=sigma, layers=layers)
+    torch.cuda.synchronize()
+    if not torch.isfinite(y).all():
+        fail("int8: the transposes' int8 denoise is not finite")
+    return calls
+
+
+def q1_bound(x_shape, w_shape, out_shape, dtype):
+    """x read once, y written once, wq, scale and bias read once; 2 int8
+    operations a product term."""
+    elt = torch.finfo(dtype).bits // 8
+    nbytes = (math.prod(x_shape) + math.prod(out_shape)) * elt + math.prod(w_shape) + \
+        8 * w_shape[0]
+    ops = 2 * math.prod(out_shape) * math.prod(w_shape[1:])
+    return bound_ms(nbytes, ops, dtype, flop_rate=INT8_OPS_PER_S)
+
+
+def check_q1(q1, geometries):
+    """Q1 against its plain version on the card at each distinct geometry of
+    a ds2 denoise (batch 128), bf16 and f32 activations: equal bit for bit
+    (the s32 sums exact, the dequantization alike; Q1_ULPS allows none
+    between Q1 and the plain version); Q1's time (CUDA events, and the device
+    time), the plain version's, cuDNN's float conv3d at the same shape (the
+    conv Q1 replaces; the library time) and the bound."""
+    from calodiffusion_tpu_torch.ops.conv import wrap_pad_phi
+
+    cases = []
+    g = torch.Generator().manual_seed(11)
+    for x_shape, w_shape, stride, pad, cyl, kind in geometries:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(x_shape, generator=g).to(dtype).cuda()
+            wq = torch.randint(-127, 128, w_shape, generator=g, dtype=torch.int8).cuda()
+            scale = (1e-4 * (1 + torch.rand(w_shape[0], generator=g))).cuda()
+            bias = (0.1 * torch.randn(w_shape[0], generator=g)).cuda()
+            bias = None if kind == "transpose core" else bias
+            inv = 127 / 3.0
+            args = (x, wq, scale, bias, inv, stride, pad, cyl)
+            got = q1.int8_conv3d(*args)
+            torch.cuda.synchronize()
+            want = q1.int8_conv3d_reference(*args)
+            if got.dtype != dtype or not torch.equal(got, want):
+                err = (got.float() - want.float()).abs().max().item()
+                fail(f"int8 Q1 {kind} x {x_shape} w {w_shape} stride {stride} pad {pad}, "
+                     f"{dtype_name(dtype)}: differs from its plain version by {err:.3g}")
+            w = wq.to(dtype)
+            xp = wrap_pad_phi(x, pad[1]) if cyl else x
+            lib_pad = (pad[0], 0, pad[2]) if cyl else pad
+            b = None if bias is None else bias.to(dtype)
+            k_ms = time_ms(lambda: q1.int8_conv3d(*args))
+            d_ms = device_ms(lambda: q1.int8_conv3d(*args))
+            p_ms = time_ms(lambda: q1.int8_conv3d_reference(*args), warmup=1, reps=3)
+            l_ms = time_ms(lambda: F.conv3d(xp, w, b, stride, lib_pad))
+            bound, by, _ = q1_bound(x_shape, w_shape, got.shape, dtype)
+            cases.append(dict(kind=kind, x=list(x_shape), w=list(w_shape), stride=list(stride),
+                              padding=list(pad), cylindrical=cyl, dtype=dtype_name(dtype),
+                              max_abs_err=0.0, kernel_ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
+                              library_ms=l_ms, bound_ms=bound, bound_by=by))
+            print(f"int8 Q1 {kind} x {x_shape} w {w_shape} stride {stride} pad {pad}"
+                  f"{' phi wrap' if cyl else ''} {dtype_name(dtype)}: equal to its plain "
+                  f"version bit for bit; {k_ms:.4f} ms (device {d_ms:.4f}), plain {p_ms:.2f} ms, "
+                  f"cuDNN {dtype_name(dtype)} conv3d {l_ms:.4f} ms, bound {bound:.4f} ms ({by})",
+                  flush=True)
+    return cases
+
+
+def per_denoise(cases, calls, key, dtype="bfloat16"):
+    """The sum of ``key`` over the Q1 launches of one denoise (``calls``:
+    each launch's geometry, repeats included)."""
+    by_geometry = {(tuple(c["x"]), tuple(c["w"]), tuple(c["stride"]), tuple(c["padding"]),
+                    c["cylindrical"], c["kind"]): c[key]
+                   for c in cases if c["dtype"] == dtype}
+    return sum(by_geometry[call] for call in calls)
+
+
+def check_int8_card_vs_cpu(cfg, state_dict, table, seed, q1):
+    """One f32 int8 denoise (batch 2) on the card and on the CPU from the
+    same weights, scale table and input.  Each quantized conv's card output
+    equals the plain version on the CPU, from the input it met on the card,
+    bit for bit; the whole call lies within INT8_NOISE_RMS of the CPU's own
+    int8-vs-float RMS gap (ops/tolerances.py says why it is not held
+    elementwise)."""
+    from calodiffusion_tpu_torch.models.diffusion import CaloDiffusion
+    from calodiffusion_tpu_torch.ops import quant
+
+    cfg = dict(cfg, PRECISION="f32", QUANT_INT8=True)
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((2, 1, 45, 16, 9)).astype(np.float32))
+    E = torch.from_numpy(rng.uniform(0, 1, (2, 1)).astype(np.float32))
+    lay = torch.from_numpy(rng.standard_normal((2, 46)).astype(np.float32))
+    sigma = torch.full((2, 1, 1, 1, 1), 0.7)
+    outs, seen = {}, {}
+    for dev in ("cuda", "cpu"):
+        m = CaloDiffusion(cfg, device=dev)
+        m.load_state_dict(state_dict)
+        m._int8_scales = dict(table)
+        hooks = []
+        if dev == "cuda":
+            hooks = [c.register_forward_hook(
+                         lambda mod, a, out, p=p: seen.__setitem__(p, (mod, a[0], out)))
+                     for p, c in m.quantizable_convs().items()]
+        with tf32_off(), torch.inference_mode():
+            args = (x.to(dev),), dict(E=E.to(dev), sigma=sigma.to(dev), layers=lay.to(dev))
+            outs[dev, "float"] = m.denoise(*args[0], **args[1]).cpu()
+            with m.int8_scope():
+                outs[dev, "int8"] = m.denoise(*args[0], **args[1]).cpu()
+        for h in hooks:
+            h.remove()
+    for path, (mod, inp, out) in seen.items():
+        wq, scale, bias = (t.cpu() for t in mod._int8_weights(table[path]))
+        want = q1.int8_conv3d_reference(inp.cpu(), wq, scale, bias, quant.inv_scale(table[path]),
+                                        mod.stride, mod.padding, mod.cylindrical)
+        if not torch.equal(out.cpu(), want):
+            fail(f"int8 card vs CPU: {path}'s f32 output on the card differs from the plain "
+                 f"version on its input by {(out.cpu() - want).abs().max().item():.3g}")
+    gap = rms_rel(outs["cpu", "int8"], outs["cpu", "float"])
+    err = rms_rel(outs["cuda", "int8"], outs["cpu", "int8"])
+    float_err = (outs["cuda", "float"] - outs["cpu", "float"]).abs().max().item()
+    if len(seen) != INT8_CONVS or not (0 < gap and err <= INT8_NOISE_RMS * gap) or \
+            not float_err <= 2e-4:
+        fail(f"int8 card vs CPU (f32): {len(seen)} convs hooked; RMS difference {err:.3g}, the "
+             f"CPU's int8-vs-float gap {gap:.3g} (at most {INT8_NOISE_RMS}x); float "
+             f"{float_err:.3g} (tol 2e-4)")
+    print(f"int8 card vs CPU (f32, batch 2): each of the {len(seen)} quantized convs equal to "
+          f"the plain version on the CPU from its card input, bit for bit; the int8 denoise "
+          f"RMS difference {err:.4g} against the CPU's own int8-vs-float gap {gap:.4g} "
+          f"(at most {INT8_NOISE_RMS}x: the card's and the CPU's float activations differ by "
+          f"{float_err:.3g}, which flips int8 steps)", flush=True)
+    return dict(convs_equal=len(seen), rms_err=err, int8_gap=gap, float_err=float_err)
+
+
+def run_int8_generate(model, loader, args, q1, attn, nn_modules, card, bf16_sps):
+    """ds2 generate with QUANT_INT8 from phase 4's weights (bf16): the
+    calibration on the first batch's E and layers timed apart, then
+    ``--batches`` x 128 showers of ``--steps``-step DDim with Q1 36 and K1 7
+    a denoise and the plain version never; then one denoise with the
+    upsampling transposes opted in (38 Q1 launches).  Returns the results,
+    the Q1 geometries of that denoise and the table."""
+    from unittest import mock
+
+    from calodiffusion_tpu_torch.models.diffusion import CaloDiffusion
+
+    n_blocks = len(DS2_ATTENTION_BLOCKS)
+    model.config["QUANT_INT8"] = True
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 90)
+    E0, lay0 = (torch.from_numpy(a).cuda() for a in loader[0][:2])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table = model.prepare_int8(E=E0, layers=lay0, generator=gen)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    if len(table) != INT8_CONVS or set(table) != set(model.quantizable_convs()):
+        fail(f"int8 calibration: {len(table)} scales, expected the {INT8_CONVS} quantized convs")
+    first, gen_s = [], []
+    with Int8Counts(q1, attn) as counts, \
+            mock.patch.object(CaloDiffusion, "denoise",
+                              synced(CaloDiffusion.denoise, first, first_only=True)), \
+            mock.patch.object(CaloDiffusion, "generate", synced(CaloDiffusion.generate, gen_s)):
+        showers, energies = model.generate(loader, args.steps, generator=gen)
+    got = counts.read()
+    n, denoises = len(loader) * BATCH, len(loader) * args.steps
+    if showers.shape != (n, 6480) or not np.isfinite(showers).all() or (showers < 0).any():
+        fail(f"int8 generate: showers {showers.shape}, not all finite and >= 0")
+    want = dict(q1=INT8_CONVS * denoises, plain=0, k1=n_blocks * denoises, k2=0)
+    if got != want:
+        fail(f"int8 generate: launches {got}, expected {want}")
+    sps = n / gen_s[0]
+    steady = n / ((gen_s[0] - first[0]) * denoises / (denoises - 1))
+    print(f"int8 generate: ds2 full width, bf16, QUANT_INT8: calibration on the first batch's "
+          f"E and layers ({len(table)} scales, 8 sigmas, batch 64) {calib_s:.3f} s; {n} "
+          f"showers, {args.steps}-step DDim: {gen_s[0]:.2f} s, {sps:.3f} showers/s on {card} "
+          f"(first, cold denoise {first[0]:.3f} s; without it {steady:.3f} showers/s); phase "
+          f"4's bf16 generate {bf16_sps:.3f} showers/s; launches Q1 {got['q1']} ({INT8_CONVS} a "
+          f"denoise), K1 {got['k1']}, K2 {got['k2']}, plain {got['plain']}", flush=True)
+    result = dict(calibration_s=calib_s, scales=len(table), showers=n, generate_s=gen_s[0],
+                  first_denoise_s=first[0], showers_per_s=sps,
+                  showers_per_s_after_first_step=steady, bf16_showers_per_s=bf16_sps, **got)
+
+    # the upsampling transposes opted in: a table with them, one denoise
+    with mock.patch.dict("os.environ", {"CALODIFF_INT8_TRANSPOSE": "1"}):
+        t_table = model.prepare_int8(E=E0, layers=lay0, generator=gen)
+        with Int8Counts(q1, attn) as counts:
+            calls = q1_calls_of_a_denoise(model, E0, lay0, q1, nn_modules)
+    t_got = counts.read()
+    if len(t_table) != INT8_CONVS_TRANSPOSE or \
+            t_got != dict(q1=INT8_CONVS_TRANSPOSE, plain=0, k1=n_blocks, k2=0):
+        fail(f"int8 transposes: {len(t_table)} scales, launches {t_got}; expected "
+             f"{INT8_CONVS_TRANSPOSE} and Q1 {INT8_CONVS_TRANSPOSE}, K1 {n_blocks}")
+    print(f"int8 transposes (CALODIFF_INT8_TRANSPOSE=1): {len(t_table)} scales; one denoise "
+          f"launched Q1 {t_got['q1']} times (2 transpose cores among them), K1 {t_got['k1']}",
+          flush=True)
+    model._int8_scales = table
+    model.config["QUANT_INT8"] = False
+    result["transpose"] = dict(scales=len(t_table), **t_got)
+    return result, calls, table
+
+
+def run_int8_cascade(cfg_path, data, base_loc, layer_loc, seed, q1, attn, card, root):
+    """The sample CLI's ``sample --int8 ... layer`` on the cascade phase's
+    checkpoints and the cli phase's ds2 caches, with QUANT_INT8_EXCLUDE the
+    JAX down-path fence: 128 showers, 400 + 400 DDim steps, Q1 20 and K1 7
+    a stage-2 denoise (the calibration runs the U-Net in float)."""
+    from unittest import mock
+
+    from calodiffusion_tpu_torch import inference
+    from calodiffusion_tpu_torch.models.layerdiffusion import LayerDiffusion
+
+    n_blocks = len(DS2_ATTENTION_BLOCKS)
+    fenced = root / "config_dataset2_int8_fence.json"
+    fenced.write_text(json.dumps(dict(json.loads(Path(cfg_path).read_text()),
+                                      QUANT_INT8_EXCLUDE=INT8_FENCE)))
+    flags = inference.parse_flags(["-c", str(fenced), "-d", data, "--seed", str(seed), "-n",
+                                   "-1", "sample", "--batch-size", str(CLI_SAMPLE_BATCH),
+                                   "--sample-steps", "400", "--model-loc", base_loc, "--int8",
+                                   "layer", "--layer-model", layer_loc])
+    walls = {"stage1": [], "sample": [], "generate": [], "calibration": []}
+    calib = {}
+    prepare = LayerDiffusion.prepare_int8
+
+    def timed_prepare(model, **kw):
+        before = (q1.int8_conv3d.launches, attn.fused_attention_block.launches)
+        out = synced(prepare, walls["calibration"])(model, **kw)
+        calib.update(q1=q1.int8_conv3d.launches - before[0],
+                     k1=attn.fused_attention_block.launches - before[1], scales=len(out))
+        return out
+
+    with Int8Counts(q1, attn) as counts, \
+            mock.patch.object(LayerDiffusion, "prepare_int8", timed_prepare), \
+            mock.patch.object(LayerDiffusion, "sample_layers",
+                              synced(LayerDiffusion.sample_layers, walls["stage1"])), \
+            mock.patch.object(LayerDiffusion, "sample",
+                              synced(LayerDiffusion.sample, walls["sample"])), \
+            mock.patch.object(LayerDiffusion, "generate",
+                              synced(LayerDiffusion.generate, walls["generate"])):
+        showers, energies, _ = inference.generate_showers(flags, flags.config)
+    got = counts.read()
+    n = CLI_SAMPLE_BATCH
+    if showers.shape != (n, 6480) or not np.isfinite(showers).all() or (showers < 0).any():
+        fail(f"int8 cascade: showers {showers.shape}, not all finite and >= 0")
+    sampling = dict(q1=got["q1"] - calib["q1"], k1=got["k1"] - calib["k1"], k2=got["k2"],
+                    plain=got["plain"])
+    want = dict(q1=INT8_CONVS_FENCED * 400, k1=n_blocks * 400, k2=0, plain=0)
+    if calib.get("scales") != INT8_CONVS_FENCED or calib["q1"] != 0 or sampling != want:
+        fail(f"int8 cascade: calibration {calib}, sampling launches {sampling}; expected "
+             f"{INT8_CONVS_FENCED} scales, no Q1 in the calibration, and {want}")
+    stage1, stage2 = walls["stage1"][-1], walls["sample"][0] - walls["stage1"][-1]
+    gen_s = walls["generate"][0]
+    print(f"int8 cascade: inference CLI sample --int8 ... layer, QUANT_INT8_EXCLUDE the down "
+          f"path ({calib['scales']} convs int8), {n} ds2 showers, 400-step DDim in both stages, "
+          f"bf16 U-Net: calibration {walls['calibration'][0]:.3f} s on the true layers and a "
+          f"stage-1 sample of 32 (that sample {walls['stage1'][0]:.3f} s), stage 1 "
+          f"{stage1:.3f} s, stage 2 {stage2:.3f} s; generate {gen_s:.2f} s, {n / gen_s:.3f} "
+          f"showers/s on {card}; stage 2 launched Q1 {sampling['q1']} ({INT8_CONVS_FENCED} a "
+          f"denoise), K1 {sampling['k1']}, K2 {sampling['k2']}, plain {sampling['plain']}",
+          flush=True)
+    return dict(calibration_s=walls["calibration"][0], stage1_s=stage1, stage2_s=stage2,
+                generate_s=gen_s, showers_per_s=n / gen_s, scales=calib["scales"], **sampling)
+
+
+def run_int8_phase(model, loader, args, cascade_loc, made, cli, root, q1, attn, nn_modules,
+                   card, bf16_sps):
+    """Phase 14: the int8 generate and its transposes, Q1 at each geometry of
+    their denoise, one f32 int8 denoise card against CPU, the fenced int8
+    cascade through the sample CLI."""
+    generate, calls, table = run_int8_generate(model, loader, args, q1, attn, nn_modules, card,
+                                               bf16_sps)
+    geometries = list(dict.fromkeys(calls))
+    cases = check_q1(q1, geometries)
+    card_vs_cpu = check_int8_card_vs_cpu(model.config, model.state_dict(), table,
+                                         args.seed + 91, q1)
+    _, cfg_path, data = made["ds2"]
+    cascade = run_int8_cascade(cfg_path, data, cli["ds2"]["checkpoint"], cascade_loc,
+                               args.seed + 92, q1, attn, card, root)
+    return dict(generate=generate, card_vs_cpu=card_vs_cpu, cascade=cascade,
+                denoise_calls=[list(map(list, c[:4])) + list(c[4:]) for c in calls]), cases, calls
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batches", type=int, default=2)
@@ -2665,6 +3053,7 @@ def main() -> None:
         from calodiffusion_tpu_torch.ops import attention as att
         from calodiffusion_tpu_torch.ops import cuda_build
         from calodiffusion_tpu_torch.ops import groupnorm as gn
+        from calodiffusion_tpu_torch.ops import int8_conv as q1
         from calodiffusion_tpu_torch.ops import linear_attention as attn
         from calodiffusion_tpu_torch.utils.config import load_config
     except ImportError as e:
@@ -2680,7 +3069,8 @@ def main() -> None:
 
     # 2. build
     t0 = time.perf_counter()
-    builds = attn.BUILDS + att.KERNEL.builds + att.BACKWARD_KERNEL.builds + gn.KERNEL.builds
+    builds = (attn.BUILDS + att.KERNEL.builds + att.BACKWARD_KERNEL.builds + gn.KERNEL.builds
+              + q1.KERNEL.builds)
     cuda_build.build_all(builds)
     print(f"build: {len(builds)} kernel variants in {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -2736,6 +3126,7 @@ def main() -> None:
     if gen_launches != (want, 0):
         fail(f"generation launched K1 {gen_launches[0]} times (expected {want}) and K2 "
              f"{gen_launches[1]} (expected 0)")
+    bf16_sps = n / wall
     print(f"main: {n} ds2 showers, {args.steps}-step DDim, bf16, batch {BATCH}: {wall:.2f} s, "
           f"{n / wall:.3f} showers/s on {card}; fused_attention_block launches "
           f"{gen_launches[0]}", flush=True)
@@ -2793,9 +3184,15 @@ def main() -> None:
     t0 = time.perf_counter()
     evaluation = run_evaluate_phase(root, made, ds2_showers, cli, args.seed + 80, attn, card)
     print(f"evaluate: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 14. int8, from phase 4's weights and the cascade phase's checkpoints
+    t0 = time.perf_counter()
+    int8, q1_cases, q1_calls = run_int8_phase(model, loader, args, cascade["checkpoint"], made,
+                                              cli, root, q1, attn, nn_modules, card, bf16_sps)
+    print(f"int8: {time.perf_counter() - t0:.1f} s", flush=True)
     tmp.cleanup()
 
-    # 14. result
+    # 15. result
     launches = {"fused_attention_block": (gen_launches[0], train["k1"]),
                 "attention_block_backward": (gen_launches[1], train["k2"])}
     kernels = []
@@ -2827,12 +3224,15 @@ def main() -> None:
             "evaluate_cnn_sample": evaluation["cnn"][key],
             "optimize_train": evaluation["optimize"]["train"][key],
             "optimize_sample": evaluation["optimize"]["sample"][key],
+            "int8_generate": int8["generate"][key],
+            "int8_cascade_sample": int8["cascade"][key],
+            "int8_transpose": int8["generate"]["transpose"][key],
         })
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            # launches on this slice's paths: CNNCompare's sampling, the
-            # optimize trial's training and sampling
-            launches=sum(by_path[k] for k in SLICE_PATHS),
+            # launches on the last two slices' paths: CNNCompare's sampling,
+            # the optimize trial's training and sampling, the int8 paths
+            launches=sum(by_path[k] for k in EVALUATE_PATHS + INT8_PATHS),
             launches_by_path=by_path,
             max_abs_err=max(c["max_abs_err"] for c in bf16),
             # times of the 7 launches of one ds2 U-Net call, B=128, bf16
@@ -2885,6 +3285,25 @@ def main() -> None:
             kernels[-1]["two_call_ms"] = sum(c["two_call_ms"] for c in on_path)
         if name == "blockwise_attention_backward":
             kernels[-1]["hgmma_instructions"] = hgmma
+    # Q1: the times of the 36 launches of one ds2 int8 denoise, B = 128, bf16
+    q1_bf16 = [c for c in q1_cases if c["dtype"] == "bfloat16"]
+    main_calls = [c for c in q1_calls if c[5] == "conv"]
+    q1_paths = {"int8_generate": int8["generate"]["q1"],
+                "int8_cascade_sample": int8["cascade"]["q1"],
+                "int8_transpose": int8["generate"]["transpose"]["q1"]}
+    kernels.append(dict(
+        name="int8_conv3d", route="cuda", source=SOURCES["int8_conv3d"],
+        replaces=REPLACES["int8_conv3d"], launches=sum(q1_paths.values()),
+        launches_by_path=q1_paths, max_abs_err=max(c["max_abs_err"] for c in q1_bf16),
+        **{name: per_denoise(q1_cases, main_calls, key) for name, key in (
+            ("ms", "kernel_ms"), ("plain_ms", "plain_ms"), ("device_ms", "device_ms"),
+            ("bound_ms", "bound_ms"), ("library_ms", "library_ms"))},
+        bound_by="bytes" if all(c["bound_by"] == "bytes" for c in q1_bf16) else "operations",
+        # cuDNN's conv3d in the activation dtype at the same shapes: the float
+        # convolution Q1 stands in for, not the same function
+        library="torch.nn.functional.conv3d (cuDNN, bf16)",
+        launches_per_call=INT8_CONVS, cases=q1_cases,
+    ))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"train": {k: v for k, v in train.items() if k != "steps"},
                       "train_step_losses": [s["loss"] for s in train["steps"]],
@@ -2892,7 +3311,7 @@ def main() -> None:
                       "card_vs_cpu_step": step_check, "cli": cli, "variants": var_results,
                       "samplers": zoo, "samplers_card_vs_cpu": zoo_cpu, "bns": bns,
                       "cascade": cascade, "distill": distill, "ds1": ds1, "hgcal": hgcal,
-                      "evaluate": evaluation, "card": card}),
+                      "evaluate": evaluation, "int8": int8, "card": card}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Physics-fidelity check of calodiffusion_tpu_torch on one CUDA card.
 
-    python3 scripts/torch_fidelity_check.py [epochs] [--out FILE]
+    python3 scripts/torch_fidelity_check.py [epochs] [--int8] [--out FILE]
 
 The port's counterpart of ``scripts/tpu_fidelity_check.py``: the full
 dataset-2 U-Net (``configs/config_dataset2.json`` with that script's
@@ -18,8 +18,15 @@ JAX script's.
 
 No jax and no h5py: the data are npz caches, as ``chip_smoke.write_cache``
 writes them.  The histogram suite of ``evaluation/plots.py`` needs
-matplotlib and runs only where it is installed.  ``--int8`` is refused:
-int8 sampling is not ported (ROADMAP M12).  The report goes to ``--out``
+matplotlib and runs only where it is installed.  ``--int8`` adds the JAX
+script's A/B (scripts/tpu_fidelity_check.py:112-135): from the same trained
+weights the eval set is generated again with W8A8 int8 sampling
+(``QUANT_INT8``, calibrated on the first batch's conditioning), once
+unfenced and once with the down-path fence of
+scripts/tpu_fewstep_check.py:95-103 (``QUANT_INT8_EXCLUDE``: ResnetBlock_0..5
+and the downsampling convs), and reports their separations, AUC, JSD and
+FPD as ``int8_*`` and ``int8_fenced_*`` beside the float ones, with their
+own gates and generation walls.  The report goes to ``--out``
 (default ``torch_fidelity_report.json`` at the repository root, which git
 ignores), never to the JAX package's ``fidelity_report.json``.
 """
@@ -159,6 +166,15 @@ def gate(d) -> bool:
     return bool(ok)
 
 
+def int8_fence(cfg) -> list:
+    """The down-path exclusion of the JAX package's int8 recipe
+    (scripts/tpu_fewstep_check.py:95-103): every down-path ResnetBlock and
+    the downsampling convs."""
+    n_res = len(cfg["LAYER_SIZE_UNET"]) - 1
+    return ([f"ResnetBlock_{i}/" for i in range(2 * n_res)]
+            + [f"CondUnet_0/Conv3d_{i}" for i in range(n_res - 1)])
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
@@ -171,12 +187,11 @@ def main(argv=None):
     # varied 0.44-0.76 between identical runs
     ap.add_argument("epochs", nargs="?", type=int, default=80)
     ap.add_argument("--int8", action="store_true",
-                    help="refused: int8 sampling is not ported (ROADMAP M12)")
+                    help="also generate with W8A8 int8 sampling from the same weights, "
+                         "unfenced and fenced, and report int8_* beside the float metrics")
     ap.add_argument("--out", default=str(ROOT / "torch_fidelity_report.json"))
     ap.add_argument("--device", default="cuda", help="torch device (cpu for the CPU)")
     args = ap.parse_args(argv)
-    if args.int8:
-        sys.exit("--int8: int8 sampling is not ported to calodiffusion_tpu_torch (ROADMAP M12)")
     if Path(args.out).resolve() == (ROOT / "fidelity_report.json").resolve():
         sys.exit("--out: fidelity_report.json is the JAX package's report")
 
@@ -210,27 +225,33 @@ def main(argv=None):
     print(f"trained {args.epochs} epochs of {N_TRAIN // cfg['BATCH']} steps in "
           f"{train_s:.0f} s on {card}", flush=True)
 
-    eval_loader, _ = load_data(default_flags(data_folder=f"{data}/"), cfg, eval=True)
-    t0 = time.perf_counter()
-    gen, en = model.generate(eval_loader, 400,
-                             generator=torch.Generator(device=model.device).manual_seed(0))
-    generate_s = time.perf_counter() - t0
-    print(f"generated {len(gen)} showers, 400-step DDim, in {generate_s:.1f} s", flush=True)
     showers, e_inc = raw["dataset_2_2.hdf5"]
     ref, ref_e = showers * SHOWERSCALE, e_inc * SHOWERSCALE
-
-    t0 = time.perf_counter()
-    seps = compute_seps(ref, ref_e, gen, en, cfg, args.device)
-    metrics_s = time.perf_counter() - t0
+    report = dict(epochs=args.epochs, train_s=train_s, card=card)
+    # the float path, then (--int8) int8 unfenced and fenced from the same weights
+    variants = [("", None)] + ([("int8_", []), ("int8_fenced_", int8_fence(cfg))]
+                               if args.int8 else [])
+    for tag, exclude in variants:
+        model.config.update(QUANT_INT8=exclude is not None, QUANT_INT8_EXCLUDE=exclude or [])
+        model._int8_scales = None  # generate calibrates on the first batch
+        eval_loader, _ = load_data(default_flags(data_folder=f"{data}/"), cfg, eval=True)
+        t0 = time.perf_counter()
+        gen, en = model.generate(eval_loader, 400,
+                                 generator=torch.Generator(device=model.device).manual_seed(0))
+        generate_s = time.perf_counter() - t0
+        print(f"{tag}generated {len(gen)} showers, 400-step DDim, in {generate_s:.1f} s "
+              f"({len(gen) / generate_s:.3f} showers/s)", flush=True)
+        t0 = time.perf_counter()
+        seps = compute_seps(ref, ref_e, gen, en, cfg, args.device)
+        metrics_s = time.perf_counter() - t0
+        for k, v in seps.items():
+            print(f"{tag}separation[{k}] = {v:.4f}", flush=True)
+        ok = gate(seps)
+        print(f"{tag}FIDELITY", "OK" if ok else "NEEDS MORE TRAINING", flush=True)
+        report.update({f"{tag}{k}": float(v) for k, v in seps.items()})
+        report.update({f"{tag}ok": ok, f"{tag}generate_s": generate_s,
+                       f"{tag}metrics_s": metrics_s})
     tmp.cleanup()
-    for k, v in seps.items():
-        print(f"separation[{k}] = {v:.4f}", flush=True)
-    ok = gate(seps)
-    print("FIDELITY", "OK" if ok else "NEEDS MORE TRAINING", flush=True)
-
-    report = {k: float(v) for k, v in seps.items()}
-    report.update(ok=ok, epochs=args.epochs, train_s=train_s, generate_s=generate_s,
-                  metrics_s=metrics_s, card=card)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1)

@@ -4,7 +4,7 @@ and training goes, on one CUDA card.
 
     python3 scripts/torch_profile_ds2.py [--dataset 2] [--particle photon] [--calls 10]
                                          [--generate-reps 3] [--generate-batches 2]
-                                         [--train-steps 10] [--seed 0] [--out FILE]
+                                         [--train-steps 10] [--int8] [--seed 0] [--out FILE]
 
 Builds calodiffusion_tpu_torch's CaloDiffusion at the full width of
 configs/config_dataset2.json (``--dataset 3``: config_dataset3.json;
@@ -20,8 +20,11 @@ with CUDA events, traces the same calls with torch.profiler and sums device
 time by kernel family.  Then does the same for ``--train-steps`` steps of
 ``TrainDiffusion.train_step`` (forward, backward, Adam) on one batch of the
 config's BATCH (128 for ds2, 64 for ds3, 256 and 128 for HGCal's photons
-and pions).  Prints the top kernels and one
-JSON line; ``--out`` also writes them to a JSON file.
+and pions).  ``--int8`` then turns on W8A8 int8 sampling (``QUANT_INT8``,
+calibrated on the first generate batch's conditioning) and does the same
+for ``generate`` (one rep) and the denoise calls, Q1's launches a family of
+their own.  Prints the top kernels and one JSON line; ``--out`` also
+writes them to a JSON file.
 """
 
 from __future__ import annotations
@@ -41,13 +44,14 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 from calodiffusion_tpu_torch.models.diffusion import CaloDiffusion  # noqa: E402
-from calodiffusion_tpu_torch.ops import linear_attention  # noqa: E402
+from calodiffusion_tpu_torch.ops import cuda_build, int8_conv, linear_attention  # noqa: E402
 from calodiffusion_tpu_torch.train.trainer import TrainDiffusion  # noqa: E402
 from calodiffusion_tpu_torch.utils.config import default_flags, load_config  # noqa: E402
 
 FAMILIES = (  # first match wins; matched against lower-case kernel names
     ("fused_attention_block", ("attention_block_kernel",)),
     ("attention_block_backward", ("attention_block_bwd_kernel",)),
+    ("int8_conv3d", ("int8_conv3d_kernel",)),
     ("optimizer", ("multi_tensor", "foreach", "adam")),
     # cuDNN's transposes of NCDHW activations to NHWC and back
     ("layout_transpose", ("nchwtonhwc", "nhwctonchw")),
@@ -129,6 +133,8 @@ def main() -> None:
     ap.add_argument("--generate-reps", type=int, default=3)
     ap.add_argument("--generate-batches", type=int, default=2)
     ap.add_argument("--train-steps", type=int, default=10)
+    ap.add_argument("--int8", action="store_true",
+                    help="also generate and profile the denoise with QUANT_INT8")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=Path, help="JSON file for the result and the top kernels")
     args = ap.parse_args()
@@ -139,7 +145,8 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     ).stdout.strip()
-    linear_attention.build_all()  # the kernels' build is set-up, not generation
+    # the kernels' build is set-up, not generation
+    cuda_build.build_all(linear_attention.BUILDS + int8_conv.KERNEL.builds)
     if args.dataset == "1":  # the binning XML is not in the repository: chip_smoke's synthetic one
         import tempfile
 
@@ -207,6 +214,24 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
     ).stdout.strip()
     train_top = sorted(t_kernels.items(), key=lambda kv: -kv[1][0])[:25]
+    int8_top = []
+    if args.int8:
+        model.config["QUANT_INT8"] = True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prepare_int8(E=torch.from_numpy(loader[0][0]).cuda(),
+                           layers=torch.from_numpy(loader[0][1]).cuda(), generator=g)
+        torch.cuda.synchronize()
+        calib_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        model.generate(loader, 400, generator=torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        int8_generate_s = time.perf_counter() - t0
+        print(f"int8 generate: {nb * B} showers in {int8_generate_s:.3f} s", flush=True)
+        with model.int8_scope():
+            i_event, i_wall, i_kernels = time_and_profile(call, args.calls)
+        int8_top = sorted(i_kernels.items(), key=lambda kv: -kv[1][0])[:25]
+        int8_denoise = summary(i_event, i_wall, i_kernels, "call")
 
     result = {
         "card": card, "dataset": args.dataset,
@@ -226,14 +251,25 @@ def main() -> None:
         "train_samples_per_s": TB / (t_event / 1e3),
         "train": train,
     }
+    if args.int8:
+        result["int8"] = dict(
+            calibration_s=calib_s, generate_s=int8_generate_s,
+            generate_showers_per_s=nb * B / int8_generate_s,
+            denoise_ms_events=i_event, denoise_ms_host_wall=i_wall,
+            profiled_device_ms_per_call=int8_denoise["profiled_device_ms_per_call"],
+            device_idle_share=int8_denoise["call_device_idle_share"],
+            kernels_per_call=int8_denoise["kernels_per_call"],
+            families_ms_per_call=int8_denoise["families_ms_per_call"])
     if args.out:
         full = dict(result,
                     top_kernels=[{"name": k, "ms": v[0], "launches": v[1]} for k, v in top],
                     train_top_kernels=[{"name": k, "ms": v[0], "launches": v[1]}
-                                       for k, v in train_top])
+                                       for k, v in train_top],
+                    int8_top_kernels=[{"name": k, "ms": v[0], "launches": v[1]}
+                                      for k, v in int8_top])
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(full, indent=1))
-    for title, rows in (("denoise", top), ("train step", train_top)):
+    for title, rows in (("denoise", top), ("train step", train_top), ("int8 denoise", int8_top)):
         print(f"-- {title}: top kernels, ms and launches per call")
         for k, v in rows:
             print(f"{v[0]:9.4f} ms  x{v[1]:4d}  {k[:110]}")

@@ -385,11 +385,7 @@ def test_process_data_dict_and_load_samples_match_jax(workspace, generated, emin
 @pytest.mark.parametrize("argv,error,item", [
     (["sample", "--model-loc", "m.ckpt", "--sample-algo", "Karras", "diffusion"], ValueError,
      "sampler 'Karras' is not supported; pick from"),
-    (["sample", "--model-loc", "m.ckpt", "--int8", "diffusion"], NotImplementedError, "M12"),
-    # the cascade (M9) is ported; it still refuses int8 sampling
-    (["sample", "--model-loc", "m.ckpt", "--int8", "layer", "--layer-model", "l.ckpt"],
-     NotImplementedError, "M12"),
-], ids=["argv0-M8", "argv1-M12", "argv3-M9"])
+], ids=["argv0-M8"])
 def test_unported_sample_options_raise(argv, error, item):
     with pytest.raises(error, match=item):
         tinf.main(["--device", "cpu"] + argv)

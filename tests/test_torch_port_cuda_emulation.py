@@ -10,7 +10,8 @@ filled with NaN so a read before a write shows.  The kernel launch
 that runs the block's threads.  The libraries expose the same C entries as
 the nvcc builds and are called through the ops modules' ``launch*``
 functions with CPU tensors: K1/K2/K3 (``ops/linear_attention.py``), K4 and
-its backward (``ops/attention.py``), K5 (``ops/groupnorm.py``).  A source
+its backward (``ops/attention.py``), K5 (``ops/groupnorm.py``), Q1 (the int8
+convolution, ``ops/int8_conv.py``).  A source
 with several launches runs them in turn.  This checks the
 kernels' arithmetic, indexing, masking and barriers; it says nothing about
 their speed, and the card's own compiler may still refuse what g++ takes.
@@ -30,14 +31,17 @@ import torch
 from calodiffusion_tpu_torch.ops import attention as tatt
 from calodiffusion_tpu_torch.ops import cuda_build
 from calodiffusion_tpu_torch.ops import groupnorm as tgn
+from calodiffusion_tpu_torch.ops import int8_conv as tq1
 from calodiffusion_tpu_torch.ops import linear_attention as tattn
 from calodiffusion_tpu_torch.ops.tolerances import (K1_TOL, K2_TOL, K3_TOL, K4_TOL, K4B_TOL,
                                                     K5_TOL)
 
 # every (kernel, variant) of the three ops modules
-JOBS = tattn.BUILDS + tatt.KERNEL.builds + tatt.BACKWARD_KERNEL.builds + tgn.KERNEL.builds
+JOBS = (tattn.BUILDS + tatt.KERNEL.builds + tatt.BACKWARD_KERNEL.builds + tgn.KERNEL.builds
+        + tq1.KERNEL.builds)
 # one library a dtype
-ONE_DTYPE_KERNELS = {k.name: k for k in (tatt.KERNEL, tatt.BACKWARD_KERNEL, tgn.KERNEL)}
+ONE_DTYPE_KERNELS = {k.name: k for k in (tatt.KERNEL, tatt.BACKWARD_KERNEL, tgn.KERNEL,
+                                         tq1.KERNEL)}
 
 
 def _job(module, dtype, kernel="KERNEL"):
@@ -108,6 +112,9 @@ inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
   return {__float2bfloat16(a), __float2bfloat16(b)};
 }
 inline float rsqrtf(float v) { return 1.0f / std::sqrt(v); }
+// one rounding each, never contracted into an FMA
+inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
+inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
@@ -219,6 +226,36 @@ inline void emu_mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0, uns
       const float av = elem((row & 7) * 4 + (k & 7) / 2, (row >> 3) + 2 * (k >> 3), k);
       const float bv = elem(col * 4 + (k & 7) / 2, 4 + (k >> 3), k);
       acc += av * bv;
+    }
+    out[i] = acc;
+  }
+  __syncwarp();
+  for (int i = 0; i < 4; ++i) d[i] = out[i];
+}
+
+// mma.sync.m16n8k32.row.col.s32.s8.s8.s32, d += a b: a register holds 4
+// int8 (the lowest k in the low byte); A element (row, k) lies in lane
+// (row & 7) * 4 + (k & 15) / 4, register (row >> 3) + 2 (k >> 4); B element
+// (k, col) in lane col * 4 + (k & 15) / 4, register k >> 4 (the PTX ISA's
+// fragment layouts); C as the bf16 mma's, in s32
+inline void emu_mma_s8(int (&d)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  unsigned* buf = emu_block->words.data() + w * 32 * 6;
+  for (int i = 0; i < 4; ++i) buf[lane * 6 + i] = a[i];
+  buf[lane * 6 + 4] = b0;
+  buf[lane * 6 + 5] = b1;
+  __syncwarp();
+  auto elem = [&](int owner, int reg, int k) {
+    return int(int8_t(uint8_t(buf[owner * 6 + reg] >> (8 * (k & 3)))));
+  };
+  const int g = lane >> 2, t = lane & 3;
+  int out[4];
+  for (int i = 0; i < 4; ++i) {
+    const int row = g + 8 * (i >> 1), col = 2 * t + (i & 1);
+    int acc = d[i];
+    for (int k = 0; k < 32; ++k) {
+      acc += elem((row & 7) * 4 + (k & 15) / 4, (row >> 3) + 2 * (k >> 4), k) *
+             elem(col * 4 + (k & 15) / 4, 4 + (k >> 4), k);
     }
     out[i] = acc;
   }
@@ -1103,3 +1140,118 @@ def test_groupnorm_silu_kernel_chunks_match_plain(libs, shape, groups, silu, ste
     want = tgn.gn_silu_reference(x, scale, bias, groups, 1e-5, silu)
     atol, rtol = K5_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+# ---------------------------------------------------------------------------
+# Q1, the int8 convolution: its s8 mma and the kernel
+# ---------------------------------------------------------------------------
+
+# One warp computes a (16 x 32) (32 x 16) int8 product through common.cuh's
+# mma_s8_16832 (two n-tiles of 8), its operands packed 4 int8 to a register
+# after the PTX ISA's m16n8k32 fragment layouts, as Q1 reads them from its
+# shared-memory tiles.
+TILE_MMA_S8_SOURCE = r"""
+#include "common.cuh"
+using namespace calo;
+extern "C" void tile_mma_s8(const int8_t* a, const int8_t* b, int* c) {
+  emu_launch(1, 32, 16, [&] {
+    const int lane = threadIdx.x, g = lane >> 2, t = lane & 3;
+    auto pk = [](const int8_t* p, int stride) {
+      unsigned w = 0;
+      for (int i = 0; i < 4; ++i) w |= unsigned(uint8_t(p[i * stride])) << (8 * i);
+      return w;
+    };
+    unsigned af[4], bf[2][2];
+    for (int r = 0; r < 4; ++r) af[r] = pk(a + (g + 8 * (r & 1)) * 32 + 4 * t + 16 * (r >> 1), 1);
+    for (int n = 0; n < 2; ++n)
+      for (int j = 0; j < 2; ++j) bf[n][j] = pk(b + (4 * t + 16 * j) * 16 + n * 8 + g, 16);
+    for (int n = 0; n < 2; ++n) {
+      int d[4] = {0, 0, 0, 0};
+      mma_s8_16832(d, af, bf[n][0], bf[n][1]);
+      for (int i = 0; i < 4; ++i) c[(g + 8 * (i >> 1)) * 16 + n * 8 + 2 * t + (i & 1)] = d[i];
+    }
+  });
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def tile_mma_s8(tmp_path_factory):
+    out = _emulation_dir(tmp_path_factory)
+    cpp, so = out / "tile_mma_s8.cpp", out / "tile_mma_s8.so"
+    cpp.write_text(TILE_MMA_S8_SOURCE)
+    cmd = ["g++", "-std=c++20", "-O1", "-fno-strict-aliasing", "-shared", "-fPIC", "-pthread",
+           f"-I{out}", f"-I{cuda_build.CSRC_DIR}", "-DCALO_EMULATION", "-DCALO_BF16=1",
+           "-o", str(so), str(cpp)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    fn = ctypes.CDLL(str(so)).tile_mma_s8
+    fn.argtypes = [ctypes.c_void_p] * 3
+    return fn
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_emulated_mma_s8_matches_matmul(tile_mma_s8, seed):
+    """The emulated m16n8k32 s8 mma against an int64 product on a random
+    tile, the extremes -127 and 127 among its entries: equal."""
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.integers(-127, 128, (16, 32), dtype=np.int8))
+    b = torch.from_numpy(rng.integers(-127, 128, (32, 16), dtype=np.int8))
+    a[0, :] = 127
+    b[:, 0] = -127
+    c = torch.full((16, 16), -1, dtype=torch.int32)
+    tile_mma_s8(a.data_ptr(), b.data_ptr(), c.data_ptr())
+    assert torch.equal(c.long(), a.long() @ b.long())
+
+
+# (B, Cin, Cout, (Z, A, R), kernel, stride, padding, cylindrical): ds2's
+# kinds at small sizes: 3x3x3 with the phi wrap, Cin a multiple of 32 and
+# not (K = 216 leaves a ragged step); 1x1 residuals, Cout past one tile of
+# 32; the (3, 4, 4) stride-2 downsample wrapping phi on an axis of 8; a
+# plain zero-padded 3x3x3; a subpixel core (kernel 2, pads 1, Cout' = 8
+# Cout); rows past the last whole tile of 128 in each
+Q1_CASES = [
+    (2, 32, 32, (5, 8, 6), (3, 3, 3), 1, 1, True),
+    (2, 8, 16, (5, 8, 6), (3, 3, 3), 1, 1, True),
+    (2, 16, 40, (4, 6, 5), (1, 1, 1), 1, 0, True),
+    (1, 64, 32, (3, 4, 2), (1, 1, 1), 1, 0, False),
+    (2, 16, 16, (5, 8, 6), (3, 4, 4), (2, 2, 2), 1, True),
+    (1, 8, 8, (5, 8, 6), (3, 3, 3), 1, 1, False),
+    (1, 8, 64, (4, 6, 5), (2, 2, 2), 1, 1, False),
+]
+
+
+def _q1_args(B, Cin, Cout, spatial, kernel, dtype, seed):
+    """x with a tail that saturates the int8 range (inv_sx 127 / 2.5), int8
+    weights, an f32 scale and bias."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((B, Cin, *spatial)).astype(np.float32)).to(dtype)
+    wq = torch.from_numpy(rng.integers(-127, 128, (Cout, Cin, *kernel), dtype=np.int8))
+    scale = torch.from_numpy((1e-4 * (1 + rng.random(Cout))).astype(np.float32))
+    bias = torch.from_numpy((0.1 * rng.standard_normal(Cout)).astype(np.float32))
+    return x, wq, scale, bias, float(np.float32(127 / 2.5))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("B,Cin,Cout,spatial,kernel,stride,padding,cyl", Q1_CASES)
+def test_int8_conv3d_kernel_matches_plain(libs, B, Cin, Cout, spatial, kernel, stride, padding,
+                                         cyl, dtype):
+    """Q1 against int8_conv3d_reference, bit for bit: the s32 sums are exact
+    on both sides and the dequantization rounds alike; without a bias too."""
+    x, wq, scale, bias, inv = _q1_args(B, Cin, Cout, spatial, kernel, dtype, seed=Cin + Cout)
+    lib = libs[_job(tq1, dtype)]
+    for b in (bias, None):
+        got = tq1.launch(lib, x, wq, scale, b, inv, stride, padding, cyl)
+        want = tq1.int8_conv3d_reference(x, wq, scale, b, inv, stride, padding, cyl)
+        assert got.dtype == dtype and got.shape == want.shape
+        assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+
+
+def test_int8_conv3d_library_refuses_what_it_does_not_take(libs):
+    """A library takes only its build's activation dtype and a phi wrap no
+    wider than the axis: the C entry returns an error, which launch raises."""
+    x, wq, scale, bias, inv = _q1_args(1, 8, 8, (3, 4, 3), (3, 3, 3), torch.float32, seed=0)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tq1.launch(libs[_job(tq1, torch.bfloat16)], x, wq, scale, bias, inv, 1, 1, True)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tq1.launch(libs[_job(tq1, torch.float32)], x, wq, scale, bias, inv, 1, (1, 5, 1), True)

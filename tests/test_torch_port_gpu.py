@@ -794,3 +794,63 @@ def test_comparison_network_on_card_matches_cpu(shape):
         want = net(x, E)
         got = net.to("cuda")(x.cuda(), E.cuda()).cpu()
     assert (got - want).abs().max().item() <= 1e-4
+
+
+# Q1, the int8 convolution: (B, Cin, Cout, (Z, A, R), kernel, stride,
+# padding, cylindrical) of ds2's kinds at B = 4, a ragged K (Cin 16: K = 432)
+# and a subpixel core
+Q1_SHAPES = [(4, 32, 32, (45, 16, 9), (3, 3, 3), 1, 1, True),
+             (4, 64, 32, (45, 16, 9), (1, 1, 1), 1, 0, True),
+             (4, 32, 32, (45, 16, 9), (3, 4, 4), 2, 1, True),
+             (4, 16, 40, (23, 8, 4), (3, 3, 3), 1, 1, True),
+             (4, 64, 512, (14, 6, 4), (2, 2, 2), 1, 1, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("B,Cin,Cout,spatial,kernel,stride,padding,cyl", Q1_SHAPES)
+def test_int8_conv3d_kernel_matches_plain(B, Cin, Cout, spatial, kernel, stride, padding, cyl,
+                                         dtype):
+    """Q1 against its plain version on the card, bit for bit, with a bias and
+    without; each launch counted."""
+    from calodiffusion_tpu_torch.ops import int8_conv
+
+    g = torch.Generator().manual_seed(Cin + Cout)
+    x = torch.randn(B, Cin, *spatial, generator=g).to("cuda", dtype)
+    wq = torch.randint(-127, 128, (Cout, Cin, *kernel), generator=g, dtype=torch.int8).cuda()
+    scale = (1e-4 * (1 + torch.rand(Cout, generator=g))).cuda()
+    bias = (0.1 * torch.randn(Cout, generator=g)).cuda()
+    for b in (bias, None):
+        before = int8_conv.int8_conv3d.launches
+        got = int8_conv.int8_conv3d(x, wq, scale, b, 127 / 2.5, stride, padding, cyl)
+        assert int8_conv.int8_conv3d.launches == before + 1
+        want = int8_conv.int8_conv3d_reference(x, wq, scale, b, 127 / 2.5, stride, padding, cyl)
+        assert torch.equal(got, want)
+
+
+def test_int8_denoise_on_card_runs_q1_and_each_conv_matches_cpu():
+    """A full-width ds2 f32 int8 denoise (batch 2) on the card launches Q1 36
+    times; each quantized conv's output equals the plain version's on the
+    CPU from the input it met on the card."""
+    from calodiffusion_tpu_torch.ops import int8_conv, quant
+
+    cfg = dict(load_config(str(CONFIG)), PRECISION="f32", QUANT_INT8=True)
+    m = CaloDiffusion(cfg, generator=torch.Generator().manual_seed(0))
+    m.prepare_int8(n_sigmas=2, batch=2)
+    seen = {}
+    hooks = [c.register_forward_hook(lambda mod, a, out, p=p: seen.__setitem__(p, (mod, a[0], out)))
+             for p, c in m.quantizable_convs().items()]
+    x = torch.randn(2, 1, 45, 16, 9, device="cuda")
+    before = int8_conv.int8_conv3d.launches
+    with torch.inference_mode(), m.int8_scope():
+        y = m.denoise(x, E=torch.rand(2, 1, device="cuda"),
+                      sigma=torch.full((2, 1, 1, 1, 1), 0.7, device="cuda"),
+                      layers=torch.randn(2, 46, device="cuda"))
+    for h in hooks:
+        h.remove()
+    assert torch.isfinite(y).all() and int8_conv.int8_conv3d.launches - before == 36
+    for path, (mod, inp, out) in seen.items():
+        sx = m._int8_scales[path]
+        wq, scale, bias = (t.cpu() for t in mod._int8_weights(sx))
+        want = int8_conv.int8_conv3d_reference(inp.cpu(), wq, scale, bias, quant.inv_scale(sx),
+                                               mod.stride, mod.padding, mod.cylindrical)
+        assert torch.equal(out.cpu(), want), path

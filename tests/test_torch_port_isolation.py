@@ -79,6 +79,18 @@ with torch.no_grad():
                   sigma=torch.full((2, 1, 1, 1, 1), 0.5), layers=torch.randn(2, 46))
 assert y.shape == (2, 1, 45, 16, 9) and bool(torch.isfinite(y).all())
 
+# int8 sampling (ops/quant.py, ops/int8_conv.py, the int8 transpose of
+# ops/conv.py) needs none of them either
+import os
+os.environ["CALODIFF_INT8_TRANSPOSE"] = "1"
+m.config["QUANT_INT8"] = True
+# the 36 convs of ds2's layout and the 2 transposes
+assert len(m.prepare_int8(n_sigmas=1, batch=1)) == 38
+with torch.no_grad(), m.int8_scope():
+    yq = m.denoise(torch.randn(2, 1, 45, 16, 9), E=torch.rand(2, 1),
+                   sigma=torch.full((2, 1, 1, 1, 1), 0.5), layers=torch.randn(2, 46))
+assert yq.shape == y.shape and bool(torch.isfinite(yq).all())
+
 # the evaluation and the optimisation harness need neither sklearn, pandas
 # nor optuna
 import numpy as np
