@@ -24,6 +24,17 @@
 //   a 1024-byte boundary, so the pattern is the absolute one TMA writes
 //   with the same swizzle.  A k-step of 16 advances a K-major descriptor by
 //   32 bytes along its rows and an MN-major one by 16 rows.
+//
+// s8 (Q1, wgmma m64nNk32, s32 sums): both operands K-major, as integer
+// wgmma requires.  A k-step is 32 bytes, as bf16's, and the layouts are
+// bf16's byte for byte: the A register fragment holds 4 int8 a register,
+// the lowest k in the low byte (a0 row g bytes 4t..4t+3, a1 row g+8, a2
+// row g bytes 16+4t.., a3 row g+8: what ldmatrix_x4 of the warp's 16 x 32
+// bytes gives), D holds s32 where bf16's holds f32, and a K-major B (or A)
+// tile is rows of 64 bytes (two k-steps) with the 64-byte swizzle
+// (swizzle64), a k-step advancing the descriptor by 32 bytes.  Q1's A ring
+// is rows of 32 bytes with the 32-byte swizzle (ring32_offset), read by
+// ldmatrix at any starting row.
 #pragma once
 
 #include <stdint.h>
@@ -54,7 +65,23 @@ __device__ __forceinline__ char* align_smem_1024(void* p) {
   return c + ((1024u - (smem_addr(c) & 1023u)) & 1023u);
 }
 
+// byte `off` of a 1024-byte-aligned tile of 64-byte rows, where the 64-byte
+// swizzle puts it: bits [4, 6) XOR bits [7, 9)
+__host__ __device__ __forceinline__ unsigned swizzle64(unsigned off) {
+  return off ^ (((off >> 7) & 3u) << 4);
+}
+
+// half `half` (16 bytes) of row `row` of a tile of 32-byte rows with the
+// 32-byte swizzle (TMA's SWIZZLE_32B on a 256-byte-aligned tile: bit 4 XOR
+// bit 7): the halves swap where bit 2 of the row is set, so the 8
+// consecutive rows an ldmatrix phase reads, from any starting row, fall on
+// 8 distinct 16-byte bank groups
+__host__ __device__ __forceinline__ unsigned ring32_offset(int row, int half) {
+  return static_cast<unsigned>(row) * 32u + 16u * static_cast<unsigned>(half ^ ((row >> 2) & 1));
+}
+
 template <int N, int TRANS_B> struct Wgmma;
+template <int N> struct WgmmaS8;
 
 #if defined(CALO_EMULATION)
 // the emulation header defines the emu_* counterparts and CUtensorMap
@@ -78,12 +105,22 @@ __device__ __forceinline__ void wgmma_fence() {}
 __device__ __forceinline__ void wgmma_commit() { emu_wgmma_commit(); }
 template <int N> __device__ __forceinline__ void wgmma_wait() { emu_wgmma_wait(N); }
 template <int N> __device__ __forceinline__ void fence_operands(float (&)[N]) {}
+template <int N> __device__ __forceinline__ void fence_operands(int (&)[N]) {}
 template <int R> __device__ __forceinline__ void reg_alloc() {}
 template <int R> __device__ __forceinline__ void reg_dealloc() {}
 
 template <int N, int TRANS_B> struct Wgmma {
   static void rs(float (&d)[N / 2], const unsigned (&a)[4], uint64_t db, int scale_d) {
     emu_wgmma(d, N, a, db, TRANS_B, scale_d);
+  }
+};
+
+template <int N> struct WgmmaS8 {
+  static void rs(int (&d)[N / 2], const unsigned (&a)[4], uint64_t db, int scale_d) {
+    emu_wgmma_s8(d, N, a, 0, db, scale_d);
+  }
+  static void ss(int (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
+    emu_wgmma_s8(d, N, nullptr, da, db, scale_d);
   }
 };
 
@@ -158,6 +195,10 @@ template <int N> __device__ __forceinline__ void fence_operands(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int N> __device__ __forceinline__ void fence_operands(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 // a warpgroup's registers a thread: raise (consumers) or lower (producer)
 template <int R> __device__ __forceinline__ void reg_alloc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
@@ -220,6 +261,110 @@ template <int TRANS_B> struct Wgmma<128, TRANS_B> {
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TRANS_B));
+  }
+};
+
+// m64nNk32, s8 x s8 -> s32 (no saturation: Q1's sums stay below 2^31),
+// both operands K-major
+template <> struct WgmmaS8<32> {
+  // d (+)= a b, a from registers (each warp's 16 rows, the fragment above)
+  static __device__ __forceinline__ void rs(int (&d)[16], const unsigned (&a)[4], uint64_t db,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+        "}, {%16, %17, %18, %19}, %20, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+  // d (+)= a b, both from shared memory
+  static __device__ __forceinline__ void ss(int (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+        "}, %16, %17, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaS8<64> {
+  // d (+)= a b, a from registers (each warp's 16 rows, the fragment above)
+  static __device__ __forceinline__ void rs(int (&d)[32], const unsigned (&a)[4], uint64_t db,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+        "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+  // d (+)= a b, both from shared memory
+  static __device__ __forceinline__ void ss(int (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+        "}, %32, %33, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaS8<128> {
+  // d (+)= a b, a from registers (each warp's 16 rows, the fragment above)
+  static __device__ __forceinline__ void rs(int (&d)[64], const unsigned (&a)[4], uint64_t db,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+        "}, {%64, %65, %66, %67}, %68, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+  // d (+)= a b, both from shared memory
+  static __device__ __forceinline__ void ss(int (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+        "}, %64, %65, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
   }
 };
 

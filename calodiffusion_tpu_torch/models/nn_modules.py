@@ -88,6 +88,12 @@ class Conv3d(_Quantizable):
         b = None if self.bias is None else self.bias.to(self.dtype).float()
         return wq, quant.dequant_scale(sw, sx), b
 
+    def _int8_cache_entry(self, sx):
+        """``_int8_weights`` with wq held in an ``int8_conv.Int8Weights``,
+        which keeps Q1's reordered weights once made."""
+        wq, scale, b = self._int8_weights(sx)
+        return int8_conv.Int8Weights(wq), scale, b
+
     def forward(self, x):
         op = cylindrical_conv3d if self.cylindrical else conv3d
         w = self.weight.to(self.dtype)
@@ -96,10 +102,9 @@ class Conv3d(_Quantizable):
         if sx == quant.WEIGHT_ONLY:
             w = quant.dequantized_weight(w).to(self.dtype)
         elif sx is not None:
-            wq, scale, bf = self._int8_cached(sx, lambda: self._int8_weights(sx))
-            return int8_conv.int8_conv3d(x.to(self.dtype).contiguous(), wq, scale, bf,
-                                         quant.inv_scale(sx), self.stride, self.padding,
-                                         self.cylindrical)
+            wq, scale, bf = self._int8_cached(sx, lambda: self._int8_cache_entry(sx))
+            return int8_conv.int8_conv3d(x.to(self.dtype), wq, scale, bf, quant.inv_scale(sx),
+                                         self.stride, self.padding, self.cylindrical)
         return op(x.to(self.dtype), w, b, stride=self.stride, padding=self.padding)
 
 
@@ -127,8 +132,7 @@ class Conv3dTranspose(_Quantizable):
         w, b = self.weight.to(self.dtype), self.bias.to(self.dtype)
         sx = self.int8_scale
         if sx is not None:
-            quantized = self._int8_cached(
-                sx, lambda: quant.quantize_weight_per_cout(subpixel_weight(w, self.stride)))
+            quantized = self._int8_cached(sx, lambda: self._int8_subpixel(w))
             return int8_conv3d_transpose(
                 x.to(self.dtype), w, b, sx, stride=self.stride, padding=self.padding,
                 output_padding=self.output_padding, cylindrical=self.cylindrical,
@@ -136,6 +140,12 @@ class Conv3dTranspose(_Quantizable):
         op = cylindrical_conv3d_transpose if self.cylindrical else conv3d_transpose
         return op(x.to(self.dtype), w, b, stride=self.stride, padding=self.padding,
                   output_padding=self.output_padding)
+
+    def _int8_subpixel(self, w):
+        """The subpixel core's (int8 weights in an ``int8_conv.Int8Weights``,
+        per-channel scales)."""
+        wq, sw = quant.quantize_weight_per_cout(subpixel_weight(w, self.stride))
+        return int8_conv.Int8Weights(wq), sw
 
 
 class Dense(nn.Module):

@@ -93,8 +93,9 @@ def int8_conv3d_transpose(x, w, b, sx: float, stride=1, padding=0, output_paddin
     Each phase's sub-kernel is quantized per output channel; the core's
     output is dequantized (no bias) and cast to x's dtype before the phases
     interleave, and the bias is added after the crop, in x's dtype.
-    ``quantized``: the (wq, sw) of ``subpixel_weight(w, stride)``, else
-    computed here.  At stride 1 it falls back to the float transpose."""
+    ``quantized``: the (wq, sw) of ``subpixel_weight(w, stride)``, wq a
+    tensor or an ``int8_conv.Int8Weights``, else computed here.  At stride 1
+    it falls back to the float transpose."""
     from calodiffusion_tpu_torch.ops import int8_conv, quant
 
     stride, padding = triple(stride), triple(padding)
@@ -110,8 +111,8 @@ def int8_conv3d_transpose(x, w, b, sx: float, stride=1, padding=0, output_paddin
     L = [-(-k[i] // stride[i]) for i in range(3)]
     wq, sw = quantized if quantized is not None else quant.quantize_weight_per_cout(
         subpixel_weight(w, stride))
-    y = int8_conv.int8_conv3d(x.contiguous(), wq, quant.dequant_scale(sw, sx), None,
-                              quant.inv_scale(sx), 1, [l - 1 for l in L], False)
+    y = int8_conv.int8_conv3d(x, wq, quant.dequant_scale(sw, sx), None, quant.inv_scale(sx), 1,
+                              [l - 1 for l in L], False)
     B, _, tz, ta, tr = y.shape
     # interleave: index m = t s + q
     y = y.reshape(B, sz, sa, sr, c_out, tz, ta, tr).permute(0, 4, 5, 1, 6, 2, 7, 3)

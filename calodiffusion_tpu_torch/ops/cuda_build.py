@@ -197,13 +197,18 @@ class DtypeKernel:
         return self._libraries[t.dtype]
 
 
+def forward_only_message(kernel: str, jax_source: str, instead: str) -> str:
+    """What a forward-only kernel says when asked for a gradient."""
+    return (f"{kernel} is forward only, as the JAX package's ({jax_source} defines no VJP); "
+            f"differentiate {instead} instead")
+
+
 def forward_only(forward, kernel: str, jax_source: str, instead: str):
     """A torch.autograd.Function whose forward is ``forward`` (a kernel's
     counted wrapper) and whose backward raises: the kernel has no backward,
     as its JAX counterpart in ``jax_source`` defines no VJP, and the port
     does not quietly differentiate the plain version in its place."""
-    message = (f"{kernel} is forward only, as the JAX package's ({jax_source} defines no "
-               f"VJP); differentiate {instead} instead")
+    message = forward_only_message(kernel, jax_source, instead)
 
     class ForwardOnly(torch.autograd.Function):
         @staticmethod

@@ -10,8 +10,9 @@ prints no result:
 2. build    every kernel of every path (K1-K5, K4's backward and Q1), each
             variant with its own nvcc, all at once, from this checkout; their
             register/spill lines (and ptxas's wgmma notes); the count of
-            HGMMA (wgmma) instructions in K4's bf16 backward library
-            (cuobjdump -sass), which must not be 0
+            HGMMA (wgmma) instructions in K4's bf16 backward library and of
+            IGMMA (s8 wgmma) instructions in Q1's (cuobjdump -sass), neither
+            of which may be 0
 3. kernels  K1 and K2 against their plain PyTorch versions on the card at the
             shapes of the ds2 paths (batch 128) and of the ds3 paths (K1 at
             batch 128, K2 at batch 64), in bf16 and f32, with their
@@ -2743,8 +2744,8 @@ def q1_calls_of_a_denoise(model, E, layers, q1, nn_modules):
     launch, transpose = q1.launch, nn_modules.int8_conv3d_transpose
 
     def record(lib, x, wq, scale, bias, inv, stride=1, padding=0, cylindrical=False):
-        calls.append((tuple(x.shape), tuple(wq.shape), triple(stride), triple(padding),
-                      bool(cylindrical), "transpose core" if inside else "conv"))
+        calls.append((tuple(x.shape), tuple(q1.Int8Weights.of(wq).wq.shape), triple(stride),
+                      triple(padding), bool(cylindrical), "transpose core" if inside else "conv"))
         return launch(lib, x, wq, scale, bias, inv, stride, padding, cylindrical)
 
     def marked(*a, **kw):
@@ -2797,7 +2798,9 @@ def check_q1(q1, geometries):
             bias = None if kind == "transpose core" else bias
             inv = 127 / 3.0
             args = (x, wq, scale, bias, inv, stride, pad, cyl)
-            got = q1.int8_conv3d(*args)
+            # reordered once and kept, as the model keeps them a weight version
+            kept = (x, q1.Int8Weights(wq), *args[2:])
+            got = q1.int8_conv3d(*kept)
             torch.cuda.synchronize()
             want = q1.int8_conv3d_reference(*args)
             if got.dtype != dtype or not torch.equal(got, want):
@@ -2808,8 +2811,8 @@ def check_q1(q1, geometries):
             xp = wrap_pad_phi(x, pad[1]) if cyl else x
             lib_pad = (pad[0], 0, pad[2]) if cyl else pad
             b = None if bias is None else bias.to(dtype)
-            k_ms = time_ms(lambda: q1.int8_conv3d(*args))
-            d_ms = device_ms(lambda: q1.int8_conv3d(*args))
+            k_ms = time_ms(lambda: q1.int8_conv3d(*kept))
+            d_ms = device_ms(lambda: q1.int8_conv3d(*kept))
             p_ms = time_ms(lambda: q1.int8_conv3d_reference(*args), warmup=1, reps=3)
             l_ms = time_ms(lambda: F.conv3d(xp, w, b, stride, lib_pad))
             bound, by, _ = q1_bound(x_shape, w_shape, got.shape, dtype)
@@ -3084,6 +3087,11 @@ def main() -> None:
     print(f"build: {k4b_lib.name}: {hgmma} HGMMA (wgmma) instructions", flush=True)
     if hgmma == 0:
         fail("K4's bf16 backward holds no wgmma (HGMMA) instruction")
+    q1_lib = cuda_build.library_path(*q1.KERNEL.builds[0])  # bf16
+    igmma = cuda_build.sass_count(q1_lib, "IGMMA")
+    print(f"build: {q1_lib.name}: {igmma} IGMMA (s8 wgmma) instructions", flush=True)
+    if igmma == 0:
+        fail("Q1's bf16 library holds no s8 wgmma (IGMMA) instruction")
 
     # 3. kernels
     torch.backends.cudnn.allow_tf32 = False
@@ -3302,7 +3310,7 @@ def main() -> None:
         # cuDNN's conv3d in the activation dtype at the same shapes: the float
         # convolution Q1 stands in for, not the same function
         library="torch.nn.functional.conv3d (cuDNN, bf16)",
-        launches_per_call=INT8_CONVS, cases=q1_cases,
+        launches_per_call=INT8_CONVS, igmma_instructions=igmma, cases=q1_cases,
     ))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"train": {k: v for k, v in train.items() if k != "steps"},

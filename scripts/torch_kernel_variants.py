@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Design variants of the K4, K1, K2 kernels and K4's backward, timed on one CUDA card.
+"""Design variants of the K4, K1, K2 kernels, K4's backward and Q1, timed on one CUDA card.
 
     python3 scripts/torch_kernel_variants.py [--out FILE] [--kernels k4b] [--baseline DIR]
 
@@ -39,7 +39,20 @@ and whether it stays within the kernel's tolerance of its plain version.
   backward at the K4 shapes in bf16 and f32 (the same C entry), beside this
   checkout's, each by its device time in one trace.
 
-``--kernels k4b`` (any of k4, k1, k2, k4b, comma-separated; all by
+- Q1 (the int8 convolution) at the 17 geometries of a ds2 int8 denoise
+  (B = 128; ``Q1_GEOMETRIES``, as ``chip_smoke.py`` phase 14 records them),
+  bf16 and f32: equal to its plain version bit for bit or not, its device
+  time by kernel (the quantize pass and the GEMM apart) and by CUDA events,
+  cuDNN's float ``conv3d`` at the same shape (the conv Q1 replaces) and
+  ``chip_smoke.q1_bound``; at the two largest geometries each GEMM plan
+  forced and ``Q1_VARIANTS`` (design variants, and ablations timed only);
+  the host's time a call, by part, beside cuDNN's; the sums over one
+  denoise (36 launches).  With ``--baseline DIR``: that checkout's
+  ``int8_conv3d.cu`` (the single-kernel Q1 before the quantize pass: its
+  C entry takes x contiguous NCDHW and wq as it is) built and timed beside
+  this one's in turns (baseline, this, this, baseline) at each geometry.
+
+``--kernels k4b`` (any of k4, k1, k2, k4b, q1, comma-separated; all by
 default) runs only those sections, the baseline's too.
 """
 
@@ -50,11 +63,13 @@ import ctypes
 import json
 import subprocess
 import sys
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
@@ -201,7 +216,7 @@ def build(job):
     if proc.returncode != 0:
         raise SystemExit(f"nvcc failed for {src.name}:\n{proc.stderr[-4000:]}")
     regs = [ln.strip() for ln in proc.stdout.splitlines() + proc.stderr.splitlines()
-            if "registers" in ln or "spill" in ln]
+            if "registers" in ln or "spill" in ln or "serialized" in ln]
     return job, ctypes.CDLL(str(so)), regs
 
 
@@ -461,13 +476,254 @@ def compare_baseline(root: Path, sections, built) -> dict:
     return out
 
 
+# the Q1 launches of one ds2 int8 denoise at B = 128 and the two transpose
+# cores that CALODIFF_INT8_TRANSPOSE=1 adds, as chip_smoke.py phase 14
+# records them: (launches a denoise, x shape, wq shape, stride, padding,
+# cylindrical, kind)
+Q1_GEOMETRIES = [
+    (9, (128, 32, 45, 16, 9), (32, 32, 3, 3, 3), 1, 1, True, "conv"),
+    (1, (128, 64, 45, 16, 9), (32, 64, 3, 3, 3), 1, 1, True, "conv"),
+    (1, (128, 64, 45, 16, 9), (32, 64, 1, 1, 1), 1, 0, True, "conv"),
+    (1, (128, 32, 45, 16, 9), (32, 32, 3, 4, 4), 2, 1, True, "conv"),
+    (1, (128, 32, 23, 8, 4), (64, 32, 3, 3, 3), 1, 1, True, "conv"),
+    (3, (128, 64, 23, 8, 4), (64, 64, 3, 3, 3), 1, 1, True, "conv"),
+    (1, (128, 32, 23, 8, 4), (64, 32, 1, 1, 1), 1, 0, True, "conv"),
+    (1, (128, 64, 23, 8, 4), (64, 64, 3, 4, 4), 2, 1, True, "conv"),
+    (1, (128, 128, 23, 8, 4), (32, 128, 3, 3, 3), 1, 1, True, "conv"),
+    (3, (128, 32, 23, 8, 4), (32, 32, 3, 3, 3), 1, 1, True, "conv"),
+    (1, (128, 128, 23, 8, 4), (32, 128, 1, 1, 1), 1, 0, True, "conv"),
+    (1, (128, 64, 12, 4, 2), (32, 64, 3, 3, 3), 1, 1, True, "conv"),
+    (7, (128, 32, 12, 4, 2), (32, 32, 3, 3, 3), 1, 1, True, "conv"),
+    (1, (128, 64, 12, 4, 2), (32, 64, 1, 1, 1), 1, 0, True, "conv"),
+    (4, (128, 64, 12, 4, 2), (64, 64, 3, 3, 3), 1, 1, True, "conv"),
+    (0, (128, 64, 12, 6, 2), (512, 64, 2, 2, 2), 1, 1, False, "transpose core"),
+    (0, (128, 32, 23, 10, 4), (256, 32, 2, 2, 2), 1, 1, False, "transpose core"),
+]
+# Q1's design variants (bf16), timed at the level-0 geometries: 1 and 6
+# k-steps a wgmma stage (3 as built), 128-row tiles only, the output
+# stored with the cache-streaming hint; and ablations, wrong by design and
+# timed only: the epilogue's global stores dropped, the wgmmas dropped (the
+# fragments still loaded), the ldmatrix loads dropped (the wgmmas on stale
+# fragments), the window loads after the first dropped
+Q1_VARIANTS = {
+    "as_built": [],
+    "stage_1": [("constexpr int KB = 3;", "constexpr int KB = 1;")],
+    "stage_6": [("constexpr int KB = 3;", "constexpr int KB = 6;")],
+    "rows_128": [("for (int MW = NT <= 64 ? 2 : 1; MW >= 1; --MW)", "for (int MW = 1; MW >= 1; --MW)")],
+    "no_stores": [("          y[o + static_cast<long long>(n0 + col) * g.so] =\n"
+                   "              from_f<T>(g.has_bias ? __fadd_rn(v, s_bias[col]) : v);",
+                   "          asm volatile(\"\" ::\"f\"(v), \"r\"(o + col));")],
+    "no_wgmma": [("      for (int mw = 0; mw < MW; ++mw) WgmmaS8<NT>::rs(acc[mw], a[k][mw], db[k], 1);",
+                  "      for (int mw = 0; mw < MW; ++mw) acc[mw][k & 7] += a[k][mw][0] ^ a[k][mw][3]"
+                  " ^ static_cast<unsigned>(db[k]);")],
+    "no_ldmatrix": [("        ldmatrix_x4(a[k][mw], buf + e.x + ring32_offset(lrow + 64 * mw + e.y, lhalf));",
+                     "        a[k][mw][0] = a[k][mw][1] = a[k][mw][2] = a[k][mw][3] = e.x + e.y;")],
+    "stream_stores": [("          y[o + static_cast<long long>(n0 + col) * g.so] =\n"
+                       "              from_f<T>(g.has_bias ? __fadd_rn(v, s_bias[col]) : v);",
+                       "          __stcs(y + o + static_cast<long long>(n0 + col) * g.so,\n"
+                       "                 from_f<T>(g.has_bias ? __fadd_rn(v, s_bias[col]) : v));")],
+    "no_loads": [("      if (q + 1 < items) issue(q + 1);", "")],
+}
+Q1_ABLATIONS = ("no_stores", "no_wgmma", "no_ldmatrix", "no_loads")
+# the single-kernel Q1's C entry (--baseline): x contiguous NCDHW, wq as it is
+Q1_BASELINE_ARGS = [_PTR] * 5 + [_INT] * 19 + [ctypes.c_float, _INT, _PTR]
+Q1_KERNELS = ["quantize_pad_kernel", "int8_gemm_kernel"]
+
+
+def q1_inputs(x_shape, w_shape, dtype, kind, g):
+    """x, wq, scale, bias (none in a transpose core) and inv_sx, as
+    chip_smoke.check_q1 makes them."""
+    x = torch.randn(x_shape, generator=g).to(dtype).cuda()
+    wq = torch.randint(-127, 128, w_shape, generator=g, dtype=torch.int8).cuda()
+    scale = (1e-4 * (1 + torch.rand(w_shape[0], generator=g))).cuda()
+    bias = (0.1 * torch.randn(w_shape[0], generator=g)).cuda()
+    return x, wq, scale, None if kind == "transpose core" else bias, 127 / 3.0
+
+
+def q1_baseline_libs(root: Path) -> dict:
+    """{dtype: library} of the checkout ``root``'s int8_conv3d.cu, built here."""
+    from calodiffusion_tpu_torch.ops import int8_conv as q1
+
+    csrc = root / "calodiffusion_tpu_torch" / "csrc"
+
+    def build_one(dtype):
+        defines = cuda_build.dtype_variant(dtype)
+        so = OUT_DIR / f"baseline-{q1.KERNEL.name}-{str(dtype)[6:]}.so"
+        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, f"-I{csrc}",
+               *(f"-D{d}" for d in defines), "-o", str(so), str(csrc / f"{q1.KERNEL.name}.cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed for the baseline's Q1:\n{proc.stderr[-4000:]}")
+        return dtype, cuda_build.bind(ctypes.CDLL(str(so)), "calo_int8_conv3d", Q1_BASELINE_ARGS)
+
+    with ThreadPoolExecutor(2) as pool:
+        return dict(pool.map(build_one, (torch.bfloat16, torch.float32)))
+
+
+def q1_baseline_launch(lib, x, wq, scale, bias, inv, stride, padding, cyl):
+    from calodiffusion_tpu_torch.ops import int8_conv as q1
+    from calodiffusion_tpu_torch.ops.conv import triple
+
+    B, Cin, Z, A, R = x.shape
+    Cout, _, kz, ka, kr = wq.shape
+    Zo, Ao, Ro = q1.output_spatial(x.shape, wq.shape[2:], stride, padding)
+    y = torch.empty((B, Cout, Zo, Ao, Ro), dtype=x.dtype, device=x.device)
+    rc = lib.calo_int8_conv3d(x.data_ptr(), wq.data_ptr(), scale.data_ptr(),
+                              None if bias is None else bias.data_ptr(), y.data_ptr(), B, Cin, Z,
+                              A, R, Cout, kz, ka, kr, *triple(stride), *triple(padding), int(cyl),
+                              Zo, Ao, Ro, float(inv), int(x.dtype == torch.bfloat16),
+                              cuda_build.stream_of(x.device))
+    cuda_build.raise_on(rc, "baseline Q1", x)
+    return y
+
+
+def host_us(fn, calls: int = 400) -> float:
+    """Host time of one call (us): ``calls`` calls without a synchronisation
+    between them, at a shape whose kernels take less time than the host."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def on_device(x) -> None:
+    with cuda_build.on_device(x):
+        pass
+
+
+def q1_host_us() -> dict:
+    """The host's time a Q1 call, and by part, at ds2's smallest 3x3x3
+    geometry (bf16), beside cuDNN's conv3d call."""
+    from calodiffusion_tpu_torch.ops import int8_conv as q1
+
+    g = torch.Generator().manual_seed(5)
+    x, wq, scale, bias, inv = q1_inputs((128, 32, 12, 4, 2), (32, 32, 3, 3, 3), torch.bfloat16,
+                                        "conv", g)
+    lib = q1.KERNEL.library(x)
+    args = (x, q1.Int8Weights(wq), scale, bias, inv, 1, 1, True)
+    w = wq.bfloat16()
+    out = {
+        "int8_conv3d": host_us(lambda: q1.int8_conv3d(*args)),
+        "int8_conv3d_forward": host_us(lambda: q1.int8_conv3d_forward(*args)),
+        "launch": host_us(lambda: q1.launch(lib, *args)),
+        "check": host_us(lambda: q1._check(x, wq, scale, bias, 1, 1, True)),
+        "on_device": host_us(lambda: on_device(x)),
+        "two_empty": host_us(lambda: (q1.padded_copy(x, 1), torch.empty_like(x))),
+        "cudnn_conv3d": host_us(lambda: F.conv3d(x, w, None, 1, 1)),
+    }
+    print(f"Q1 host us a call at (128, 32, 12, 4, 2) 3x3x3 bf16: {out}", flush=True)
+    return out
+
+
+def q1_section(baseline: Path | None, built: dict) -> dict:
+    """Q1 at Q1_GEOMETRIES: this checkout's kernels (and the baseline's),
+    and its design variants (``built``) at level 0."""
+    import chip_smoke
+    from calodiffusion_tpu_torch.ops import int8_conv as q1
+    from calodiffusion_tpu_torch.ops.conv import wrap_pad_phi
+
+    torch.backends.cudnn.allow_tf32 = False  # cuDNN's f32 conv in f32, as the plain version
+    base = q1_baseline_libs(baseline) if baseline else {}
+    result = {"build": {}, "geometries": [], "denoise": {}, "variants": {}}
+    variants = {name: q1.KERNEL.bind(lib) for (src, _), (lib, _) in built.items()
+                for name in Q1_VARIANTS if src.stem == f"{q1.KERNEL.name}-{name}"}
+    for (src, _), (_, log) in built.items():
+        if src.stem.startswith(q1.KERNEL.name):
+            result["variants"][src.stem] = {"log": log}
+    for dtype in (torch.bfloat16, torch.float32):
+        so = cuda_build.library_path(q1.KERNEL.name, cuda_build.dtype_variant(dtype))
+        q1.KERNEL.library(torch.empty(1, device="cuda", dtype=dtype))  # built at first use
+        log = [ln.strip() for ln in so.with_suffix(".log").read_text().splitlines()
+               if any(k in ln for k in ("registers", "spill", "wgmma", "Function properties"))]
+        gmma = {op: cuda_build.sass_count(so, op) for op in ("IGMMA", "HGMMA", "GMMA", "IMMA")}
+        result["build"][str(dtype)[6:]] = dict(log=log, sass=gmma)
+        print(f"Q1 build {str(dtype)[6:]}: SASS {gmma}", flush=True)
+        for ln in log:
+            print(f"  {ln}", flush=True)
+    g = torch.Generator().manual_seed(11)
+    for count, x_shape, w_shape, stride, pad, cyl, kind in Q1_GEOMETRIES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, wq, scale, bias, inv = q1_inputs(x_shape, w_shape, dtype, kind, g)
+            lib = q1.KERNEL.library(x)
+            args = (x, wq, scale, bias, inv, stride, pad, cyl)
+            kept = (x, q1.Int8Weights(wq), *args[2:])  # the weights reordered once
+            got = q1.launch(lib, *kept)
+            want = q1.int8_conv3d_reference(*args)
+            equal = bool(torch.equal(got, want))
+            reps = 10
+            mine = lambda: q1.launch(lib, *kept)  # noqa: E731
+            by = device_ms_by(mine, Q1_KERNELS, reps)
+            row = dict(kind=kind, x=list(x_shape), w=list(w_shape), stride=stride, padding=pad,
+                       cylindrical=cyl, dtype=str(dtype)[6:], count=count, equal=equal,
+                       quantize_ms=by[Q1_KERNELS[0]], gemm_ms=by[Q1_KERNELS[1]],
+                       ms=sum(by.values()), events_ms=events_ms(mine, reps))
+            xp = wrap_pad_phi(x, pad if isinstance(pad, int) else pad[1]) if cyl else x
+            p3 = (pad, pad, pad) if isinstance(pad, int) else tuple(pad)
+            lib_pad = (p3[0], 0, p3[2]) if cyl else p3
+            w = wq.to(dtype)
+            b = None if bias is None else bias.to(dtype)
+            cudnn = lambda: F.conv3d(xp, w, b, stride, lib_pad)  # noqa: E731
+            row["cudnn_ms"] = device_ms_by(cudnn, [""], reps)[""]
+            row["cudnn_events_ms"] = events_ms(cudnn, reps)
+            row["bound_ms"], row["bound_by"], _ = chip_smoke.q1_bound(x_shape, w_shape, got.shape,
+                                                                      dtype)
+            if base:
+                old = lambda: q1_baseline_launch(base[dtype], *args)  # noqa: E731
+                old_ok = bool(torch.equal(old(), want))
+                turns = [device_ms_by(fn, [""], reps)[""] for fn in (old, mine, mine, old)]
+                row.update(baseline_equal=old_ok, turns_ms=turns,
+                           baseline_ms=(turns[0] + turns[3]) / 2, this_ms=(turns[1] + turns[2]) / 2)
+            if dtype == torch.bfloat16 and stride == 1:  # each plan's GEMM, bf16
+                plans = {}
+                for plan in ("window", "gather", "stream"):
+                    fn = lambda: q1.launch(lib, *kept, plan=plan)  # noqa: E731
+                    ok = bool(torch.equal(fn(), want))
+                    plans[plan] = dict(equal=ok, gemm_ms=device_ms_by(fn, Q1_KERNELS, reps)[
+                        Q1_KERNELS[1]])
+                row["plans"] = plans
+            if dtype == torch.bfloat16 and x_shape[2:] == (45, 16, 9) and w_shape[2:] == (3, 3, 3):
+                for name, vlib in variants.items():
+                    fn = lambda: q1.launch(vlib, *kept)  # noqa: E731
+                    ok = bool(torch.equal(fn(), want)) if name not in Q1_ABLATIONS else None
+                    t = device_ms_by(fn, Q1_KERNELS, reps)[Q1_KERNELS[1]]
+                    result["variants"][f"{q1.KERNEL.name}-{name}"][str(w_shape)] = dict(
+                        equal=ok, gemm_ms=t)
+                    print(f"  variant {name}: equal {ok}, GEMM {t:.4f} ms", flush=True)
+            result["geometries"].append(row)
+            print(f"Q1 {kind} x {x_shape} w {w_shape} stride {stride} pad {pad} "
+                  f"{str(dtype)[6:]}: equal {equal}; device {row['ms']:.4f} ms (quantize "
+                  f"{row['quantize_ms']:.4f}, GEMM {row['gemm_ms']:.4f}), events "
+                  f"{row['events_ms']:.4f}; cuDNN {row['cudnn_ms']:.4f}; bound "
+                  f"{row['bound_ms']:.4f} ({row['bound_by']})"
+                  + (f"; turns {['%.4f' % t for t in row['turns_ms']]} (baseline, this, this, "
+                     f"baseline; baseline equal {row['baseline_equal']})" if base else "")
+                  + (f"; plans {row['plans']}" if "plans" in row else ""), flush=True)
+            del x, wq, got, want, xp
+    result["host_us"] = q1_host_us()
+    for dtype in ("bfloat16", "float32"):
+        rows = [r for r in result["geometries"] if r["dtype"] == dtype]
+        den = {k: sum(r["count"] * r[k] for r in rows)
+               for k in ("ms", "quantize_ms", "gemm_ms", "events_ms", "cudnn_ms", "bound_ms")
+               + (("baseline_ms", "this_ms") if base else ())}
+        den["launches"] = sum(r["count"] for r in rows)
+        den["all_equal"] = all(r["equal"] for r in rows)
+        result["denoise"][dtype] = den
+        print(f"Q1 over one ds2 int8 denoise, {dtype}: {den}", flush=True)
+    return result
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, help="JSON file for the results")
     ap.add_argument("--baseline", type=Path,
                     help="another checkout whose K2, K3 and K4 backward to time")
-    ap.add_argument("--kernels", default="k4,k1,k2,k4b",
-                    help="the sections to run, comma-separated (k4, k1, k2, k4b)")
+    ap.add_argument("--kernels", default="k4,k1,k2,k4b,q1",
+                    help="the sections to run, comma-separated (k4, k1, k2, k4b, q1)")
     args = ap.parse_args()
     sections = set(args.kernels.split(","))
     if not torch.cuda.is_available():
@@ -486,6 +742,11 @@ def main() -> None:
     if "k2" in sections:
         jobs += [(write_variant(la.BACKWARD_KERNEL, n, subs), la.variant(torch.bfloat16, C))
                  for n, subs in K2_VARIANTS.items() for C in (32, 64)]
+    if "q1" in sections:
+        from calodiffusion_tpu_torch.ops import int8_conv as q1
+
+        jobs += [(write_variant(q1.KERNEL.name, n, subs), ("CALO_BF16=1",))
+                 for n, subs in Q1_VARIANTS.items()]
     k4b_jobs = {}
     if "k4b" in sections:
         k4b = att.BACKWARD_KERNEL.name
@@ -562,7 +823,9 @@ def main() -> None:
             if name == "stamped":
                 result["k2_phases"][f"{(BATCH, N, C)}"] = read_phases(lib, BATCH * plan["G"],
                                                                       K2_PHASES)
-    if args.baseline:
+    if "q1" in sections:
+        result["q1"] = q1_section(args.baseline, built)
+    if args.baseline and sections & {"k2", "k4b"}:
         result["baseline"] = compare_baseline(args.baseline, sections, built)
     if args.out:
         args.out.write_text(json.dumps(result, indent=1))

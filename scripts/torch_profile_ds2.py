@@ -22,9 +22,10 @@ time by kernel family.  Then does the same for ``--train-steps`` steps of
 config's BATCH (128 for ds2, 64 for ds3, 256 and 128 for HGCal's photons
 and pions).  ``--int8`` then turns on W8A8 int8 sampling (``QUANT_INT8``,
 calibrated on the first generate batch's conditioning) and does the same
-for ``generate`` (one rep) and the denoise calls, Q1's launches a family of
-their own.  Prints the top kernels and one JSON line; ``--out`` also
-writes them to a JSON file.
+for ``generate`` (one rep) and the denoise calls, Q1's two kernels
+families of their own (``int8_conv3d_quantize``, the quantize pass;
+``int8_conv3d``, the GEMM).  Prints the top kernels and one JSON line;
+``--out`` also writes them to a JSON file.
 """
 
 from __future__ import annotations
@@ -51,7 +52,9 @@ from calodiffusion_tpu_torch.utils.config import default_flags, load_config  # n
 FAMILIES = (  # first match wins; matched against lower-case kernel names
     ("fused_attention_block", ("attention_block_kernel",)),
     ("attention_block_backward", ("attention_block_bwd_kernel",)),
-    ("int8_conv3d", ("int8_conv3d_kernel",)),
+    # Q1: its quantize pass, and its GEMM
+    ("int8_conv3d_quantize", ("quantize_pad_kernel",)),
+    ("int8_conv3d", ("int8_gemm_kernel",)),
     ("optimizer", ("multi_tensor", "foreach", "adam")),
     # cuDNN's transposes of NCDHW activations to NHWC and back
     ("layout_transpose", ("nchwtonhwc", "nhwctonchw")),

@@ -87,12 +87,14 @@ using std::min; using std::max;
 #define __align__(n) alignas(n)
 
 struct EmuDim { int x = 0, y = 0, z = 0; };
-inline thread_local EmuDim threadIdx, blockIdx;
+inline thread_local EmuDim threadIdx, blockIdx, gridDim;
 
 struct uint4 { unsigned x, y, z, w; };
 struct float4 { float x, y, z, w; };
 struct float2 { float x, y; };
+struct int2 { int x, y; };
 inline float2 make_float2(float a, float b) { return {a, b}; }
+inline int2 make_int2(int a, int b) { return {a, b}; }
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 
@@ -140,11 +142,13 @@ inline size_t emu_smem_of(const void* k) {
 }
 inline int cudaGetLastError() { return 0; }
 inline int cudaGetDevice(int* d) { *d = 0; return 0; }
-// an H100's shared memory a block; a card of one SM, so that a tiny grid
-// reaches the plans a kernel keeps for grids that fill the card
+// an H100's shared memory a block; a card of one SM (or of $CALO_EMU_SMS),
+// so that a tiny grid reaches the plans a kernel keeps for grids that fill
+// the card
 constexpr int cudaDevAttrMultiProcessorCount = 16;
 inline int cudaDeviceGetAttribute(int* v, int attr, int) {
-  *v = attr == cudaDevAttrMultiProcessorCount ? 1 : 232448;
+  const char* sms = std::getenv("CALO_EMU_SMS");
+  *v = attr == cudaDevAttrMultiProcessorCount ? (sms ? std::atoi(sms) : 1) : 232448;
   return 0;
 }
 
@@ -368,10 +372,12 @@ inline unsigned emu_desc_addr(uint64_t desc, int mn, int k, bool mn_major) {
 }
 inline float emu_bf16(unsigned addr) { return __uint_as_float(unsigned(emu_smem_u16(addr)) << 16); }
 
-// wgmma.mma_async m64nNk16: a thread's part of the product (its D
-// fragment), queued when issued and run at the wait_group that retires it
+// wgmma.mma_async m64nNk16 (bf16) or m64nNk32 (s8): a thread's part of
+// the product (its D fragment), queued when issued and run at the
+// wait_group that retires it
 struct EmuWgmma {
   float* d; int n, trans_b, scale_d, row0; uint64_t db; float a[2][16];
+  int* di = nullptr; uint64_t da = 0; bool a_in_smem = false; int8_t a8[2][32] = {};
 };
 inline thread_local std::vector<EmuWgmma> emu_wg_open;
 inline thread_local std::vector<std::vector<EmuWgmma>> emu_wg_groups;
@@ -391,8 +397,51 @@ inline void emu_wgmma(float* d, int n, const unsigned* a, uint64_t db, int trans
   bar.arrive_and_wait();
   emu_wg_open.push_back(op);
 }
+// byte k of K-major row mn of an s8 k-step through a descriptor: rows of
+// 64 bytes, 8 a group SBO apart, the 64-byte swizzle (layout type 2)
+inline int emu_desc_s8(uint64_t desc, int mn, int k) {
+  const unsigned start = unsigned(desc & 0x3fff) << 4, sbo = unsigned((desc >> 32) & 0x3fff) << 4;
+  if ((desc >> 62) != 2) { std::fprintf(stderr, "emulation: a descriptor's swizzle is not 64-byte\n"); std::abort(); }
+  const unsigned addr = emu_swizzle64(start + (mn & 7) * 64 + (mn >> 3) * sbo + k);
+  return int8_t(reinterpret_cast<const char*>(emu_block->smem)[addr]);
+}
+// wgmma.mma_async m64nNk32.s32.s8.s8: A from registers (gathered over the
+// warpgroup when issued: byte k of row r of the warp's 16 in lane
+// (r & 7) * 4 + (k & 15) / 4, register (r >> 3) + 2 (k >> 4), the PTX
+// ISA's A fragment layout) or, a == nullptr, through descriptor da when run
+inline void emu_wgmma_s8(int* d, int n, const unsigned* a, uint64_t da, uint64_t db, int scale_d) {
+  const int tid = threadIdx.x & 127, lane = tid & 31, warp = tid >> 5, g = lane >> 2;
+  EmuWgmma op{nullptr, n, 0, scale_d, warp * 16 + g, db, {}};
+  op.di = d;
+  op.da = da;
+  op.a_in_smem = a == nullptr;
+  if (a != nullptr) {
+    std::barrier<>& bar = *emu_block->wg_bars.at(threadIdx.x >> 7);
+    unsigned* buf = emu_block->wg_words.data() + (threadIdx.x >> 7) * 512;
+    for (int i = 0; i < 4; ++i) buf[tid * 4 + i] = a[i];
+    bar.arrive_and_wait();
+    for (int r = 0; r < 2; ++r)
+      for (int k = 0; k < 32; ++k) {
+        const unsigned w = buf[(warp * 32 + g * 4 + (k & 15) / 4) * 4 + r + 2 * (k >> 4)];
+        op.a8[r][k] = int8_t(uint8_t(w >> (8 * (k & 3))));
+      }
+    bar.arrive_and_wait();
+  }
+  emu_wg_open.push_back(op);
+}
 inline void emu_wgmma_run(const EmuWgmma& op) {
   const int t = (threadIdx.x & 127) & 3;
+  if (op.di != nullptr) {  // s8
+    for (int i = 0; i < op.n / 2; ++i) {
+      const int r = (i >> 1) & 1, row = op.row0 + 8 * r, col = 8 * (i >> 2) + 2 * t + (i & 1);
+      int acc = op.scale_d ? op.di[i] : 0;
+      for (int k = 0; k < 32; ++k)
+        acc += (op.a_in_smem ? emu_desc_s8(op.da, row, k) : int(op.a8[r][k])) *
+               emu_desc_s8(op.db, col, k);
+      op.di[i] = acc;
+    }
+    return;
+  }
   for (int i = 0; i < op.n / 2; ++i) {
     const int r = (i >> 1) & 1, row = op.row0 + 8 * r, col = 8 * (i >> 2) + 2 * t + (i & 1);
     float acc = op.scale_d ? op.d[i] : 0.f;
@@ -451,7 +500,9 @@ template <class F> void emu_launch_cluster(int grid, int block, size_t smem, int
     std::vector<std::thread> ts;
     for (int r = 0; r < csize; ++r)
       for (int t = 0; t < block; ++t)
-        ts.emplace_back([&, r, t] { threadIdx.x = t; blockIdx.x = c0 + r; emu_block = &eb[r]; f(); });
+        ts.emplace_back([&, r, t] {
+          threadIdx.x = t; blockIdx.x = c0 + r; gridDim.x = grid; emu_block = &eb[r]; f();
+        });
     for (auto& th : ts) th.join();
   }
 }
@@ -479,6 +530,11 @@ template <class... P, class... A> int cudaLaunchKernelEx(const cudaLaunchConfig_
   if (cfg->dynamicSmemBytes > emu_smem_of(reinterpret_cast<const void*>(k))) return cudaErrorInvalidConfiguration;
   emu_launch_cluster(cfg->gridDim.x, cfg->blockDim.x, cfg->dynamicSmemBytes, emu_cluster_size(cfg),
                      [&] { k(static_cast<P>(args)...); });
+  return 0;
+}
+// a CTA an SM where its dynamic shared memory fits the kernel's limit
+template <class F> int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F f, int, size_t smem) {
+  *n = smem <= emu_smem_of(reinterpret_cast<const void*>(f)) ? 1 : 0;
   return 0;
 }
 // an H100 places clusters of up to 8 CTAs, and of 16 for a kernel that allows it
@@ -1143,7 +1199,7 @@ def test_groupnorm_silu_kernel_chunks_match_plain(libs, shape, groups, silu, ste
 
 
 # ---------------------------------------------------------------------------
-# Q1, the int8 convolution: its s8 mma and the kernel
+# Q1, the int8 convolution: its s8 mma and wgmma, and the kernels
 # ---------------------------------------------------------------------------
 
 # One warp computes a (16 x 32) (32 x 16) int8 product through common.cuh's
@@ -1204,6 +1260,98 @@ def test_emulated_mma_s8_matches_matmul(tile_mma_s8, seed):
     assert torch.equal(c.long(), a.long() @ b.long())
 
 
+# One warpgroup computes A (64 x K) B^T (B: N x K) by hopper.cuh's s8
+# wgmma m64nNk32 (s32 sums), K / 32 k-steps, the first with scale_d 0.  B
+# (the weights) in K-major rows of 64 bytes with the 64-byte swizzle, as
+# Q1 keeps them.  A either in Q1's A ring (rows of 32 bytes with the
+# 32-byte swizzle, one slab of rows a 32-byte k-step), its rows read by
+# ldmatrix from row `shift` on into registers, or from shared memory
+# through a descriptor, laid out as B.  D is stored after the accumulator
+# layout.
+TILE_WGMMA_S8_SOURCE = r"""
+#include "hopper.cuh"
+using namespace calo;
+template <int N>
+void run(const int8_t* a, const int8_t* b, int* c, int K, int a_desc, int shift) {
+  const int rows = 64 + shift;
+  const size_t slabs = (K + 63) / 64;  // 64-byte rows of K
+  const size_t b_bytes = slabs * N * 64;
+  const size_t a_bytes = a_desc ? slabs * 64 * 64 : size_t(K / 32) * rows * 32;
+  emu_launch(1, 128, 1024 + b_bytes + a_bytes, [&] {
+    char* sb = align_smem_1024(emu_block->smem);
+    char* sa = sb + b_bytes;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    for (int i = tid; i < N * K; i += 128) {
+      const int n = i / K, k = i % K;
+      sb[swizzle64((k >> 6) * N * 64 + n * 64 + (k & 63))] = b[i];
+    }
+    for (int i = tid; i < 64 * K; i += 128) {
+      const int m = i / K, k = i % K;
+      if (a_desc) sa[swizzle64((k >> 6) * 64 * 64 + m * 64 + (k & 63))] = a[i];
+      else sa[(k >> 5) * rows * 32 + ring32_offset(m + shift, (k >> 4) & 1) + (k & 15)] = a[i];
+    }
+    __syncthreads();
+    int d[N / 2];
+    wgmma_fence();
+    for (int ks = 0; ks < K / 32; ++ks) {
+      const uint64_t db = smem_desc(sb + (ks >> 1) * N * 64 + 32 * (ks & 1), 16, 512);
+      if (a_desc) {
+        WgmmaS8<N>::ss(d, smem_desc(sa + (ks >> 1) * 64 * 64 + 32 * (ks & 1), 16, 512), db, ks);
+      } else {
+        unsigned af[4];
+        const int row = 16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1) + shift;
+        ldmatrix_x4(af, sa + ks * rows * 32 + ring32_offset(row, lane >> 4));
+        WgmmaS8<N>::rs(d, af, db, ks);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    for (int i = 0; i < N / 2; ++i)
+      c[(16 * warp + g + 8 * ((i >> 1) & 1)) * N + 8 * (i >> 2) + 2 * t + (i & 1)] = d[i];
+  });
+}
+extern "C" void tile_wgmma_s8(const int8_t* a, const int8_t* b, int* c, int n, int k,
+                              int a_desc, int shift) {
+  (n == 32 ? run<32> : n == 64 ? run<64> : run<128>)(a, b, c, k, a_desc, shift);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def tile_wgmma_s8(tmp_path_factory):
+    out = _emulation_dir(tmp_path_factory)
+    cpp, so = out / "tile_wgmma_s8.cpp", out / "tile_wgmma_s8.so"
+    cpp.write_text(TILE_WGMMA_S8_SOURCE)
+    cmd = ["g++", "-std=c++20", "-O1", "-fno-strict-aliasing", "-shared", "-fPIC", "-pthread",
+           f"-I{out}", f"-I{cuda_build.CSRC_DIR}", "-DCALO_EMULATION", "-DCALO_BF16=1",
+           "-o", str(so), str(cpp)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    fn = ctypes.CDLL(str(so)).tile_wgmma_s8
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+    return fn
+
+
+@pytest.mark.parametrize("n,k,a_from,shift", [(32, 64, "ring", 0), (32, 96, "ring", 5),
+                                              (64, 64, "ring", 3), (128, 128, "ring", 1),
+                                              (32, 64, "descriptor", 0),
+                                              (128, 128, "descriptor", 0)])
+def test_emulated_wgmma_s8_matches_matmul(tile_wgmma_s8, n, k, a_from, shift):
+    """The emulated s8 wgmma (A from Q1's ring by ldmatrix at a row shift,
+    or through a descriptor; B from 64-byte-swizzled K-major rows) against
+    an int64 product, -127 and 127 among the entries: equal."""
+    rng = np.random.default_rng(n + k + shift)
+    a = torch.from_numpy(rng.integers(-127, 128, (64, k), dtype=np.int8))
+    b = torch.from_numpy(rng.integers(-127, 128, (n, k), dtype=np.int8))
+    a[0, :] = 127
+    b[0, :] = -127
+    b[1, :] = 127
+    c = torch.full((64, n), -1, dtype=torch.int32)
+    tile_wgmma_s8(a.data_ptr(), b.data_ptr(), c.data_ptr(), n, k, int(a_from == "descriptor"),
+                  shift)
+    assert torch.equal(c.long(), a.long() @ b.long().t())
+
+
 # (B, Cin, Cout, (Z, A, R), kernel, stride, padding, cylindrical): ds2's
 # kinds at small sizes: 3x3x3 with the phi wrap, Cin a multiple of 32 and
 # not (K = 216 leaves a ragged step); 1x1 residuals, Cout past one tile of
@@ -1255,3 +1403,78 @@ def test_int8_conv3d_library_refuses_what_it_does_not_take(libs):
         tq1.launch(libs[_job(tq1, torch.bfloat16)], x, wq, scale, bias, inv, 1, 1, True)
     with pytest.raises(RuntimeError, match="launch failed"):
         tq1.launch(libs[_job(tq1, torch.float32)], x, wq, scale, bias, inv, 1, (1, 5, 1), True)
+
+
+# Q1's GEMM plans forced on small shapes, each on a card of 3 SMs (several
+# persistent CTAs a channel tile): the window (stride 1), the per-tap
+# gather with the weights resident and streamed.  An M of several tiles
+# with a ragged last one (1742 window rows: 7 tiles of 256); Cin 128 (four
+# 32-byte slabs a tap); the stride-2 (3, 4, 4) downsample wrapping phi at
+# Cin 32; a transpose core, Cout' = 8 Cout = 256 (two channel tiles of 128)
+Q1_PLAN_CASES = [
+    (3, 32, 32, (6, 8, 6), (3, 3, 3), 1, 1, True),
+    (1, 128, 32, (3, 4, 3), (3, 3, 3), 1, 1, True),
+    (1, 32, 32, (5, 8, 5), (3, 4, 4), (2, 2, 2), 1, True),
+    (1, 32, 256, (3, 6, 2), (2, 2, 2), 1, 1, False),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("B,Cin,Cout,spatial,kernel,stride,padding,cyl", Q1_PLAN_CASES)
+def test_int8_conv3d_plans_match_plain(libs, monkeypatch, B, Cin, Cout, spatial, kernel, stride,
+                                       padding, cyl, dtype):
+    """Each plan of Q1's GEMM that the stride allows, against
+    int8_conv3d_reference bit for bit, with a bias and without."""
+    monkeypatch.setenv("CALO_EMU_SMS", "3")
+    x, wq, scale, bias, inv = _q1_args(B, Cin, Cout, spatial, kernel, dtype, seed=Cin + Cout + 1)
+    lib = libs[_job(tq1, dtype)]
+    plans = ["gather", "stream"] if stride != 1 else ["window", "gather", "stream"]
+    for plan in plans:
+        for b in (bias, None):
+            got = tq1.launch(lib, x, wq, scale, b, inv, stride, padding, cyl, plan=plan)
+            want = tq1.int8_conv3d_reference(x, wq, scale, b, inv, stride, padding, cyl)
+            assert got.dtype == dtype and got.shape == want.shape
+            assert torch.equal(got, want), (plan, (got.float() - want.float()).abs().max())
+
+
+@pytest.mark.parametrize("cyl", [True, False], ids=["phi_wrap", "zero_pad"])
+@pytest.mark.parametrize("layout", ["ncdhw", "channels_last"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_int8_quantize_pass_matches_plain(libs, dtype, layout, cyl):
+    """Q1's first kernel alone: x, contiguous or a channels_last_3d view,
+    quantized into (B, Zp, Ap, Rp, Cp) equals quantize_act with phi wrapped
+    (or zero-padded), Z and R zero-padded and the channels past Cin zero."""
+    x, *_, inv = _q1_args(2, 40, 8, (4, 6, 5), (1, 1, 1), dtype, seed=3)
+    if layout == "channels_last":
+        x = x.to(memory_format=torch.channels_last_3d)
+    pz, pa, pr = 1, 2, 1
+    got = tq1.launch_quantize(libs[_job(tq1, dtype)], x, inv, (pz, pa, pr), cyl)
+    q = tq1.quantize_act(x, inv)
+    if cyl:
+        q = torch.nn.functional.pad(q, (0, 0, pa, pa, 0, 0), mode="circular")
+        q = torch.nn.functional.pad(q, (pr, pr, 0, 0, pz, pz))
+    else:
+        q = torch.nn.functional.pad(q, (pr, pr, pa, pa, pz, pz))
+    want = torch.nn.functional.pad(q.permute(0, 2, 3, 4, 1), (0, 64 - 40))
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_int8_conv3d_kernel_takes_channels_last(libs, dtype):
+    """Q1 reads x in its strides: a channels_last_3d view (K1's output
+    layout) gives the contiguous input's result, the plain version's."""
+    x, wq, scale, bias, inv = _q1_args(2, 32, 32, (5, 8, 6), (3, 3, 3), dtype, seed=5)
+    lib = libs[_job(tq1, dtype)]
+    got = tq1.launch(lib, x.to(memory_format=torch.channels_last_3d), wq, scale, bias, inv, 1, 1,
+                     True)
+    assert torch.equal(got, tq1.launch(lib, x, wq, scale, bias, inv, 1, 1, True))
+    assert torch.equal(got, tq1.int8_conv3d_reference(x, wq, scale, bias, inv, 1, 1, True))
+
+
+def test_int8_conv3d_refuses_a_window_on_a_strided_conv(libs):
+    """The window plan reads taps at fixed row offsets, so it takes stride 1
+    only: forcing it on the stride-2 downsample returns an error, raised."""
+    x, wq, scale, bias, inv = _q1_args(1, 16, 16, (5, 8, 6), (3, 4, 4), torch.float32, seed=0)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tq1.launch(libs[_job(tq1, torch.float32)], x, wq, scale, bias, inv, 2, 1, True,
+                   plan="window")

@@ -827,6 +827,28 @@ def test_int8_conv3d_kernel_matches_plain(B, Cin, Cout, spatial, kernel, stride,
         assert torch.equal(got, want)
 
 
+def test_int8_conv3d_keeps_its_weight_image_and_refuses_a_gradient():
+    """An ``Int8Weights`` gives the same output as the bare int8 weights and
+    keeps the reordered image it made; a call that would need a gradient
+    raises before any launch."""
+    from calodiffusion_tpu_torch.ops import int8_conv
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 32, 6, 8, 4, generator=g).cuda()
+    wq = torch.randint(-127, 128, (32, 32, 3, 3, 3), generator=g, dtype=torch.int8).cuda()
+    scale = torch.full((32,), 1e-3, device="cuda")
+    weights = int8_conv.Int8Weights(wq)
+    args = (scale, None, 127 / 2.5, 1, 1, True)
+    got = int8_conv.int8_conv3d(x, weights, *args)
+    image = weights.kernel()
+    assert torch.equal(got, int8_conv.int8_conv3d(x, wq, *args))
+    assert weights.kernel() is image
+    before = int8_conv.int8_conv3d.launches
+    with pytest.raises(ValueError, match="forward only"):
+        int8_conv.int8_conv3d(x.requires_grad_(), weights, *args)
+    assert int8_conv.int8_conv3d.launches == before
+
+
 def test_int8_denoise_on_card_runs_q1_and_each_conv_matches_cpu():
     """A full-width ds2 f32 int8 denoise (batch 2) on the card launches Q1 36
     times; each quantized conv's output equals the plain version's on the

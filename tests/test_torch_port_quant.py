@@ -576,17 +576,59 @@ def test_cascade_calibrates_the_base_unet_and_warns_without_a_fence(capsys):
 
 def test_int8_convs_take_contiguous_inputs_after_attention(monkeypatch):
     """With block and mid attention (K1's output is a channels-last view) the
-    quantized convs hand Q1 contiguous activations, as its wrapper requires
-    on the card."""
+    quantized convs hand Q1 their activations as they come, with no copy:
+    contiguous NCDHW or, after attention, a channels_last_3d view; Q1's
+    quantize pass reads either through its strides."""
     cfg = tiny_ds2_config(LAYER_SIZE_UNET=[8, 8, 16, 8], COND_SIZE_UNET=16, BLOCK_ATTN=True,
                           MID_ATTN=True, PRECISION="f32", QUANT_INT8=True)
     tm = CaloDiffusion(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
-    contiguous = []
+    layouts = []
     ref = int8_conv.int8_conv3d_reference
+
+    def layout(x):
+        return ("ncdhw" if x.is_contiguous() else
+                "channels_last" if x.is_contiguous(memory_format=torch.channels_last_3d) else
+                "other")
+
     monkeypatch.setattr(int8_conv, "int8_conv3d_reference",
-                        lambda x, *a: contiguous.append(x.is_contiguous()) or ref(x, *a))
+                        lambda x, *a: layouts.append(layout(x)) or ref(x, *a))
     x, E, layers = (_to_t(a) for a in fake_batch(cfg, batch=2, seed=16))
     tm.prepare_int8(n_sigmas=1, batch=2)
     with torch.no_grad(), tm.int8_scope():
         y = tm.denoise(x, E=E, sigma=torch.full((2, 1, 1, 1, 1), 0.7), layers=layers)
-    assert torch.isfinite(y).all() and len(contiguous) == 36 and all(contiguous)
+    assert torch.isfinite(y).all() and len(layouts) == 36
+    assert set(layouts) == {"ncdhw", "channels_last"}, layouts
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_int8_conv3d_takes_channels_last_inputs(dtype):
+    """int8_conv3d on a channels_last_3d view (K1's output layout) equals it
+    on the contiguous tensor, bit for bit, for a 3x3x3 phi-wrapped conv and
+    the stride-2 downsample."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((2, 8, 5, 8, 6)).astype(np.float32)).to(dtype)
+    x_cl = x.to(memory_format=torch.channels_last_3d)
+    assert not x_cl.is_contiguous()
+    for kernel, stride in (((3, 3, 3), 1), ((3, 4, 4), 2)):
+        wq = torch.from_numpy(rng.integers(-127, 128, (16, 8, *kernel), dtype=np.int8))
+        scale = torch.full((16,), 1e-3)
+        bias = torch.from_numpy(rng.standard_normal(16).astype(np.float32))
+        args = (wq, scale, bias, 127 / 2.5, stride, 1, True)
+        assert torch.equal(int8_conv.int8_conv3d(x_cl, *args), int8_conv.int8_conv3d(x, *args))
+
+
+def test_int8_weights_keep_the_kernel_order_once():
+    """``Int8Weights`` makes Q1's weight image, (Cout, kz, ka, kr, Cp) with
+    the channels zero-padded to a multiple of 32, once and keeps it; the
+    int8 conv gives the same output from it as from the bare weights."""
+    rng = np.random.default_rng(7)
+    wq = torch.from_numpy(rng.integers(-127, 128, (4, 40, 3, 3, 3), dtype=np.int8))
+    weights = int8_conv.Int8Weights(wq)
+    image = weights.kernel()
+    assert image.shape == (4, 3, 3, 3, 64) and image.is_contiguous()
+    assert torch.equal(image[..., :40], wq.permute(0, 2, 3, 4, 1)) and not image[..., 40:].any()
+    assert weights.kernel() is image and int8_conv.Int8Weights.of(weights) is weights
+    x = torch.from_numpy(rng.standard_normal((2, 40, 4, 6, 5)).astype(np.float32))
+    args = (torch.full((4,), 1e-3), None, 127 / 2.5, 1, 1, True)
+    assert torch.equal(int8_conv.int8_conv3d(x, weights, *args),
+                       int8_conv.int8_conv3d(x, wq, *args))
