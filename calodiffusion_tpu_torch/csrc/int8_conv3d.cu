@@ -415,13 +415,10 @@ int quantize_pad(const T* x, const Strides& st, signed char* xq, const Conv& c, 
   return run(quantize_pad_kernel<T, 0>);
 }
 
-// the GEMM over xq: a plan by shape (or forced), launched
-template <typename T>
-int gemm(const signed char* xq, const signed char* wk, const float* scale, const float* bias,
-         T* y, const Conv& c, int force, cudaStream_t stream) {
-  const int sms = sm_count();
-  if (sms < 1) return cudaErrorInvalidValue;
-  Gemm g{};
+// the GEMM's plan for a convolution, by shape (or forced): g filled for
+// its mode, channel tile NT and row tiles MW; false where none fits
+bool choose_plan(Gemm& g, const Conv& c, int force, int sms, int& NT_out, int& MW_out) {
+  g = Gemm{};
   g.Cp = c.Cp;
   g.S = c.Cp / 32;
   g.T = c.kz * c.ka * c.kr;
@@ -435,7 +432,6 @@ int gemm(const signed char* xq, const signed char* wk, const float* scale, const
   g.Ao = c.Ao;
   g.Ro = c.Ro;
   g.Cout = c.Cout;
-  g.has_bias = bias != nullptr;
   g.kpad = static_cast<int>(round_up(static_cast<unsigned>(g.T * c.Cp), 64));
   g.apr = c.Ap * c.Rp;
   g.so = c.Zo * c.Ao * c.Ro;
@@ -443,7 +439,7 @@ int gemm(const signed char* xq, const signed char* wk, const float* scale, const
   g.rows = c.B * g.zapr;
   const bool unit = c.sz == 1 && c.sa == 1 && c.sr == 1;
   const int halo = (c.kz - 1) * g.apr + (c.ka - 1) * c.Rp + (c.kr - 1);
-  if (force == WINDOW && !unit) return cudaErrorInvalidValue;
+  if (force == WINDOW && !unit) return false;
 
   // the window where the stride allows and it reads at most an eighth of
   // the gather's A rows (TM + halo a tile against T TM), else the gather;
@@ -465,19 +461,36 @@ int gemm(const signed char* xq, const signed char* wk, const float* scale, const
   for (int mode = WINDOW; mode <= GATHER; ++mode) {
     if ((mode == WINDOW && !unit) || (force != AUTO && mode != force)) continue;
     for (int NT = widest; NT >= 32; NT /= 2)
-      for (int MW = NT <= 64 ? 2 : 1; MW >= 1; --MW) {
-        if (!plan(mode, NT, MW)) continue;
-        if (NT == 128) return launch_gemm<T, 128, 1>(xq, wk, scale, bias, y, g, sms, stream);
-        if (NT == 64)
-          return MW == 2 ? launch_gemm<T, 64, 2>(xq, wk, scale, bias, y, g, sms, stream)
-                         : launch_gemm<T, 64, 1>(xq, wk, scale, bias, y, g, sms, stream);
-        return MW == 2 ? launch_gemm<T, 32, 2>(xq, wk, scale, bias, y, g, sms, stream)
-                       : launch_gemm<T, 32, 1>(xq, wk, scale, bias, y, g, sms, stream);
-      }
+      for (int MW = NT <= 64 ? 2 : 1; MW >= 1; --MW)
+        if (plan(mode, NT, MW)) {
+          NT_out = NT;
+          MW_out = MW;
+          return true;
+        }
   }
-  if ((force == AUTO || force == STREAM) && plan(STREAM, 32, 1))
-    return launch_gemm<T, 32, 1, true>(xq, wk, scale, bias, y, g, sms, stream);
-  return cudaErrorInvalidValue;  // no plan fits in shared memory
+  NT_out = 32;
+  MW_out = 1;
+  return (force == AUTO || force == STREAM) && plan(STREAM, 32, 1);
+}
+
+// the GEMM over xq: its plan, launched
+template <typename T>
+int gemm(const signed char* xq, const signed char* wk, const float* scale, const float* bias,
+         T* y, const Conv& c, int force, cudaStream_t stream) {
+  const int sms = sm_count();
+  if (sms < 1) return cudaErrorInvalidValue;
+  Gemm g{};
+  int NT = 0, MW = 0;
+  if (!choose_plan(g, c, force, sms, NT, MW))
+    return cudaErrorInvalidValue;  // no plan fits in shared memory
+  g.has_bias = bias != nullptr;
+  if (g.mode == STREAM) return launch_gemm<T, 32, 1, true>(xq, wk, scale, bias, y, g, sms, stream);
+  if (NT == 128) return launch_gemm<T, 128, 1>(xq, wk, scale, bias, y, g, sms, stream);
+  if (NT == 64)
+    return MW == 2 ? launch_gemm<T, 64, 2>(xq, wk, scale, bias, y, g, sms, stream)
+                   : launch_gemm<T, 64, 1>(xq, wk, scale, bias, y, g, sms, stream);
+  return MW == 2 ? launch_gemm<T, 32, 2>(xq, wk, scale, bias, y, g, sms, stream)
+                 : launch_gemm<T, 32, 1>(xq, wk, scale, bias, y, g, sms, stream);
 }
 
 bool make_conv(Conv& c) {
@@ -542,4 +555,27 @@ extern "C" int calo_int8_quantize_pad(const void* x, long long xs_b, long long x
                                 Strides{xs_b, xs_c, xs_z, xs_a, xs_r},
                                 static_cast<signed char*>(xq), c, inv_sx,
                                 static_cast<cudaStream_t>(stream));
+}
+
+// the GEMM's plan for a convolution on the current device, launching
+// nothing: out[0] the mode (1 window, 2 gather, 3 gather with the weights
+// streamed), out[1] the channel tile, out[2] the row tiles of 128 a CTA
+// takes, out[3] its shared-memory bytes; force as in calo_int8_conv3d
+extern "C" int calo_int8_conv3d_plan(int B, int Cin, int Z, int A, int R, int Cout, int kz,
+                                     int ka, int kr, int sz, int sa, int sr, int pz, int pa,
+                                     int pr, int cyl, int Zo, int Ao, int Ro, int force,
+                                     int* out) {
+  if (force < AUTO || force > STREAM) return cudaErrorInvalidValue;
+  Conv c{B, Cin, Z, A, R, Cout, kz, ka, kr, sz, sa, sr, pz, pa, pr, cyl, Zo, Ao, Ro, 0, 0, 0, 0};
+  if (!make_conv(c)) return cudaErrorInvalidValue;
+  const int sms = sm_count();
+  if (sms < 1) return cudaErrorInvalidValue;
+  Gemm g{};
+  int NT = 0, MW = 0;
+  if (!choose_plan(g, c, force, sms, NT, MW)) return cudaErrorInvalidValue;
+  out[0] = g.mode;
+  out[1] = NT;
+  out[2] = MW;
+  out[3] = static_cast<int>(g.smem);
+  return cudaSuccess;
 }

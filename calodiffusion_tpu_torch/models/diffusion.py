@@ -16,8 +16,14 @@ downsampling convolutions in W8A8 int8 (``ops/quant.py``; Q1 on the card):
 calibrates lazily and ``generate`` on the first batch's conditioning.
 Training and the validation loss never run int8.
 
-Not ported yet: the network variants and the cold-diffusion prior (ROADMAP
-M11).
+``SHOWER_EMBED`` with "FCN" (and "orig") runs the dense ``ResNetDense`` on
+flat showers in place of the U-Net; ``REMAT`` recomputes the U-Net's blocks
+in the backward pass; ``unet_options`` passes the CondUnet options no config
+key sets (``use_convnext``, ``convnext_mult``, ``no_time``).  With
+``COLD_DIFFU`` sampling starts from the cold prior (``gen_cold_image``: the
+energy-binned average shower plus ``COLD_NOISE`` times the noise times the
+binned std), loaded by ``init_cold_diffu`` from ``AVG_SHOWER_LOC`` or given
+by ``set_cold_prior``.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ from torch import nn
 from calodiffusion_tpu_torch.models.converters import NNConverter
 from calodiffusion_tpu_torch.models.hgcal_converter import HGCalConverterModule
 from calodiffusion_tpu_torch.models.losses import get_loss
-from calodiffusion_tpu_torch.models.nn_modules import CondUnet, quantizable_convs
+from calodiffusion_tpu_torch.models.nn_modules import CondUnet, ResNetDense, quantizable_convs
 from calodiffusion_tpu_torch.ops import quant
 from calodiffusion_tpu_torch.samplers import schedules
 from calodiffusion_tpu_torch.samplers.base import randn
@@ -42,8 +48,6 @@ from calodiffusion_tpu_torch.utils.device import resolve_device
 from calodiffusion_tpu_torch.utils.geom import GeomConverter
 from calodiffusion_tpu_torch.utils.xml_handler import XMLHandler
 
-# config options not ported yet, with the ROADMAP item that ports each
-_NOT_PORTED = {"COLD_DIFFU": "M11"}
 EMBED = "NN_embed."  # the state_dict prefix of the in-model embed's weights
 
 
@@ -65,10 +69,15 @@ class CaloDiffusionNet(nn.Module):
     """
 
     def __init__(self, unet_kwargs: dict, layer_cond: bool, rz_images, dtype, generator=None,
-                 phi_image=None, nn_embed: Optional[nn.Module] = None):
+                 phi_image=None, nn_embed: Optional[nn.Module] = None,
+                 fully_connected: bool = False):
         super().__init__()
         self.layer_cond = layer_cond
-        self.unet = CondUnet(**unet_kwargs, dtype=dtype, generator=generator)
+        # the dense shower model ("FCN" embeds) keeps the U-Net's name, so
+        # its state_dict carries the reference's ResNet keys unprefixed
+        net = ResNetDense if fully_connected else CondUnet
+        self.unet = net(**unet_kwargs, dtype=dtype, generator=generator)
+        self.fully_connected = fully_connected
         self.NN_embed = nn_embed
         images = ([] if rz_images is None else list(rz_images)) + (
             [] if phi_image is None else [phi_image])
@@ -82,6 +91,8 @@ class CaloDiffusionNet(nn.Module):
     def forward(self, x, E, t_emb, layers=None):
         if self.layer_cond and layers is not None:
             E = torch.cat([E, layers], dim=1)
+        if self.fully_connected:
+            return self.unet(x, E, t_emb).float()
         orig_shape = x.shape
         if self.NN_embed is not None:  # cells -> (B, 1, Z, A, R), f32
             x = self.NN_embed.enc(x)[:, None]
@@ -99,10 +110,12 @@ class CaloDiffusion:
 
     ``device`` defaults to the CUDA card; the weights are initialised from
     ``generator`` (a CPU ``torch.Generator``) or loaded with
-    ``load_state_dict``."""
+    ``load_state_dict``.  ``unet_options``: CondUnet options that no config
+    key sets (``use_convnext``, ``convnext_mult``, ``no_time``)."""
 
     def __init__(self, config, n_steps: int = 400, loss_type: str = "l2",
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device=None, generator: Optional[torch.Generator] = None,
+                 unet_options: Optional[dict] = None):
         self.config = load_config(config)
         c = self.config
         self.device = resolve_device(device)
@@ -112,10 +125,13 @@ class CaloDiffusion:
         shower_embed = c.get("SHOWER_EMBED", "")
         self.hgcal = bool(c.get("HGCAL", False))
         self.pre_embed = "pre-embed" in shower_embed
-        if "FCN" in shower_embed:
-            raise NotImplementedError(
-                f"SHOWER_EMBED={shower_embed!r} is not yet ported to "
-                "calodiffusion_tpu_torch (ROADMAP M11)"
+        self.fully_connected = "FCN" in shower_embed
+        if self.fully_connected and "orig" not in shower_embed:
+            # the JAX package's dense layers would act on the padded grid's
+            # last axis and fail at batch > 1 (the reference's latent bug)
+            raise ValueError(
+                f"SHOWER_EMBED={shower_embed!r}: the dense FCN model takes flat showers; "
+                "add \"orig\" (e.g. \"FCN-orig\")"
             )
         if self.pre_embed and not self.hgcal:
             # the JAX package fails here too: its loader unpickles BIN_FILE
@@ -124,13 +140,6 @@ class CaloDiffusion:
                 f"SHOWER_EMBED={shower_embed!r} needs HGCAL: the pre-embed is the "
                 "loader's HGCal GLaM encode and BIN_FILE an HGCal geometry pickle"
             )
-        unported = [k for k in _NOT_PORTED if c.get(k, False)]
-        if unported:
-            items = ", ".join(f"{k}: ROADMAP {_NOT_PORTED[k]}" for k in unported)
-            raise NotImplementedError(
-                f"{unported} not yet ported to calodiffusion_tpu_torch ({items})"
-            )
-
         self.time_embed = c.get("TIME_EMBED", "sin")
         self.dataset_num = c.get("DATASET_NUM", 2)
         self.training_objective = c.get("TRAINING_OBJ", "noise_pred")
@@ -145,19 +154,21 @@ class CaloDiffusion:
         # constant conditioning images over SHAPE_FINAL (Z, A, R)
         shape_final = c["SHAPE_FINAL"][1:]
         rz_images = phi_image = None
-        if c.get("R_Z_INPUT", False):
+        if not self.fully_connected and c.get("R_Z_INPUT", False):
             R_image, Z_image = preprocessing.create_R_Z_image(
                 dataset_num=self.dataset_num, scaled=True, shape=shape_final
             )
             rz_images = (R_image[0], Z_image[0])  # (Z, A, R)
-        if c.get("PHI_INPUT", False):
+        if not self.fully_connected and c.get("PHI_INPUT", False):
             phi_image = preprocessing.create_phi_image(shape=shape_final)[0]
 
         # the in-model embed: dataset 1's (its pion configs set DATASET_NUM
         # 0), or HGCal's GLaM where the loader has not encoded (JAX
         # diffusion.py:147-157)
         nn_embed = None
-        if "NN" in shower_embed and not self.hgcal:
+        if self.fully_connected:  # the dense model takes the showers as they are
+            pass
+        elif "NN" in shower_embed and not self.hgcal:
             part = "photon" if self.dataset_num == 1 else "pion"
             nn_embed = NNConverter(GeomConverter(XMLHandler(part, c["BIN_FILE"])))
         elif self.hgcal and not self.pre_embed:
@@ -167,28 +178,41 @@ class CaloDiffusion:
         # three gen-info columns
         in_channels = (3 if rz_images is not None else 1) + (phi_image is not None)
         cond_size = (2 + c["SHAPE_FINAL"][2] if self.layer_cond else 1) + 2 * self.hgcal
-        unet_kwargs = dict(
-            cond_dim=c["COND_SIZE_UNET"],
-            out_dim=1,
-            channels=in_channels,
-            layer_sizes=tuple(c["LAYER_SIZE_UNET"]),
-            block_attn=c.get("BLOCK_ATTN", False),
-            mid_attn=c.get("MID_ATTN", False),
-            cylindrical=c.get("CYLINDRICAL", False),
-            compress_Z=c.get("COMPRESS_Z", False),
-            resnet_block_groups=c.get("BLOCK_GROUPS", 8),
-            data_shape=tuple(shape_final[1:]),  # (Z, A, R)
-            cond_embed=(c.get("COND_EMBED", "sin") == "sin"),
-            cond_size=cond_size,
-            time_embed=(c.get("TIME_EMBED", "sin") == "sin"),
-        )
+        if self.fully_connected:  # JAX diffusion.py:160-166 (flax infers cond_size)
+            unet_kwargs = dict(
+                cond_emb_dim=c["COND_SIZE_UNET"],
+                dim_in=c["SHAPE_ORIG"][1],
+                num_layers=c["NUM_LAYERS_LINEAR"],
+                hidden_dim=512,
+                cond_size=cond_size,
+            )
+        else:
+            unet_kwargs = dict(
+                cond_dim=c["COND_SIZE_UNET"],
+                out_dim=1,
+                channels=in_channels,
+                layer_sizes=tuple(c["LAYER_SIZE_UNET"]),
+                block_attn=c.get("BLOCK_ATTN", False),
+                mid_attn=c.get("MID_ATTN", False),
+                cylindrical=c.get("CYLINDRICAL", False),
+                compress_Z=c.get("COMPRESS_Z", False),
+                resnet_block_groups=c.get("BLOCK_GROUPS", 8),
+                data_shape=tuple(shape_final[1:]),  # (Z, A, R)
+                cond_embed=(c.get("COND_EMBED", "sin") == "sin"),
+                cond_size=cond_size,
+                time_embed=(c.get("TIME_EMBED", "sin") == "sin"),
+                remat=bool(c.get("REMAT", False)),
+                **(unet_options or {}),
+            )
         self.cond_size = cond_size
         self.dtype = torch.bfloat16 if c.get("PRECISION", "f32") == "bf16" else torch.float32
         self.net = CaloDiffusionNet(
             unet_kwargs, self.layer_cond, rz_images, self.dtype, generator,
-            phi_image=phi_image, nn_embed=nn_embed,
+            phi_image=phi_image, nn_embed=nn_embed, fully_connected=self.fully_connected,
         ).to(self.device).eval()
         self._int8_scales: Optional[dict] = None  # {flax path: activation scale}
+        # the cold-diffusion prior (init_cold_diffu / set_cold_prior)
+        self._avg_showers = self._std_showers = self._E_bins = None
 
     # -- weights -------------------------------------------------------------
     def state_dict(self) -> dict:
@@ -224,6 +248,46 @@ class CaloDiffusion:
             return x
         with torch.no_grad():
             return embed.dec(embed.enc(x)).reshape(x.shape)
+
+    # -- cold diffusion ------------------------------------------------------
+    def init_cold_diffu(self):
+        """Load the per-energy-bin average and std showers and the bins'
+        edges (``avg_showers``, ``std_showers``, ``E_bins``) from the h5 at
+        ``AVG_SHOWER_LOC`` (``tools/create_average_showers.py`` writes it;
+        JAX diffusion.py:206-220)."""
+        import h5py as h5
+
+        with h5.File(self.config["AVG_SHOWER_LOC"], "r") as f:
+            return self.set_cold_prior(f["avg_showers"][:], f["std_showers"][:],
+                                       f["E_bins"][:])
+
+    def set_cold_prior(self, avg_showers, std_showers, E_bins):
+        """Take the cold prior's arrays: (nbins, *shower shape) averages and
+        stds in the loader's layout and the nbins bin edges, as f32 on the
+        model's device."""
+        def put(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+
+        self._avg_showers, self._std_showers = put(avg_showers), put(std_showers)
+        self._E_bins = put(E_bins)
+        return self
+
+    def has_cold_prior(self) -> bool:
+        return self._avg_showers is not None
+
+    def lookup_avg_std_shower(self, E):
+        """The average and std showers of E's bins: searchsorted(E_bins, E)
+        - 1 (left side, as ``jnp.searchsorted``), clipped to the bins."""
+        idx = torch.searchsorted(self._E_bins, E.reshape(-1).float().contiguous()) - 1
+        idx = idx.clamp(0, self._avg_showers.shape[0] - 1)
+        return self._avg_showers[idx], self._std_showers[idx]
+
+    def gen_cold_image(self, E, cold_noise_scale, noise):
+        """The cold "noise": the binned average shower plus
+        ``cold_noise_scale`` x noise x the binned std (JAX
+        diffusion.py:229-232)."""
+        avg, std = self.lookup_avg_std_shower(E)
+        return avg + cold_noise_scale * noise * std
 
     # -- diffusion math ------------------------------------------------------
     def do_time_embed(self, sigma):
@@ -272,6 +336,8 @@ class CaloDiffusion:
     def quantizable_convs(self) -> dict:
         """{flax path: conv} of the U-Net's quantizable convolutions; the
         upsampling transposes only under ``CALODIFF_INT8_TRANSPOSE=1``."""
+        if self.fully_connected:  # the dense model has no convolutions
+            return {}
         convs = quantizable_convs(self.net.unet)
         if quant.transpose_allowed():
             return convs
@@ -376,11 +442,15 @@ class CaloDiffusion:
 
         Batches above ``SAMPLE_MICROBATCH`` (default 128) that it divides
         run as sequential microbatches of that size.  With ``QUANT_INT8``
-        the convolutions run int8 (``int8_scope``)."""
+        the convolutions run int8 (``int8_scope``).  With ``COLD_DIFFU`` and
+        a cold prior loaded, the start is ``gen_cold_image`` of the unit
+        noise, before the microbatches (JAX diffusion.py:490-503)."""
         if sampler is None:
             sampler = self.make_sampler()
         B = energy.shape[0]
         start = randn((B, *self._data_shape), generator, self.device)
+        if self.config.get("COLD_DIFFU", False) and self.has_cold_prior():
+            start = self.gen_cold_image(energy[:, :1], self.config.get("COLD_NOISE", 1.0), start)
 
         micro = int(self.config.get("SAMPLE_MICROBATCH", 128) or 0)
         with self.int8_scope():

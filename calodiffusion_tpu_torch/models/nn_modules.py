@@ -1,9 +1,9 @@
-"""PyTorch network modules of the conditional 3D U-Net, main-path subset.
+"""PyTorch network modules: the conditional 3D U-Net and the dense denoisers.
 
 Port of ``calodiffusion_tpu/models/nn_modules.py`` (reference:
 calodiffusion/models/models.py - CondUnet :523-777, ResnetBlock/Block
-:147-200, Attention :246-278, LinearAttention :281-318, Upsample/Downsample
-:335-370).
+:147-200, ConvNextBlock :203-243, Attention :246-278, LinearAttention
+:281-318, Upsample/Downsample :335-370, ResNet :392-457, FCN :460-520).
 
 Activations are NCDHW ``(B, C, Z, A, R)``.  Parameters are f32; ``dtype``
 is the compute dtype every layer casts its input and weights to, while
@@ -25,6 +25,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from calodiffusion_tpu_torch.ops import int8_conv, quant
 from calodiffusion_tpu_torch.ops.conv import (
@@ -67,17 +68,19 @@ class _Quantizable(nn.Module):
 
 
 class Conv3d(_Quantizable):
-    """3D convolution, optionally cylindrical (circular phi padding)."""
+    """3D convolution, optionally cylindrical (circular phi padding);
+    ``groups`` = in_ch makes it depthwise (never quantized)."""
 
     def __init__(self, in_ch, out_ch, kernel_size=3, stride=1, padding=0,
                  cylindrical=False, bias=True, dtype=torch.float32,
-                 generator=None, quantize=False):
+                 generator=None, quantize=False, groups=1):
         super().__init__()
         k = triple(kernel_size)
-        self.stride, self.padding = stride, padding
+        self.stride, self.padding, self.groups = stride, padding, groups
         self.cylindrical, self.dtype, self.quantize = cylindrical, dtype, quantize
-        fan_in = in_ch * math.prod(k)
-        self.weight = nn.Parameter(uniform_(torch.empty(out_ch, in_ch, *k), fan_in, generator))
+        fan_in = in_ch // groups * math.prod(k)
+        self.weight = nn.Parameter(
+            uniform_(torch.empty(out_ch, in_ch // groups, *k), fan_in, generator))
         self.bias = (
             nn.Parameter(uniform_(torch.empty(out_ch), fan_in, generator)) if bias else None
         )
@@ -105,7 +108,8 @@ class Conv3d(_Quantizable):
             wq, scale, bf = self._int8_cached(sx, lambda: self._int8_cache_entry(sx))
             return int8_conv.int8_conv3d(x.to(self.dtype), wq, scale, bf, quant.inv_scale(sx),
                                          self.stride, self.padding, self.cylindrical)
-        return op(x.to(self.dtype), w, b, stride=self.stride, padding=self.padding)
+        return op(x.to(self.dtype), w, b, stride=self.stride, padding=self.padding,
+                  groups=self.groups)
 
 
 class Conv3dTranspose(_Quantizable):
@@ -259,6 +263,43 @@ class ResnetBlock(nn.Module):
         return h + (x if self.res_conv is None else self.res_conv(x))
 
 
+class ConvNextBlock(nn.Module):
+    """ConvNext-style block (reference :203-243; JAX nn_modules.py:304-366):
+    a depthwise 7^3 conv (``ds_conv``; with ``cylindrical`` phi wraps by 3
+    first, as ``_depthwise_conv7``), plus the conditioning ``mlp`` (exact
+    GELU, Dense to the input width), then ``net`` = [GroupNorm(1), conv 3^3
+    to ``mult`` x out_ch, GELU, GroupNorm(1), conv 3^3 to out_ch] and the
+    residual (a 1^3 ``res_conv`` where the widths differ).  The two 3^3 convs
+    and the residual conv are quantizable, as the JAX package marks them;
+    the depthwise conv stays float.  The names are the reference's
+    (``tools/torch_import.py:109-132``)."""
+
+    def __init__(self, in_ch, out_ch, cond_dim=None, mult=2, cylindrical=False,
+                 dtype=torch.float32, generator=None):
+        super().__init__()
+        kw = dict(cylindrical=cylindrical, dtype=dtype, generator=generator)
+        gelu = nn.GELU(approximate="none")
+        self.ds_conv = Conv3d(in_ch, in_ch, 7, padding=3, groups=in_ch, **kw)
+        self.mlp = (nn.Sequential(gelu, Dense(cond_dim, in_ch, dtype, generator))
+                    if cond_dim is not None else None)
+        self.net = nn.Sequential(
+            GroupNorm(1, in_ch),
+            Conv3d(in_ch, out_ch * mult, 3, padding=1, quantize=True, **kw),
+            gelu,
+            GroupNorm(1, out_ch * mult),
+            Conv3d(out_ch * mult, out_ch, 3, padding=1, quantize=True, **kw),
+        )
+        self.res_conv = (Conv3d(in_ch, out_ch, 1, quantize=True, **kw)
+                         if in_ch != out_ch else None)
+
+    def forward(self, x, cond=None):
+        h = self.ds_conv(x)
+        if self.mlp is not None and cond is not None:
+            h = h + self.mlp(cond)[:, :, None, None, None]
+        h = self.net(h)
+        return h + (x if self.res_conv is None else self.res_conv(x))
+
+
 class LinearAttention(nn.Module):
     """O(N) linear attention (reference :281-318; JAX nn_modules.py:471-603):
     the qkv and output 1x1 convs and the output GroupNorm(1).
@@ -406,38 +447,55 @@ def upsample_module(dim, extra_upsample, cylindrical, compress_Z, dtype, generat
 
 
 class CondUnet(nn.Module):
-    """Conditional 3D U-Net (reference models.py:523-777); NCDHW in and out."""
+    """Conditional 3D U-Net (reference models.py:523-777); NCDHW in and out.
+
+    ``use_convnext`` builds ``ConvNextBlock``s (``convnext_mult``) where the
+    default builds ``ResnetBlock``s; ``no_time`` drops the time MLP and
+    widens the cond MLP's output to ``cond_dim`` (JAX nn_modules.py:727-738);
+    ``remat`` recomputes each block (every ResnetBlock or ConvNextBlock,
+    ``final_conv.0`` too) in the backward pass instead of keeping its
+    activations (``torch.utils.checkpoint``, while gradients are enabled),
+    as the JAX package wraps them in ``nn.remat``: the attention blocks and
+    the resamplings keep theirs, as there.  ``down_only`` builds the down
+    path and the middle alone (ControlNet's control U-Net: it returns its
+    hidden states and never runs an up path, so flax makes no parameters
+    there)."""
 
     def __init__(self, channels=1, out_dim=1, layer_sizes: Sequence[int] = (32, 32, 64, 32),
                  cond_dim=128, resnet_block_groups=8, mid_attn=False, block_attn=False,
                  compress_Z=False, cylindrical=False, data_shape=(45, 16, 9),
-                 time_embed=True, cond_embed=True, cond_size=1,
+                 time_embed=True, cond_embed=True, cond_size=1, use_convnext=False,
+                 convnext_mult=2, no_time=False, remat=False, down_only=False,
                  dtype=torch.float32, generator=None):
         super().__init__()
         ls = list(layer_sizes)
         in_out = list(zip(ls[:-1], ls[1:]))
         self.num_resolutions = len(in_out)
         self.data_shape, self.compress_Z = tuple(data_shape), compress_Z
+        self.use_convnext, self.remat, self.down_only = use_convnext, remat, down_only
         self.dtype = dtype
         half = cond_dim // 2
         kw = dict(cylindrical=cylindrical, dtype=dtype, generator=generator)
 
-        def resnet(i, o, cond=cond_dim):
+        def block(i, o, cond=cond_dim):
+            if use_convnext:
+                return ConvNextBlock(i, o, cond, convnext_mult, **kw)
             return ResnetBlock(i, o, cond, resnet_block_groups, **kw)
 
         def attn_block(dim):
             return PreNormResidual(dim, LinearAttention(dim, **kw))
 
         self.init_conv = Conv3d(channels, ls[0], 3, padding=1, **kw)
-        self.time_mlp = cond_mlp(1, half // 2, half, half, time_embed, True, dtype, generator)
+        self.time_mlp = (None if no_time else
+                         cond_mlp(1, half // 2, half, half, time_embed, True, dtype, generator))
         self.cond_mlp = cond_mlp(
-            cond_size, half // 2 if cond_embed else max(cond_size, half // 2), half, half,
-            cond_embed, False, dtype, generator,
+            cond_size, half // 2 if cond_embed else max(cond_size, half // 2), half,
+            cond_dim if no_time else half, cond_embed, False, dtype, generator,
         )
 
         self.downs, self.downs_attn = nn.ModuleList(), nn.ModuleList()
         for ind, (dim_in, dim_out) in enumerate(in_out):
-            level = [resnet(dim_in, dim_out), resnet(dim_out, dim_out)]
+            level = [block(dim_in, dim_out), block(dim_out, dim_out)]
             if ind < self.num_resolutions - 1:
                 level.append(downsample_module(dim_out, cylindrical, compress_Z, dtype, generator))
             self.downs.append(nn.ModuleList(level))
@@ -445,14 +503,17 @@ class CondUnet(nn.Module):
                 self.downs_attn.append(attn_block(dim_out))
 
         mid = ls[-1]
-        self.mid_block1 = resnet(mid, mid)
+        self.mid_block1 = block(mid, mid)
         self.mid_attn = attn_block(mid) if mid_attn else None
-        self.mid_block2 = resnet(mid, mid)
+        self.mid_block2 = block(mid, mid)
 
         extras = self.compute_extra_upsamples(data_shape, self.num_resolutions, compress_Z)
         self.ups, self.ups_attn = nn.ModuleList(), nn.ModuleList()
+        if down_only:
+            self.final_conv = None
+            return
         for ind, (dim_in, dim_out) in enumerate(reversed(in_out)):
-            level = [resnet(2 * dim_out, dim_in), resnet(dim_in, dim_in)]
+            level = [block(2 * dim_out, dim_in), block(dim_in, dim_in)]
             if ind < self.num_resolutions - 1:
                 level.append(upsample_module(dim_in, extras.pop(), cylindrical, compress_Z,
                                              dtype, generator))
@@ -461,7 +522,7 @@ class CondUnet(nn.Module):
                 self.ups_attn.append(attn_block(dim_in))
 
         self.final_conv = nn.Sequential(
-            resnet(ls[0], ls[0], cond=None), Conv3d(ls[0], out_dim, 1, **kw)
+            block(ls[0], ls[0], cond=None), Conv3d(ls[0], out_dim, 1, **kw)
         )
 
     @staticmethod
@@ -475,72 +536,109 @@ class CondUnet(nn.Module):
             cur = (z, cur[1] // 2, cur[2] // 2)
         return extras
 
-    def forward(self, x, cond, time):
+    def _block(self, block, x, cond=None):
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, x, cond, use_reentrant=False)
+        return block(x, cond)
+
+    def forward(self, x, cond, time=None, controls=None, return_hiddens=False):
+        """``controls``: (add, h) pairs, ControlNet's injection (JAX
+        nn_modules.py:763-783): the skip state of level i becomes add(skip,
+        h) for the first pairs, the middle's output add(x, h) for the last.
+        ``return_hiddens``: return the skip states and the middle's output
+        (a list), before the up path."""
         x = self.init_conv(x.to(self.dtype))
-        conditions = torch.cat([self.time_mlp(time), self.cond_mlp(cond)], dim=-1)
+        conditions = self.cond_mlp(cond)
+        if self.time_mlp is not None:
+            conditions = torch.cat([self.time_mlp(time), conditions], dim=-1)
 
         hs = []
         for ind, level in enumerate(self.downs):
-            x = level[0](x, conditions)
-            x = level[1](x, conditions)
+            x = self._block(level[0], x, conditions)
+            x = self._block(level[1], x, conditions)
             if len(self.downs_attn):
                 x = self.downs_attn[ind](x)
             hs.append(x)
             if len(level) > 2:
                 x = level[2](x)
 
-        x = self.mid_block1(x, conditions)
+        if controls is not None:
+            hs = [add(h, ch) for h, (add, ch) in zip(hs, controls[:-1])]
+
+        x = self._block(self.mid_block1, x, conditions)
         if self.mid_attn is not None:
             x = self.mid_attn(x)
-        x = self.mid_block2(x, conditions)
+        x = self._block(self.mid_block2, x, conditions)
+
+        if controls is not None:
+            add, ch = controls[-1]
+            x = add(x, ch)
+        if return_hiddens or self.down_only:
+            return hs + [x]
 
         for ind, level in enumerate(self.ups):
             x = torch.cat([x, hs.pop()], dim=1)
-            x = level[0](x, conditions)
-            x = level[1](x, conditions)
+            x = self._block(level[0], x, conditions)
+            x = self._block(level[1], x, conditions)
             if len(self.ups_attn):
                 x = self.ups_attn[ind](x)
             if len(level) > 2:
                 x = level[2](x)
 
-        x = self.final_conv[0](x)
+        x = self._block(self.final_conv[0], x)
         return self.final_conv[1](x).float()
+
+
+def block_name(unet: CondUnet) -> str:
+    """The flax name of ``unet``'s blocks: ``ResnetBlock`` or
+    ``ConvNextBlock``, ``Checkpoint`` in front under remat (``nn.remat``
+    renames the class it wraps)."""
+    return ("Checkpoint" if unet.remat else "") + (
+        "ConvNextBlock" if unet.use_convnext else "ResnetBlock")
 
 
 def quantizable_convs(unet: CondUnet, prefix: str = "CondUnet_0/") -> dict:
     """{flax path: module} of ``unet``'s quantizable convolutions, named as
     the JAX package's calibration table and ``QUANT_INT8_EXCLUDE`` name them:
-    flax counts each module type in call order within its parent
-    (``ResnetBlock_N`` across the whole U-Net, ``init_conv`` and
-    ``final_conv`` named explicitly, so the downsampling convs are
-    ``Conv3d_0, 1, ...`` and the upsampling ones ``Conv3dTranspose_0, ...``),
-    as ``tools/jax_import.params_to_state_dict`` walks them: ``ResnetBlock_N/
-    Block_{0,1}/Conv3d_0`` and the residual ``ResnetBlock_N/Conv3d_0``."""
-    out, count = {}, {"ResnetBlock": 0, "Conv3d": 0, "Conv3dTranspose": 0}
+    flax counts each module type in call order within its parent (the
+    blocks, ``block_name``, across the whole U-Net; ``init_conv`` and
+    ``final_conv`` named explicitly, so the downsampling convs are ``Conv3d_0,
+    1, ...`` and the upsampling ones ``Conv3dTranspose_0, ...``), as
+    ``tools/jax_import.params_to_state_dict`` walks them: a ResnetBlock's
+    ``Block_{0,1}/Conv3d_0`` and residual ``Conv3d_0``; a ConvNextBlock's
+    ``Conv3d_0``, ``Conv3d_1`` and residual ``Conv3d_2``."""
+    block = block_name(unet)
+    out, count = {}, {block: 0, "Conv3d": 0, "Conv3dTranspose": 0}
 
     def add(kind, module):
         name = f"{prefix}{kind}_{count[kind]}"
         count[kind] += 1
-        if kind != "ResnetBlock":
+        if kind != block:
             out[name] = module
-            return
-        out[f"{name}/Block_0/Conv3d_0"] = module.block1.proj
-        out[f"{name}/Block_1/Conv3d_0"] = module.block2.proj
-        if module.res_conv is not None:
-            out[f"{name}/Conv3d_0"] = module.res_conv
+        elif unet.use_convnext:
+            out[f"{name}/Conv3d_0"] = module.net[1]
+            out[f"{name}/Conv3d_1"] = module.net[4]
+            if module.res_conv is not None:
+                out[f"{name}/Conv3d_2"] = module.res_conv
+        else:
+            out[f"{name}/Block_0/Conv3d_0"] = module.block1.proj
+            out[f"{name}/Block_1/Conv3d_0"] = module.block2.proj
+            if module.res_conv is not None:
+                out[f"{name}/Conv3d_0"] = module.res_conv
 
     def add_levels(levels, resample):
         for level in levels:
-            add("ResnetBlock", level[0])
-            add("ResnetBlock", level[1])
+            add(block, level[0])
+            add(block, level[1])
             if len(level) > 2:
                 add(resample, level[2])
 
     add_levels(unet.downs, "Conv3d")
-    add("ResnetBlock", unet.mid_block1)
-    add("ResnetBlock", unet.mid_block2)
-    add_levels(unet.ups, "Conv3dTranspose")
-    add("ResnetBlock", unet.final_conv[0])
+    add(block, unet.mid_block1)
+    add(block, unet.mid_block2)
+    if not unet.down_only:
+        add_levels(unet.ups, "Conv3dTranspose")
+        add(block, unet.final_conv[0])
     return out
 
 
@@ -587,3 +685,27 @@ class ResNetDense(nn.Module):
         for layer in self.hidden_layers:
             x = layer(x, conditions)
         return self.out_lay(x)
+
+
+class FCN(nn.Module):
+    """Plain MLP denoiser (reference FCN :460-520; JAX nn_modules.py:855-881):
+    [x, time MLP, cond MLP] through ``num_layers`` Dense layers of width
+    ``dim_in`` with exact GELUs between them (``fcn.{0, 2, ...}``).  No
+    config builds it: ``SHOWER_EMBED`` "FCN" builds ``ResNetDense``, as in
+    the JAX package."""
+
+    def __init__(self, dim_in=356, num_layers=4, cond_emb_dim=64, time_embed=True,
+                 cond_embed=True, cond_size=1, dtype=torch.float32, generator=None):
+        super().__init__()
+        half = cond_emb_dim // 2
+        self.time_mlp = cond_mlp(1, half // 2, half, half, time_embed, True, dtype, generator)
+        self.cond_mlp = cond_mlp(cond_size, half // 2, half, half, cond_embed, False, dtype,
+                                 generator)
+        layers = [Dense(dim_in + 2 * half, dim_in, dtype, generator)]
+        for _ in range(num_layers - 1):
+            layers += [nn.GELU(approximate="none"), Dense(dim_in, dim_in, dtype, generator)]
+        self.fcn = nn.Sequential(*layers)
+
+    def forward(self, x, cond, time):
+        t, c = self.time_mlp(time), self.cond_mlp(cond)
+        return self.fcn(torch.cat([x.to(t.dtype), t, c], dim=-1))

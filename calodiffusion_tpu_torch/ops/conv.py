@@ -35,16 +35,16 @@ def wrap_pad_phi(x: torch.Tensor, pad: int) -> torch.Tensor:
     return F.pad(x, (0, 0, pad, pad, 0, 0), mode="circular")
 
 
-def conv3d(x, w, b=None, stride=1, padding=0):
-    """Plain 3D conv with symmetric zero padding."""
-    return F.conv3d(x, w, b, stride=triple(stride), padding=triple(padding))
+def conv3d(x, w, b=None, stride=1, padding=0, groups=1):
+    """Plain 3D conv with symmetric zero padding (``groups`` C: depthwise)."""
+    return F.conv3d(x, w, b, stride=triple(stride), padding=triple(padding), groups=groups)
 
 
-def cylindrical_conv3d(x, w, b=None, stride=1, padding=0):
+def cylindrical_conv3d(x, w, b=None, stride=1, padding=0, groups=1):
     """Conv3d with circular padding on phi, zero padding on Z and R."""
     pz, pa, pr = triple(padding)
     return F.conv3d(
-        wrap_pad_phi(x, pa), w, b, stride=triple(stride), padding=(pz, 0, pr)
+        wrap_pad_phi(x, pa), w, b, stride=triple(stride), padding=(pz, 0, pr), groups=groups
     )
 
 

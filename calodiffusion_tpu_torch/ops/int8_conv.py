@@ -47,9 +47,11 @@ KERNEL = cuda_build.DtypeKernel("int8_conv3d", {
     "calo_int8_conv3d": [_PTR] + _STRIDES + [_PTR] * 5 + [_INT] * 19
                         + [ctypes.c_float, _INT, _INT, _PTR],
     "calo_int8_quantize_pad": [_PTR] + _STRIDES + [_PTR] + [_INT] * 9
-                              + [ctypes.c_float, _INT, _PTR]})
+                              + [ctypes.c_float, _INT, _PTR],
+    "calo_int8_conv3d_plan": [_INT] * 20 + [ctypes.POINTER(_INT)]})
 # the GEMM's plans (the kernel's Mode): picked by shape, or forced by a test
 PLANS = {"auto": 0, "window": 1, "gather": 2, "stream": 3}
+PLAN_NAMES = {v: k for k, v in PLANS.items()}
 # the plain version's float64 im2col products, a chunk of rows at a time
 _REFERENCE_CHUNK = 1 << 26
 
@@ -137,6 +139,26 @@ def launch_quantize(lib, x, inv_sx: float, padding=0, cylindrical: bool = False)
                                     cuda_build.stream_of(x.device))
     cuda_build.raise_on(rc, KERNEL.name, x)
     return xq
+
+
+def kernel_plan(lib, x_shape, w_shape, stride=1, padding=0, cylindrical: bool = False,
+                plan: str = "auto") -> dict:
+    """The plan Q1's GEMM takes for a convolution on the current device
+    (``lib``'s plan entry; nothing launched): ``mode`` ("window", "gather",
+    or "stream": the gather with the weights streamed, where they do not fit
+    resident), the channel tile ``NT``, the row tiles of 128 a CTA ``MW``
+    and the CTA's ``smem_bytes``; ``plan`` forces a mode as in ``launch``."""
+    B, Cin, Z, A, R = x_shape
+    Cout, _, kz, ka, kr = w_shape
+    Zo, Ao, Ro = output_spatial(x_shape, (kz, ka, kr), stride, padding)
+    out = (_INT * 4)()
+    rc = lib.calo_int8_conv3d_plan(B, Cin, Z, A, R, Cout, kz, ka, kr, *triple(stride),
+                                   *triple(padding), int(cylindrical), Zo, Ao, Ro, PLANS[plan],
+                                   out)
+    if rc != 0:
+        raise RuntimeError(f"kernel launch failed: {KERNEL.name} has no plan for x {x_shape}, "
+                           f"w {w_shape} (CUDA error {rc})")
+    return dict(mode=PLAN_NAMES[out[0]], NT=out[1], MW=out[2], smem_bytes=out[3])
 
 
 def launch(lib, x, wq, scale, bias, inv_sx: float, stride=1, padding=0,

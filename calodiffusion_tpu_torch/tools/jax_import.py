@@ -12,14 +12,19 @@ inverse of the layout maps of ``calodiffusion_tpu/tools/torch_import.py``:
 - GroupNorm     scale -> weight, bias -> bias
 
 Flax names submodules by per-type counters in call order
-(``ResnetBlock_N``, ``LinearAttention_N``, ``PreNormResidual_N``,
-``Conv3d_N``, ``Conv3dTranspose_N``), so the walk below follows the
-U-Net's call order exactly as ``torch_import.import_condunet`` does.
+(``ResnetBlock_N`` or ``ConvNextBlock_N``, ``CheckpointResnetBlock_N`` or
+``CheckpointConvNextBlock_N`` under ``REMAT``'s ``nn.remat``,
+``LinearAttention_N``, ``PreNormResidual_N``, ``Conv3d_N``,
+``Conv3dTranspose_N``), so the walk below follows the U-Net's call order
+exactly as ``torch_import.import_condunet`` does.  The dense shower model
+of an "FCN" embed (``ResNetDense_0``) goes through the cascade's writer.
 ``module_params_to_state_dict`` does the same for a standalone module
-(``Attention``, ``LinearAttention``, ``PreNormResidual``, and the cascade's
-``ResNetDense`` with its whitening statistics), and
+(``Attention``, ``LinearAttention``, ``PreNormResidual``, ``FCN``, and the
+cascade's ``ResNetDense`` with its whitening statistics),
 ``layer_params_to_state_dict`` for the cascade's two-part tree
-``{"base_model": ..., "layer_model": ...}``.  ``dnn_params_to_state_dict``
+``{"base_model": ..., "layer_model": ...}`` and
+``controlled_unet_params_to_state_dict`` for ControlNet's
+``ControlledUnet`` (``control_model``, ``model``, ``gate_mu_i``).  ``dnn_params_to_state_dict``
 and ``comparison_params_to_state_dict`` carry the evaluation networks (the
 classifier's DNN, CNNCompare's ComparisonNetwork; Conv2d (kh, kw, Cin, Cout)
 -> (Cout, Cin, kh, kw)).
@@ -74,6 +79,22 @@ class _Writer:
         if "Conv3d_0" in n:
             self.conv(path + ["Conv3d_0"], f"{base}.res_conv")
 
+    def convnext_block(self, path, base):
+        """JAX ``ConvNextBlock`` (nn_modules.py:304-366) -> the port's, under
+        the reference names ``torch_import._import_convnext_block`` reads."""
+        n = self.node(path)
+        self.sd[f"{base}.ds_conv.weight"] = _tensor(
+            np.transpose(np.asarray(n["ds_kernel"]), (4, 3, 0, 1, 2)))
+        self.sd[f"{base}.ds_conv.bias"] = _tensor(n["ds_bias"])
+        if "Dense_0" in n:
+            self.linear(path + ["Dense_0"], f"{base}.mlp.1")
+        self.groupnorm(path + ["GroupNorm_0"], f"{base}.net.0")
+        self.groupnorm(path + ["GroupNorm_1"], f"{base}.net.3")
+        self.conv(path + ["Conv3d_0"], f"{base}.net.1")
+        self.conv(path + ["Conv3d_1"], f"{base}.net.4")
+        if "Conv3d_2" in n:
+            self.conv(path + ["Conv3d_2"], f"{base}.res_conv")
+
     def cond_mlp(self, path, base, embed, unflatten):
         idxs = [1, 3] if embed else ([1, 3, 5] if unflatten else [0, 2, 4])
         for j, idx in enumerate(idxs):
@@ -103,9 +124,82 @@ class _Writer:
             i += 1
         self.linear(path + ["out_lay"], f"{prefix}out_lay")
 
+    def fcn(self, path, prefix):
+        """JAX ``FCN`` (nn_modules.py:855-881) -> the port's: the time and
+        cond MLPs (sinusoidal where flax made two Dense layers, linear where
+        three) and ``Dense_i`` -> ``fcn.{2 i}``."""
+        for name, unflatten in (("time_mlp", True), ("cond_mlp", False)):
+            embed = "Dense_2" not in self.node(path + [name])
+            self.cond_mlp(path + [name], f"{prefix}{name}", embed=embed, unflatten=unflatten)
+        i = 0
+        while f"Dense_{i}" in self.node(path):
+            self.linear(path + [f"Dense_{i}"], f"{prefix}fcn.{2 * i}")
+            i += 1
+
     def attention(self, unet, k, base):
         self.groupnorm(unet + [f"PreNormResidual_{k}", "GroupNorm_0"], f"{base}.fn.norm")
         self.linear_attention(unet + [f"LinearAttention_{k}"], f"{base}.fn.fn.")
+
+    def condunet(self, unet, prefix, config, down_only=False):
+        """A flax CondUnet subtree at ``unet`` -> the port's CondUnet keys
+        under ``prefix``, its blocks ResnetBlocks or ConvNextBlocks, under
+        remat or not, as the tree names them; no time MLP where the tree
+        has none (``no_time``); ``down_only``: the down path and the middle
+        alone (ControlNet's control U-Net)."""
+        tree = self.node(unet)
+        block = next(b for b in ("ResnetBlock", "ConvNextBlock", "CheckpointResnetBlock",
+                                 "CheckpointConvNextBlock") if f"{b}_0" in tree)
+        write_block = self.convnext_block if "ConvNext" in block else self.resnet_block
+        n_res = len(config["LAYER_SIZE_UNET"]) - 1
+        block_attn = config.get("BLOCK_ATTN", False)
+        mid_attn = config.get("MID_ATTN", False)
+
+        self.conv(unet + ["init_conv"], f"{prefix}init_conv")
+        if "time_mlp" in tree:
+            self.cond_mlp(unet + ["time_mlp"], f"{prefix}time_mlp",
+                          embed=config.get("TIME_EMBED", "sin") == "sin", unflatten=True)
+        self.cond_mlp(unet + ["cond_mlp"], f"{prefix}cond_mlp",
+                      embed=config.get("COND_EMBED", "sin") == "sin", unflatten=False)
+
+        rb = attn = 0
+
+        def blocks(base, count):
+            nonlocal rb
+            for j in range(count):
+                write_block(unet + [f"{block}_{rb}"], f"{prefix}{base}{j}")
+                rb += 1
+
+        def attention(base):
+            nonlocal attn
+            self.attention(unet, attn, f"{prefix}{base}")
+            attn += 1
+
+        for i in range(n_res):
+            blocks(f"downs.{i}.", 2)
+            if block_attn:
+                attention(f"downs_attn.{i}")
+            if i < n_res - 1:
+                self.conv(unet + [f"Conv3d_{i}"], f"{prefix}downs.{i}.2")
+
+        write_block(unet + [f"{block}_{rb}"], f"{prefix}mid_block1")
+        rb += 1
+        if mid_attn:
+            attention("mid_attn")
+        write_block(unet + [f"{block}_{rb}"], f"{prefix}mid_block2")
+        rb += 1
+        if down_only:
+            return
+
+        for i in range(n_res):
+            blocks(f"ups.{i}.", 2)
+            if block_attn:
+                attention(f"ups_attn.{i}")
+            if i < n_res - 1:
+                self.conv(unet + [f"Conv3dTranspose_{i}"], f"{prefix}ups.{i}.2",
+                          transpose=True)
+
+        write_block(unet + [f"{block}_{rb}"], f"{prefix}final_conv.0")
+        self.conv(unet + ["final_conv"], f"{prefix}final_conv.1")
 
 
 def _subtree(params):
@@ -117,8 +211,8 @@ def module_params_to_state_dict(params, module: str) -> dict[str, torch.Tensor]:
     ``PreNormResidual`` (wrapping either) or ``ResNetDense`` of
     ``calodiffusion_tpu`` -> the port module's state_dict.  ``module`` names
     the module as the port builds it: "Attention", "LinearAttention",
-    "PreNormResidual(Attention)", "PreNormResidual(LinearAttention)" or
-    "ResNetDense".  JAX ``Conv3d_0``/``Conv3d_1``/
+    "PreNormResidual(Attention)", "PreNormResidual(LinearAttention)",
+    "ResNetDense" or "FCN".  JAX ``Conv3d_0``/``Conv3d_1``/
     ``GroupNorm_0`` become ``to_qkv``/``to_out.0``/``to_out.1`` of a
     LinearAttention and ``to_qkv``/``to_out`` of an Attention; a
     PreNormResidual's ``GroupNorm_0`` and ``fn`` become ``fn.norm`` and
@@ -134,6 +228,9 @@ def module_params_to_state_dict(params, module: str) -> dict[str, torch.Tensor]:
             w.sd["whiten.mean"] = _tensor(whiten["mean"])
             w.sd["whiten.std"] = _tensor(whiten["std"])
         return w.sd
+    if module == "FCN":
+        w.fcn([], "")
+        return w.sd
     path, prefix, fn = [], "", module
     if module.startswith("PreNormResidual(") and module.endswith(")"):
         w.groupnorm(["GroupNorm_0"], "fn.norm")
@@ -148,7 +245,9 @@ def module_params_to_state_dict(params, module: str) -> dict[str, torch.Tensor]:
 def params_to_state_dict(params, config) -> dict[str, torch.Tensor]:
     """Flax CondUnet params of ``calodiffusion_tpu`` -> the port's CondUnet
     state_dict (f32 CPU tensors).  ``params`` may be the whole tree
-    (``{"params": {"CondUnet_0": ...}}``) or the CondUnet subtree.  A whole
+    (``{"params": {"CondUnet_0": ...}}``) or the CondUnet subtree; a whole
+    tree of an "FCN" embed holds ``ResNetDense_0`` instead, which becomes
+    the port's ResNetDense keys (``time_mlp.*``, ``in_lay``, ...).  A whole
     tree's dataset-1 embed (``NN_embed``: ``enc_i`` (dim_r_out, dim_in) and
     ``dec_i`` (dim_in, dim_r_out), as torch's Linear weights) becomes
     ``NN_embed.encs.{i}.weight`` and ``NN_embed.decs.{i}.weight``, and a
@@ -158,6 +257,10 @@ def params_to_state_dict(params, config) -> dict[str, torch.Tensor]:
     parameters)."""
     tree = _subtree(params)
     embed = tree.get("NN_embed", {})
+    if "ResNetDense_0" in tree:
+        w = _Writer(tree)
+        w.res_net_dense(["ResNetDense_0"], "")
+        return w.sd
     if "CondUnet_0" in tree:
         tree = tree["CondUnet_0"]
     w = _Writer(tree)
@@ -169,47 +272,7 @@ def params_to_state_dict(params, config) -> dict[str, torch.Tensor]:
     if "enc_mat" in embed:
         w.sd["NN_embed.embeder.mat"] = _tensor(embed["enc_mat"])
         w.sd["NN_embed.decoder.mat"] = _tensor(embed["dec_mat"])
-    n_res = len(config["LAYER_SIZE_UNET"]) - 1
-    block_attn = config.get("BLOCK_ATTN", False)
-    mid_attn = config.get("MID_ATTN", False)
-
-    w.conv(["init_conv"], "init_conv")
-    w.cond_mlp(["time_mlp"], "time_mlp",
-               embed=config.get("TIME_EMBED", "sin") == "sin", unflatten=True)
-    w.cond_mlp(["cond_mlp"], "cond_mlp",
-               embed=config.get("COND_EMBED", "sin") == "sin", unflatten=False)
-
-    rb = attn = 0
-    for i in range(n_res):
-        for j in range(2):
-            w.resnet_block([f"ResnetBlock_{rb}"], f"downs.{i}.{j}")
-            rb += 1
-        if block_attn:
-            w.attention([], attn, f"downs_attn.{i}")
-            attn += 1
-        if i < n_res - 1:
-            w.conv([f"Conv3d_{i}"], f"downs.{i}.2")
-
-    w.resnet_block([f"ResnetBlock_{rb}"], "mid_block1")
-    rb += 1
-    if mid_attn:
-        w.attention([], attn, "mid_attn")
-        attn += 1
-    w.resnet_block([f"ResnetBlock_{rb}"], "mid_block2")
-    rb += 1
-
-    for i in range(n_res):
-        for j in range(2):
-            w.resnet_block([f"ResnetBlock_{rb}"], f"ups.{i}.{j}")
-            rb += 1
-        if block_attn:
-            w.attention([], attn, f"ups_attn.{i}")
-            attn += 1
-        if i < n_res - 1:
-            w.conv([f"Conv3dTranspose_{i}"], f"ups.{i}.2", transpose=True)
-
-    w.resnet_block([f"ResnetBlock_{rb}"], "final_conv.0")
-    w.conv(["final_conv"], "final_conv.1")
+    w.condunet([], "", config)
     return w.sd
 
 
@@ -224,6 +287,24 @@ def layer_params_to_state_dict(params, config) -> dict[str, torch.Tensor]:
     layer = module_params_to_state_dict(params["layer_model"], "ResNetDense")
     sd.update({f"layer_model.{k}": v for k, v in layer.items()})
     return sd
+
+
+def controlled_unet_params_to_state_dict(params, config) -> dict[str, torch.Tensor]:
+    """The flax tree of ``calodiffusion_tpu.models.controlnet.ControlledUnet``
+    (``control_model``, ``model``: two CondUnets; ``gate_mu_i``: f32
+    scalars) -> the port ``ControlledUnet``'s state_dict
+    (``control_model.<CondUnet key>``, ``model.<CondUnet key>``,
+    ``gate_mu_i``); ``config`` gives the CondUnets' ``LAYER_SIZE_UNET``,
+    ``BLOCK_ATTN``, ``MID_ATTN``, ``TIME_EMBED`` and ``COND_EMBED``."""
+    tree = _subtree(params)
+    w = _Writer(tree)
+    w.condunet(["control_model"], "control_model.", config, down_only=True)
+    w.condunet(["model"], "model.", config)
+    i = 0
+    while f"gate_mu_{i}" in tree:
+        w.sd[f"gate_mu_{i}"] = _tensor(tree[f"gate_mu_{i}"])
+        i += 1
+    return w.sd
 
 
 def dnn_params_to_state_dict(params) -> dict[str, torch.Tensor]:

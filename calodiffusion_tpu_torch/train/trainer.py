@@ -12,8 +12,10 @@ The plateau LR is set on the optimizer's param_groups.  Batches come from
 ``data/loader.load_data(flags, config)``, or from the ``loader_train`` /
 ``loader_val`` a caller passes: iterables of numpy ``(E, layers, data)``.
 Randomness comes from a ``torch.Generator`` on the card seeded from
-``flags.seed``.  Not ported yet: cold diffusion and scale-out over several
-cards.
+``flags.seed``.  With ``COLD_DIFFU`` the train and val noise is the model's
+``gen_cold_image`` of the unit noise (JAX trainer.py:342-363, :422-425), the
+prior loaded from ``AVG_SHOWER_LOC`` where the model holds none yet.  Not
+ported yet: scale-out over several cards.
 """
 
 from __future__ import annotations
@@ -168,6 +170,9 @@ class Train:
         folder, name = self._checkpoint_location()
         arrays, host = ckpt_io.load_checkpoint(folder, name, map_location=self.device)
         self.model.load_state_dict(ckpt_io.inference_params(arrays, host))
+        if self.config.get("COLD_DIFFU", False) and not self.model.has_cold_prior():
+            # sampling starts from the average-shower cold prior
+            self.model.init_cold_diffu()
         return self.model
 
     def make_optimizer(self, lr: float) -> torch.optim.Optimizer:
@@ -289,12 +294,30 @@ class TrainDiffusion(Train):
         return self.model.state_dict()
 
     # -- one train step ----------------------------------------------------
+    def _cold_noise(self, noise, E):
+        """With ``COLD_DIFFU``, the cold "noise" of the unit ``noise``: the
+        average shower of E's incident-energy bin (its first column) plus
+        ``COLD_NOISE`` x noise x the bin's std; else ``noise``.  The prior
+        is loaded from ``AVG_SHOWER_LOC`` on first use where the model holds
+        none."""
+        if not self.config.get("COLD_DIFFU", False):
+            return noise
+        if not self.model.has_cold_prior():
+            self.model.init_cold_diffu()
+        return self.model.gen_cold_image(E[:, :1], self.config.get("COLD_NOISE", 1.0), noise)
+
     def _accumulate_grads(self, data, E, layers, noise=None, rnd_normal=None):
         """Set the parameters' ``.grad`` to the batch's loss gradient and
         return the loss.  With ``TRAIN_MICROBATCH`` and a batch it divides,
         the batch runs as sequential chunks and the gradient is the mean of
         the per-chunk gradients (trainer.py:373-400).  ``noise`` and
-        ``rnd_normal`` may be injected (tests); chunks then take slices."""
+        ``rnd_normal`` may be injected (tests); chunks then take slices.
+        With ``COLD_DIFFU`` each chunk's unit noise (drawn, or the injected
+        slice) goes through ``_cold_noise``, as the JAX step draws it inside
+        each chunk's loss; the layer model's loss takes no shower noise (the
+        JAX step discards it there)."""
+        cold = self.config.get("COLD_DIFFU", False) and not getattr(self.model, "layer_loss",
+                                                                    False)
         micro = int(self.config.get("TRAIN_MICROBATCH", 0) or 0)
         B = data.shape[0]
         n_chunks = B // micro if micro and B > micro and B % micro == 0 else 1
@@ -309,9 +332,14 @@ class TrainDiffusion(Train):
             def part(a):
                 return None if a is None else a[sl]
 
+            chunk_noise = part(noise)
+            if cold:
+                if chunk_noise is None:
+                    chunk_noise = randn(data[sl].shape, self.generator, self.device)
+                chunk_noise = self._cold_noise(chunk_noise, E[sl])
             loss = self.model.compute_loss(
                 data[sl], E[sl], self.generator, layers=part(layers),
-                noise=part(noise), rnd_normal=part(rnd_normal),
+                noise=chunk_noise, rnd_normal=part(rnd_normal),
             )
             loss.backward()
             loss_sum += loss.detach()
@@ -342,12 +370,15 @@ class TrainDiffusion(Train):
         return loss
 
     @torch.no_grad()
-    def val_step(self, data, E, layers, rnd_normal, mask):
+    def val_step(self, data, E, layers, rnd_normal, mask, noise=None):
         """Val loss with fixed per-batch sigma draws (``rnd_normal``) and
         noise redrawn on every call (reference train_diffusion.py:87); a
         discrete-time sigma is drawn from a fixed seed, as the JAX package
-        draws it from PRNGKey(0)."""
-        noise = randn(data.shape, self.generator, self.device)
+        draws it from PRNGKey(0).  ``noise``: the unit noise, injected
+        (tests); with ``COLD_DIFFU`` it goes through ``_cold_noise``."""
+        if noise is None:
+            noise = randn(data.shape, self.generator, self.device)
+        noise = self._cold_noise(noise, E)
         fixed = torch.Generator(device=self.device).manual_seed(0)
         return self.model.loss_function(
             self.model.denoise_fn(), data, E, fixed,

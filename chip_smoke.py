@@ -212,7 +212,30 @@ prints no result:
             down-path fence (INT8_FENCE): 128 showers, 400 + 400 steps, Q1 20
             and K1 7 a stage-2 denoise, the calibration and the stages' walls
             apart
-15. result  {"kernels": [...]} (each kernel's launches by path: generate,
+15. networks the network variants at ds2's full width (configs/
+            config_dataset2.json, bf16, batch 128, seeded weights): cold
+            diffusion (COLD_DIFFU: 512 synthetic ds2 showers preprocessed as
+            the loader caches them at SHOWERSCALE 0.001, the scale of
+            create_average_showers, their prior through its average_showers
+            and set_cold_prior; COLD_NOISE 0 starts at the binned average, two
+            energies in different bins start apart; 20 train steps and 128
+            showers of --steps-step DDim from the prior, K1 7 a step and a
+            denoise, K2 7 a step; one f32 denoise and one f32 cold train step
+            card against CPU within phase 4's and phase 5's tolerances); the
+            dense FCN model (SHOWER_EMBED "FCN-orig", NUM_LAYERS_LINEAR 3,
+            SHOWERMAP "logit-norm": 20 steps, 128 showers, no kernel launched,
+            the same card-vs-CPU checks); REMAT (phase 5's step with and
+            without it from phase 4's weights, the same noise and sigmas:
+            loss and gradients within phase 5's tolerances, peak allocated
+            memory below the plain step's, ms a step, K1 and K2 7 a step);
+            ConvNext (CondUnet(use_convnext=True): a denoise and a train
+            step timed, K1 7 and K2 7, f32 card vs CPU within 2e-4; under
+            QUANT_INT8 one int8 denoise, Q1 once a quantized conv, and Q1
+            bit for bit at each of its geometries with the plan it takes,
+            kernel_plan); ControlNet (ControlledUnet: a forward, K1 11, and a
+            train step with the base frozen, K2 7, timed; the f32 forward
+            card vs CPU within 2e-4)
+16. result  {"kernels": [...]} (each kernel's launches by path: generate,
             train, the cli paths, samplers, bns, variants, cascade_train,
             cascade_sample, distill_train, distill_val, distill_sample,
             ds1_photon_train, ds1_photon_sample, ds1_pion_train,
@@ -220,10 +243,13 @@ prints no result:
             hgcal_photons_sparse_sample, hgcal_glam_train, hgcal_pions_train,
             hgcal_pions_sample, evaluate_cnn_sample, optimize_train,
             optimize_sample, int8_generate, int8_cascade_sample,
-            int8_transpose; K1's and K2's "launches" sum the last six, the
-            last two slices' paths, Q1's its three; their "ds1" and "hgcal"
-            hold one U-Net call's times of each config; Q1's times are one
-            ds2 int8 denoise's 36 launches) and, last, {"ok": true,
+            int8_transpose, cold_train, cold_sample, fcn_train, fcn_sample,
+            remat_train, convnext_forward, convnext_train, convnext_int8,
+            controlnet_forward, controlnet_train; K1's and K2's "launches"
+            sum the last sixteen, the last three slices' paths, Q1's its
+            four; their "ds1" and "hgcal" hold one U-Net call's times of
+            each config; Q1's times are one ds2 int8 denoise's 36 launches,
+            its ConvNext geometries and plans apart) and, last, {"ok": true,
             "device": {...}}
 """
 
@@ -624,9 +650,10 @@ def data_shape(cfg) -> tuple:
     return tuple(cfg["SHAPE_ORIG" if "orig" in cfg.get("SHOWER_EMBED", "") else "SHAPE_PAD"][1:])
 
 
-def check_card_vs_cpu(cfg, state_dict, seed, phase="main"):
+def check_card_vs_cpu(cfg, state_dict, seed, phase="main", unet_options=None):
     """One full-width denoise in f32 on the card (kernels) and on the CPU
-    (plain versions) from the same weights and inputs."""
+    (plain versions) from the same weights and inputs; ``unet_options`` as
+    CaloDiffusion takes them."""
     from calodiffusion_tpu_torch.models.diffusion import CaloDiffusion
 
     cfg = dict(cfg, PRECISION="f32")
@@ -639,7 +666,7 @@ def check_card_vs_cpu(cfg, state_dict, seed, phase="main"):
     sigma = torch.full((2,) + (1,) * len(shape), 0.7)
     outs = []
     for dev in ("cuda", "cpu"):
-        m = CaloDiffusion(cfg, device=dev)
+        m = CaloDiffusion(cfg, device=dev, unet_options=unet_options)
         m.load_state_dict(state_dict)
         with torch.no_grad():
             outs.append(m.denoise(x.to(dev), E=E.to(dev), sigma=sigma.to(dev),
@@ -652,10 +679,14 @@ def check_card_vs_cpu(cfg, state_dict, seed, phase="main"):
     return err
 
 
-def check_train_step_card_vs_cpu(cfg, state_dict, seed, attn, phase="train"):
+def check_train_step_card_vs_cpu(cfg, state_dict, seed, attn, phase="train",
+                                 blocks=len(DS2_ATTENTION_BLOCKS), prior=None):
     """One f32 train step's loss and parameter gradients (dataset 1's
-    embed's or a trainable GLaM's among them), card against CPU; a GLaM
-    matrix's gradient must be exactly 0 wherever its mask is."""
+    embed's or a trainable GLaM's among them), card against CPU, K2
+    launched ``blocks`` times on the card; a GLaM matrix's gradient must be
+    exactly 0 wherever its mask is.  With a cold prior (``prior``: the
+    arguments of ``set_cold_prior``; ``COLD_DIFFU`` set) the noise is
+    ``gen_cold_image`` of the unit noise, as the trainer makes it."""
     from calodiffusion_tpu_torch.models.diffusion import CaloDiffusion
 
     cfg = dict(cfg, PRECISION="f32")
@@ -669,13 +700,16 @@ def check_train_step_card_vs_cpu(cfg, state_dict, seed, attn, phase="train"):
         m = CaloDiffusion(cfg, device=dev)
         m.load_state_dict(state_dict)
         k2 = attn.attention_block_backward.launches
-        loss = m.compute_loss(*(torch.from_numpy(a).to(dev) for a in (data, E)),
-                              noise=torch.from_numpy(noise).to(dev),
+        noise_d, E_d = torch.from_numpy(noise).to(dev), torch.from_numpy(E).to(dev)
+        if prior is not None:
+            noise_d = m.set_cold_prior(*prior).gen_cold_image(E_d[:, :1], cfg["COLD_NOISE"],
+                                                              noise_d)
+        loss = m.compute_loss(torch.from_numpy(data).to(dev), E_d, noise=noise_d,
                               layers=torch.from_numpy(layers).to(dev),
                               rnd_normal=torch.from_numpy(rnd).to(dev))
         loss.backward()
         launched = attn.attention_block_backward.launches - k2
-        if launched != (len(DS2_ATTENTION_BLOCKS) if dev == "cuda" else 0):
+        if launched != (blocks if dev == "cuda" else 0):
             fail(f"f32 train step on {dev} launched K2 {launched} times")
         for k in ("embeder", "decoder"):  # a trainable GLaM: masked entries get no gradient
             mat = getattr(getattr(m.net, "NN_embed", None), k, None)
@@ -697,13 +731,14 @@ def check_train_step_card_vs_cpu(cfg, state_dict, seed, attn, phase="train"):
              f"{STEP_GRAD_TOL}")
     embed = {k: v for k, v in errs.items() if k.startswith("NN_embed.")}
     worst_embed = max(embed, key=embed.get) if embed else None
+    first = "init_conv.weight" if "init_conv.weight" in errs else "in_lay.weight"  # FCN's
     print(f"{phase}: f32 step card vs CPU: loss {l_card:.6g} vs {l_cpu:.6g} ({loss_rel:.3g} "
           f"relative, tol {STEP_LOSS_RTOL}); {len(errs)} parameter gradients, worst "
-          f"{worst} {errs[worst]:.3g}, init_conv.weight {errs['init_conv.weight']:.3g}"
+          f"{worst} {errs[worst]:.3g}, {first} {errs[first]:.3g}"
           + (f", the embed's {len(embed)} worst {worst_embed} {embed[worst_embed]:.3g}"
              if embed else "") + f" (tol {STEP_GRAD_TOL})", flush=True)
     return dict(loss_rel=loss_rel, worst_grad=worst, worst_grad_err=errs[worst],
-                init_conv_weight_err=errs["init_conv.weight"], n_grads=len(errs),
+                init_conv_weight_err=errs.get("init_conv.weight"), n_grads=len(errs),
                 worst_embed_grad=worst_embed,
                 worst_embed_grad_err=embed[worst_embed] if embed else None)
 
@@ -833,6 +868,12 @@ def write_cache(path, showers, energies, cfg):
     these showers and incident energies: load_calochallenge_h5's scaling,
     preprocessing.preprocess_shower and its logE normalisation, then the
     loader's layers and SHAPE_PAD layout."""
+    E, layers, shower = preprocessed(showers, energies, cfg)
+    np.savez_compressed(path, E=E, layers=layers, showers=shower)
+
+
+def preprocessed(showers, energies, cfg):
+    """(E, layers, showers) as data/loader._preprocess_one caches them."""
     from calodiffusion_tpu_torch.utils import preprocessing
 
     scale = cfg.get("SHOWERSCALE", 200.0)  # the loader's default, as it reads it
@@ -847,8 +888,7 @@ def write_cache(path, showers, energies, cfg):
          else (e - emin) / (emax - emin))
     layers = (np.reshape(layers, (layers.shape[0], -1)) if layers is not None
               else np.zeros((shower.shape[0], 1), np.float32))
-    np.savez_compressed(path, E=E, layers=layers,
-                        showers=np.reshape(shower, cfg["SHAPE_ORIG" if orig else "SHAPE_PAD"]))
+    return E, layers, np.reshape(shower, cfg["SHAPE_ORIG" if orig else "SHAPE_PAD"])
 
 
 def make_cli_data(root: Path, name: str, seed: int, raw=None, **overrides):
@@ -3039,6 +3079,431 @@ def run_int8_phase(model, loader, args, cascade_loc, made, cli, root, q1, attn, 
                 denoise_calls=[list(map(list, c[:4])) + list(c[4:]) for c in calls]), cases, calls
 
 
+# ---------------------------------------------------------------------------
+# 15. networks: the network variants (cold diffusion, the dense FCN model,
+# REMAT, ConvNext blocks, ControlNet) at ds2's full width
+# ---------------------------------------------------------------------------
+
+NETWORK_PATHS = ("cold_train", "cold_sample", "fcn_train", "fcn_sample", "remat_train",
+                 "convnext_forward", "convnext_train", "convnext_int8", "controlnet_forward",
+                 "controlnet_train")
+NETWORK_TRAIN_STEPS = 20
+REMAT_STEPS = 3  # timed, after one warm-up step each way
+# ControlNet on ds2: K1 in the control U-Net's 3 down blocks and middle, and
+# the base's 7; with the base frozen K2 in the control's 4 and the base's 3
+# up-path blocks (the frozen base's down path and middle need no backward)
+CONTROLNET_K1, CONTROLNET_K2 = 4 + 7, 4 + 3
+
+
+def ds2_unet_kwargs(cfg) -> dict:
+    """The CondUnet arguments CaloDiffusion builds for ds2's config."""
+    return dict(cond_dim=cfg["COND_SIZE_UNET"], out_dim=1, channels=3,
+                layer_sizes=tuple(cfg["LAYER_SIZE_UNET"]), block_attn=cfg["BLOCK_ATTN"],
+                mid_attn=cfg["MID_ATTN"], cylindrical=cfg["CYLINDRICAL"],
+                compress_Z=cfg["COMPRESS_Z"], data_shape=tuple(cfg["SHAPE_FINAL"][2:]),
+                cond_embed=cfg["COND_EMBED"] == "sin", cond_size=2 + cfg["SHAPE_FINAL"][2],
+                time_embed=cfg["TIME_EMBED"] == "sin")
+
+
+def counts_reset(attn):
+    torch.cuda.synchronize()
+    attn.fused_attention_block.launches = attn.attention_block_backward.launches = 0
+
+
+def counts_read(attn) -> tuple[int, int]:
+    torch.cuda.synchronize()
+    return attn.fused_attention_block.launches, attn.attention_block_backward.launches
+
+
+def train_variant(name, cfg, batches, val, attn, card, seed, prior=None,
+                  blocks=len(DS2_ATTENTION_BLOCKS)):
+    """TrainDiffusion.train at full width: one epoch of the batches and one
+    val batch, each step's loss finite and its K1 and K2 launches ``blocks``
+    (the val batch's K1 too); with ``prior`` the cold prior is set on the
+    model first (set_cold_prior: no AVG_SHOWER_LOC file on the card).
+    Returns the results and the trained model."""
+    from unittest import mock
+
+    from calodiffusion_tpu_torch.train.trainer import TrainDiffusion
+    from calodiffusion_tpu_torch.utils.config import default_flags
+
+    recorder = Recorder(TrainDiffusion.train_step, attn)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        trainer = TrainDiffusion(default_flags(checkpoint_folder=ckpt_dir, seed=seed),
+                                 dict(cfg, MAXEPOCH=1, BATCH=BATCH),
+                                 loader_train=batches, loader_val=val)
+        trainer.init_model()
+        if prior is not None:
+            trainer.model.set_cold_prior(*prior)
+        torch.cuda.reset_peak_memory_stats()
+        counts_reset(attn)
+        t0 = time.perf_counter()
+        with mock.patch.object(TrainDiffusion, "train_step", recorder.bind()):
+            trainer.train()
+        wall = time.perf_counter() - t0
+        k1, k2 = counts_read(attn)
+    recorder.check(f"networks {name} train step", len(batches), (blocks, blocks))
+    if (k1, k2) != (blocks * (len(batches) + len(val)), blocks * len(batches)):
+        fail(f"networks {name}: train launched K1 {k1} and K2 {k2} times")
+    steps = recorder.calls
+    steady = statistics.mean(s["s"] for s in steps[1:])
+    mem = torch.cuda.max_memory_allocated() / 2**30
+    print(f"networks {name} train: {len(steps)} steps of {BATCH}, bf16, full width: first "
+          f"(cold) step {steps[0]['s']:.3f} s, steady {1e3 * steady:.2f} ms/step, "
+          f"{BATCH / steady:.1f} train samples/s on {card}; TrainDiffusion.train {wall:.2f} s; "
+          f"K1 {k1}, K2 {k2}; peak memory {mem:.2f} GiB; losses {steps[0]['loss']:.4g} .. "
+          f"{steps[-1]['loss']:.4g}", flush=True)
+    return dict(steps=len(steps), cold_step_s=steps[0]["s"], steady_step_s=steady,
+                samples_per_s=BATCH / steady, wall_s=wall, k1=k1, k2=k2,
+                max_memory_gib=mem), trainer.model
+
+
+def generate_variant(name, model, steps, attn, card, seed, blocks=len(DS2_ATTENTION_BLOCKS)):
+    """generate of one batch of 128 at ``steps``-step DDim: showers finite,
+    >= 0, (128, 6480); K1 ``blocks`` a denoise, K2 never."""
+    from unittest import mock
+
+    from calodiffusion_tpu_torch.models.diffusion import CaloDiffusion
+
+    loader = list(synthetic_loader(1, model.config["SHAPE_FINAL"][2] + 1, seed))
+    first = []
+    counts_reset(attn)
+    t0 = time.perf_counter()
+    with mock.patch.object(CaloDiffusion, "denoise",
+                           synced(CaloDiffusion.denoise, first, first_only=True)):
+        showers, _ = model.generate(loader, steps,
+                                    generator=torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2 = counts_read(attn)
+    if showers.shape != (BATCH, 6480) or not np.isfinite(showers).all() or (showers < 0).any():
+        fail(f"networks {name}: generated showers {showers.shape}, not all finite and >= 0")
+    if (k1, k2) != (blocks * steps, 0):
+        fail(f"networks {name}: generate launched K1 {k1} and K2 {k2} times, expected "
+             f"{blocks * steps} and 0")
+    sps, steady = BATCH / wall, BATCH / ((wall - first[0]) * steps / (steps - 1))
+    print(f"networks {name} sample: {BATCH} showers, {steps}-step DDim, bf16: {wall:.2f} s, "
+          f"{sps:.3f} showers/s on {card} (first, cold denoise {first[0]:.3f} s; without it "
+          f"{steady:.3f} showers/s); K1 {k1}, K2 {k2}", flush=True)
+    return dict(showers=BATCH, wall_s=wall, showers_per_s=sps,
+                showers_per_s_after_first_step=steady, first_denoise_s=first[0], k1=k1, k2=k2)
+
+
+# the cold sub-phase's synthetic ds2 showers: 4 train batches of 128
+COLD_SHOWERS = 512
+
+
+def run_cold(cfg, args, attn, card):
+    """Cold diffusion: synthetic raw ds2 showers preprocessed as the loader
+    caches them, at SHOWERSCALE 0.001 (the scale create_average_showers
+    reads, so that the log energies fill its bins over [0, 1]: the shipped
+    configs spell the key SHOWER_SCALE, and the loader's default is 200);
+    the prior from them (average_showers, set_cold_prior), its start
+    checks, 20 train steps on them and 128 showers of --steps-step DDim from
+    the prior, one f32 denoise and one f32 cold train step card against
+    CPU."""
+    from calodiffusion_tpu_torch.models.diffusion import CaloDiffusion
+    from calodiffusion_tpu_torch.tools.create_average_showers import average_showers
+
+    cold_cfg = dict(cfg, COLD_DIFFU=True, SHOWERSCALE=0.001)
+    raw, energies = raw_showers(np.random.default_rng(args.seed + 100), COLD_SHOWERS, 6480)
+    E_all, layers, showers = preprocessed(raw, energies, cold_cfg)
+    prior = average_showers(showers, E_all, cfg["DATASET_NUM"])
+    filled = int((prior[0].reshape(len(prior[0]), -1) != 0).any(1).sum())
+    m = CaloDiffusion(cold_cfg, generator=torch.Generator().manual_seed(args.seed + 100))
+    m.set_cold_prior(*prior)
+    # COLD_NOISE 0: the start is the binned average; energies in different
+    # bins (the showers' least and greatest) start apart
+    E2 = torch.tensor([[E_all.min()], [E_all.max()]], dtype=torch.float32, device="cuda")
+    noise = torch.randn((2, *m._data_shape), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(1))
+    avg, _ = m.lookup_avg_std_shower(E2)
+    if not torch.equal(m.gen_cold_image(E2, 0.0, noise), avg) or torch.equal(avg[0], avg[1]):
+        fail("networks cold: COLD_NOISE 0 does not start from the binned average, or two "
+             "energies in different bins start alike")
+    batches = [(E_all[i:i + BATCH], layers[i:i + BATCH], showers[i:i + BATCH])
+               for i in range(0, len(E_all) - BATCH + 1, BATCH)]
+    batches = (batches * NETWORK_TRAIN_STEPS)[:NETWORK_TRAIN_STEPS]
+    print(f"networks cold: prior of {len(E_all)} synthetic ds2 showers, {len(prior[2])} "
+          f"energy bins ({filled} filled), log energies {E_all.min():.3f} .. "
+          f"{E_all.max():.3f}; COLD_NOISE {cold_cfg['COLD_NOISE']}", flush=True)
+    train, model = train_variant("cold", cold_cfg, batches, batches[:1], attn, card,
+                                 args.seed + 101, prior=prior)
+    sample = generate_variant("cold", model, args.steps, attn, card, args.seed + 102)
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    denoise_err = check_card_vs_cpu(cold_cfg, state, args.seed + 103, phase="networks cold")
+    step = check_train_step_card_vs_cpu(cold_cfg, state, args.seed + 104, attn,
+                                        phase="networks cold", prior=prior)
+    return dict(prior_showers=len(E_all), bins=len(prior[2]), filled_bins=filled, train=train,
+                sample=sample, card_vs_cpu_denoise=denoise_err, card_vs_cpu_step=step)
+
+
+def run_fcn(cfg, args, attn, card):
+    """The dense FCN shower model ("FCN-orig", NUM_LAYERS_LINEAR 3, hidden
+    512; SHOWERMAP "logit-norm", as the inverse preprocessing of flat ds2
+    showers fails with layers in both packages): 20 train steps, 128
+    showers of --steps-step DDim, no kernel launched; f32 card against CPU."""
+    fcn_cfg = dict(cfg, SHOWER_EMBED="FCN-orig", NUM_LAYERS_LINEAR=3, SHOWERMAP="logit-norm")
+    n_layers = cfg["SHAPE_FINAL"][2] + 1
+    batches = [synthetic_batch(BATCH, n_layers, args.seed + 110 + i, (6480,))
+               for i in range(NETWORK_TRAIN_STEPS)]
+    train, model = train_variant("fcn", fcn_cfg, batches, batches[:1], attn, card,
+                                 args.seed + 111, blocks=0)
+    sample = generate_variant("fcn", model, args.steps, attn, card, args.seed + 112, blocks=0)
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    denoise_err = check_card_vs_cpu(fcn_cfg, state, args.seed + 113, phase="networks fcn")
+    step = check_train_step_card_vs_cpu(fcn_cfg, state, args.seed + 114, attn,
+                                        phase="networks fcn", blocks=0)
+    return dict(train=train, sample=sample, card_vs_cpu_denoise=denoise_err,
+                card_vs_cpu_step=step)
+
+
+def run_remat(cfg, state_dict, args, attn, card):
+    """Phase 5's ds2 step at batch 128, bf16, with REMAT and without, from
+    the same weights, batch, noise and sigmas: the loss and every gradient
+    agree within phase 5's step tolerances; each way's peak allocated memory
+    (reset before its first timed step) and its ms a step (forward, loss and
+    backward; after one warm-up step); K1 and K2 7 a step both ways."""
+    from calodiffusion_tpu_torch.models.diffusion import CaloDiffusion
+
+    n = len(DS2_ATTENTION_BLOCKS)
+    E, layers, data = (torch.from_numpy(a).cuda() for a in
+                       synthetic_batch(BATCH, cfg["SHAPE_FINAL"][2] + 1, args.seed + 120))
+    rng = np.random.default_rng(args.seed + 121)
+    noise = torch.from_numpy(rng.standard_normal(data.shape).astype(np.float32)).cuda()
+    rnd = torch.from_numpy(rng.standard_normal(BATCH).astype(np.float32)).cuda()
+    ways = {}
+    for remat in (False, True):
+        m = CaloDiffusion(dict(cfg, REMAT=remat))
+        m.load_state_dict(state_dict)
+        params = list(m.parameters())
+
+        def step():
+            for p in params:
+                p.grad = None
+            loss = m.compute_loss(data, E, noise=noise, layers=layers, rnd_normal=rnd)
+            loss.backward()
+            return loss
+
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        counts_reset(attn)
+        times = []
+        for _ in range(REMAT_STEPS):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            loss = step()
+            t1.record()
+            t1.synchronize()
+            times.append(t0.elapsed_time(t1))
+        k1, k2 = counts_read(attn)
+        if (k1, k2) != (n * REMAT_STEPS, n * REMAT_STEPS):
+            fail(f"networks remat={remat}: {REMAT_STEPS} steps launched K1 {k1} and K2 {k2} "
+                 f"times")
+        ways[remat] = dict(loss=loss.item(), grads={k: p.grad.detach().double()
+                                                    for k, p in m.named_parameters()},
+                           peak_gib=(torch.cuda.max_memory_allocated() - base) / 2**30,
+                           step_ms=statistics.median(times), k1=k1, k2=k2)
+        del m, params
+    plain, remat = ways[False], ways[True]
+    loss_rel = abs(remat["loss"] - plain["loss"]) / abs(plain["loss"])
+    G = max(g.abs().max().item() for g in plain["grads"].values())
+    errs = {k: ((remat["grads"][k] - g).abs().max() / (g.abs().max() + 1e-3 * G)).item()
+            for k, g in plain["grads"].items()}
+    worst = max(errs, key=errs.get)
+    if loss_rel > STEP_LOSS_RTOL or errs[worst] > STEP_GRAD_TOL:
+        fail(f"networks remat: loss {loss_rel:.3g} relative, gradient {worst} {errs[worst]:.3g} "
+             f"from the plain step's")
+    if not remat["peak_gib"] < plain["peak_gib"]:
+        fail(f"networks remat: peak memory {remat['peak_gib']:.3f} GiB, not below the plain "
+             f"step's {plain['peak_gib']:.3f}")
+    print(f"networks remat: ds2 step, batch {BATCH}, bf16: peak allocated above the weights "
+          f"{remat['peak_gib']:.3f} GiB with REMAT against {plain['peak_gib']:.3f} without; "
+          f"{remat['step_ms']:.2f} ms a step against {plain['step_ms']:.2f} on {card}; loss "
+          f"{loss_rel:.3g} relative, worst gradient {worst} {errs[worst]:.3g} (tol "
+          f"{STEP_LOSS_RTOL}, {STEP_GRAD_TOL}); K1 {remat['k1']}, K2 {remat['k2']} over "
+          f"{REMAT_STEPS} steps", flush=True)
+    return dict(peak_gib=remat["peak_gib"], plain_peak_gib=plain["peak_gib"],
+                step_ms=remat["step_ms"], plain_step_ms=plain["step_ms"], loss_rel=loss_rel,
+                worst_grad=worst, worst_grad_err=errs[worst], k1=remat["k1"], k2=remat["k2"])
+
+
+def run_convnext(cfg, args, attn, q1, nn_modules, card):
+    """CondUnet(use_convnext=True) at ds2's widths (CaloDiffusion's
+    unet_options), bf16: a denoise of 128 (K1 7) and a train step (K2 7),
+    timed; f32 card against CPU; then under QUANT_INT8 its calibration and
+    one int8 denoise (Q1 once a quantized conv, the plain version never),
+    and Q1 against its plain version bit for bit at each of its geometries
+    with the plan it takes."""
+    from calodiffusion_tpu_torch.models.diffusion import CaloDiffusion
+
+    n = len(DS2_ATTENTION_BLOCKS)
+    opts = dict(use_convnext=True)
+    m = CaloDiffusion(cfg, generator=torch.Generator().manual_seed(args.seed + 130),
+                      unet_options=opts)
+    E, layers, data = (torch.from_numpy(a).cuda() for a in
+                       synthetic_batch(BATCH, cfg["SHAPE_FINAL"][2] + 1, args.seed + 131))
+    sigma = torch.full((BATCH, 1, 1, 1, 1), 0.7, device="cuda")
+
+    def forward():
+        with torch.no_grad():
+            return m.denoise(data, E=E, sigma=sigma, layers=layers)
+
+    def train_step():
+        for p in m.parameters():
+            p.grad = None
+        loss = m.compute_loss(data, E, layers=layers)
+        loss.backward()
+        return loss
+
+    counts_reset(attn)
+    out = forward()
+    fwd = counts_read(attn)
+    counts_reset(attn)
+    loss = train_step()
+    stp = counts_read(attn)
+    if fwd != (n, 0) or stp != (n, n) or not torch.isfinite(out).all() or \
+            not np.isfinite(loss.item()):
+        fail(f"networks convnext: a forward launched K1/K2 {fwd}, a step {stp}; expected "
+             f"({n}, 0) and ({n}, {n}); finite {bool(torch.isfinite(out).all())}")
+    fwd_ms, step_ms = time_ms(forward, reps=10), time_ms(train_step, warmup=1, reps=5)
+    state = {k: v.detach().cpu() for k, v in m.state_dict().items()}
+    print(f"networks convnext: ds2 widths, bf16, batch {BATCH}: a denoise {fwd_ms:.2f} ms, a "
+          f"train step {step_ms:.2f} ms on {card}; K1 {fwd[0]} a denoise, K1/K2 {stp} a step",
+          flush=True)
+    denoise_err = check_card_vs_cpu(cfg, state, args.seed + 132, phase="networks convnext",
+                                    unet_options=opts)
+
+    # int8: the calibration, one denoise under int8_scope, its Q1 geometries
+    mq = CaloDiffusion(dict(cfg, QUANT_INT8=True), unet_options=opts)
+    mq.load_state_dict(state)
+    table = mq.prepare_int8(E=E[:64], layers=layers[:64],
+                            generator=torch.Generator(device="cuda").manual_seed(args.seed))
+    if set(table) != set(mq.quantizable_convs()):
+        fail(f"networks convnext int8: {len(table)} scales for "
+             f"{len(mq.quantizable_convs())} quantizable convs")
+    with Int8Counts(q1, attn) as counts:
+        calls = q1_calls_of_a_denoise(mq, E, layers, q1, nn_modules)
+    got = counts.read()
+    if got != dict(q1=len(table), plain=0, k1=n, k2=0):
+        fail(f"networks convnext int8: one denoise launched {got}, expected Q1 {len(table)}, "
+             f"plain 0, K1 {n}")
+    geometries = list(dict.fromkeys(calls))
+    lib = q1.KERNEL.library(torch.empty(1, dtype=torch.bfloat16, device="cuda"))
+    plans = []
+    for x_shape, w_shape, stride, pad, cyl, _ in geometries:
+        plan = q1.kernel_plan(lib, x_shape, w_shape, stride, pad, cyl)
+        plans.append(dict(x=list(x_shape), w=list(w_shape), **plan))
+        print(f"networks convnext int8: Q1 x {x_shape} w {w_shape} stride {stride}: plan "
+              f"{plan['mode']}, {plan['NT']}-channel tiles, {128 * plan['MW']} rows a CTA, "
+              f"{plan['smem_bytes']} B of shared memory", flush=True)
+    cases = check_q1(q1, geometries)
+    print(f"networks convnext int8: {len(table)} scales; one denoise launched Q1 {got['q1']} "
+          f"times ({len(geometries)} geometries, {sum(p['mode'] == 'stream' for p in plans)} "
+          f"streamed), K1 {got['k1']}, the plain version {got['plain']}", flush=True)
+    return dict(forward_ms=fwd_ms, step_ms=step_ms, k1_forward=fwd[0], k1_train=stp[0],
+                k2_train=stp[1], card_vs_cpu_denoise=denoise_err, int8_scales=len(table),
+                int8=got, q1_plans=plans, q1_cases=cases)
+
+
+def run_controlnet(cfg, args, attn, card):
+    """ControlledUnet at ds2's widths, bf16, batch 128: a forward (K1 11)
+    and a train step with the base frozen (K2 7), timed; the f32 forward
+    card against CPU within 2e-4."""
+    from calodiffusion_tpu_torch.models.controlnet import ControlledUnet, freeze_base
+
+    kw = ds2_unet_kwargs(cfg)
+    net = ControlledUnet(kw, dtype=torch.bfloat16,
+                         generator=torch.Generator().manual_seed(args.seed + 140)).cuda()
+    trained = freeze_base(net)
+    state = {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+    rng = np.random.default_rng(args.seed + 141)
+
+    def inputs(batch, dev):
+        x = rng.standard_normal((batch, 3, *kw["data_shape"])).astype(np.float32)
+        xc = rng.standard_normal((batch, 3, *kw["data_shape"])).astype(np.float32)
+        c = rng.uniform(0, 1, (batch, kw["cond_size"])).astype(np.float32)
+        t = rng.uniform(-2, 1, (batch,)).astype(np.float32)
+        return [torch.from_numpy(a).to(dev) for a in (x, xc, c, t)]
+
+    args_b = inputs(BATCH, "cuda")
+    opt = torch.optim.Adam([p for p in net.parameters() if p.requires_grad], lr=1e-4)
+
+    def forward():
+        with torch.no_grad():
+            return net(*args_b)
+
+    def train_step():
+        opt.zero_grad(set_to_none=True)
+        loss = net(*args_b).square().mean()
+        loss.backward()
+        opt.step()
+        return loss
+
+    counts_reset(attn)
+    out = forward()
+    fwd = counts_read(attn)
+    counts_reset(attn)
+    loss = train_step()
+    stp = counts_read(attn)
+    frozen_grads = sum(p.grad is not None for k, p in net.named_parameters()
+                       if k.startswith("model."))
+    if fwd != (CONTROLNET_K1, 0) or stp != (CONTROLNET_K1, CONTROLNET_K2) or frozen_grads or \
+            not torch.isfinite(out).all() or not np.isfinite(loss.item()):
+        fail(f"networks controlnet: a forward launched K1/K2 {fwd}, a step {stp}, expected "
+             f"({CONTROLNET_K1}, 0) and ({CONTROLNET_K1}, {CONTROLNET_K2}); {frozen_grads} "
+             f"frozen parameters took a gradient")
+    fwd_ms, step_ms = time_ms(forward, reps=10), time_ms(train_step, warmup=1, reps=5)
+
+    outs, x2 = [], inputs(2, "cpu")
+    for dev in ("cuda", "cpu"):
+        m = ControlledUnet(kw).to(dev)
+        m.load_state_dict(state)
+        with torch.no_grad():
+            outs.append(m(*(a.to(dev) for a in x2)).cpu())
+    err = (outs[0] - outs[1]).abs().max().item()
+    if not err <= 2e-4:
+        fail(f"networks controlnet: f32 forward card vs CPU {err:.3g} > 2e-4")
+    print(f"networks controlnet: ds2 widths, bf16, batch {BATCH}: a forward {fwd_ms:.2f} ms, a "
+          f"train step (base frozen, {len(trained)} trained tensors) {step_ms:.2f} ms on "
+          f"{card}; K1/K2 {fwd} a forward, {stp} a step; f32 forward card vs CPU max_abs_err "
+          f"{err:.3g} (tol 2e-4)", flush=True)
+    return dict(forward_ms=fwd_ms, step_ms=step_ms, k1_forward=fwd[0], k1_train=stp[0],
+                k2_train=stp[1], trained_tensors=len(trained), card_vs_cpu=err)
+
+
+def run_networks_phase(cfg, state_dict, args, attn, q1, nn_modules, card):
+    """Phase 15: cold, fcn, remat, convnext and controlnet at ds2's full
+    width; returns the results and each path's launches."""
+    res = {}
+    for name, run in (("cold", lambda: run_cold(cfg, args, attn, card)),
+                      ("fcn", lambda: run_fcn(cfg, args, attn, card)),
+                      ("remat", lambda: run_remat(cfg, state_dict, args, attn, card)),
+                      ("convnext", lambda: run_convnext(cfg, args, attn, q1, nn_modules, card)),
+                      ("controlnet", lambda: run_controlnet(cfg, args, attn, card))):
+        t0 = time.perf_counter()
+        res[name] = run()
+        res[name]["wall_s"] = time.perf_counter() - t0
+        print(f"networks {name}: {res[name]['wall_s']:.1f} s", flush=True)
+    paths = {
+        "cold_train": (res["cold"]["train"]["k1"], res["cold"]["train"]["k2"]),
+        "cold_sample": (res["cold"]["sample"]["k1"], res["cold"]["sample"]["k2"]),
+        "fcn_train": (res["fcn"]["train"]["k1"], res["fcn"]["train"]["k2"]),
+        "fcn_sample": (res["fcn"]["sample"]["k1"], res["fcn"]["sample"]["k2"]),
+        "remat_train": (res["remat"]["k1"], res["remat"]["k2"]),
+        "convnext_forward": (res["convnext"]["k1_forward"], 0),
+        "convnext_train": (res["convnext"]["k1_train"], res["convnext"]["k2_train"]),
+        "convnext_int8": (res["convnext"]["int8"]["k1"], res["convnext"]["int8"]["k2"]),
+        "controlnet_forward": (res["controlnet"]["k1_forward"], 0),
+        "controlnet_train": (res["controlnet"]["k1_train"], res["controlnet"]["k2_train"]),
+    }
+    q1_cases = res["convnext"].pop("q1_cases")
+    return res, paths, q1_cases
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batches", type=int, default=2)
@@ -3198,9 +3663,15 @@ def main() -> None:
     int8, q1_cases, q1_calls = run_int8_phase(model, loader, args, cascade["checkpoint"], made,
                                               cli, root, q1, attn, nn_modules, card, bf16_sps)
     print(f"int8: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 15. networks, from phase 4's weights
+    t0 = time.perf_counter()
+    networks, network_paths, q1_net_cases = run_networks_phase(
+        cfg, model.state_dict(), args, attn, q1, nn_modules, card)
+    print(f"networks: {time.perf_counter() - t0:.1f} s", flush=True)
     tmp.cleanup()
 
-    # 15. result
+    # 16. result
     launches = {"fused_attention_block": (gen_launches[0], train["k1"]),
                 "attention_block_backward": (gen_launches[1], train["k2"])}
     kernels = []
@@ -3236,11 +3707,13 @@ def main() -> None:
             "int8_cascade_sample": int8["cascade"][key],
             "int8_transpose": int8["generate"]["transpose"][key],
         })
+        by_path.update({p: network_paths[p][0 if key == "k1" else 1] for p in NETWORK_PATHS})
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            # launches on the last two slices' paths: CNNCompare's sampling,
-            # the optimize trial's training and sampling, the int8 paths
-            launches=sum(by_path[k] for k in EVALUATE_PATHS + INT8_PATHS),
+            # launches on the last three slices' paths: CNNCompare's sampling,
+            # the optimize trial's training and sampling, the int8 paths, the
+            # network variants'
+            launches=sum(by_path[k] for k in EVALUATE_PATHS + INT8_PATHS + NETWORK_PATHS),
             launches_by_path=by_path,
             max_abs_err=max(c["max_abs_err"] for c in bf16),
             # times of the 7 launches of one ds2 U-Net call, B=128, bf16
@@ -3298,11 +3771,13 @@ def main() -> None:
     main_calls = [c for c in q1_calls if c[5] == "conv"]
     q1_paths = {"int8_generate": int8["generate"]["q1"],
                 "int8_cascade_sample": int8["cascade"]["q1"],
-                "int8_transpose": int8["generate"]["transpose"]["q1"]}
+                "int8_transpose": int8["generate"]["transpose"]["q1"],
+                "convnext_int8": networks["convnext"]["int8"]["q1"]}
     kernels.append(dict(
         name="int8_conv3d", route="cuda", source=SOURCES["int8_conv3d"],
         replaces=REPLACES["int8_conv3d"], launches=sum(q1_paths.values()),
-        launches_by_path=q1_paths, max_abs_err=max(c["max_abs_err"] for c in q1_bf16),
+        launches_by_path=q1_paths,
+        max_abs_err=max(c["max_abs_err"] for c in q1_bf16 + q1_net_cases),
         **{name: per_denoise(q1_cases, main_calls, key) for name, key in (
             ("ms", "kernel_ms"), ("plain_ms", "plain_ms"), ("device_ms", "device_ms"),
             ("bound_ms", "bound_ms"), ("library_ms", "library_ms"))},
@@ -3311,6 +3786,8 @@ def main() -> None:
         # convolution Q1 stands in for, not the same function
         library="torch.nn.functional.conv3d (cuDNN, bf16)",
         launches_per_call=INT8_CONVS, igmma_instructions=igmma, cases=q1_cases,
+        # and at the ConvNext U-Net's geometries (phase 15), with their plans
+        convnext_cases=q1_net_cases, convnext_plans=networks["convnext"]["q1_plans"],
     ))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"train": {k: v for k, v in train.items() if k != "steps"},
@@ -3319,7 +3796,8 @@ def main() -> None:
                       "card_vs_cpu_step": step_check, "cli": cli, "variants": var_results,
                       "samplers": zoo, "samplers_card_vs_cpu": zoo_cpu, "bns": bns,
                       "cascade": cascade, "distill": distill, "ds1": ds1, "hgcal": hgcal,
-                      "evaluate": evaluation, "int8": int8, "card": card}),
+                      "evaluate": evaluation, "int8": int8, "networks": networks,
+                      "card": card}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1437,6 +1437,37 @@ def test_int8_conv3d_plans_match_plain(libs, monkeypatch, B, Cin, Cout, spatial,
             assert torch.equal(got, want), (plan, (got.float() - want.float()).abs().max())
 
 
+# (x shape, w shape, stride, padding, the mode Q1 picks on a card of 3
+# SMs): a 3x3x3 level, a 1x1x1 residual (no halo: the window reads as many
+# rows as the gather), the stride-2 downsample, and a 3x3x3 whose weights
+# (64 x 27 x 192 bytes) cannot stay resident
+Q1_PLAN_QUERIES = [
+    ((2, 32, 5, 8, 6), (32, 32, 3, 3, 3), 1, 1, "window"),
+    ((2, 32, 5, 8, 6), (64, 32, 1, 1, 1), 1, 0, "gather"),
+    ((1, 32, 5, 8, 6), (32, 32, 3, 4, 4), (2, 2, 2), 1, "gather"),
+    ((1, 192, 3, 4, 3), (64, 192, 3, 3, 3), 1, 1, "stream"),
+]
+
+
+@pytest.mark.parametrize("x_shape,w_shape,stride,padding,mode", Q1_PLAN_QUERIES)
+def test_int8_conv3d_plan_query_names_the_plan_it_launches(libs, monkeypatch, x_shape, w_shape,
+                                                           stride, padding, mode):
+    """Q1's plan entry (nothing launched) names the mode its launch takes
+    by shape; a forced mode is echoed; each mode it names launches and
+    equals the plain version bit for bit."""
+    monkeypatch.setenv("CALO_EMU_SMS", "3")
+    lib = libs[_job(tq1, torch.float32)]
+    plan = tq1.kernel_plan(lib, x_shape, w_shape, stride, padding, True)
+    assert plan["mode"] == mode and plan["smem_bytes"] <= 232448, plan
+    assert tq1.kernel_plan(lib, x_shape, w_shape, stride, padding, True, plan="stream")["mode"] \
+        == "stream"
+    x, wq, scale, bias, inv = _q1_args(x_shape[0], x_shape[1], w_shape[0], x_shape[2:],
+                                       w_shape[2:], torch.float32, seed=5)
+    got = tq1.launch(lib, x, wq, scale, bias, inv, stride, padding, True, plan=mode)
+    assert torch.equal(got, tq1.int8_conv3d_reference(x, wq, scale, bias, inv, stride, padding,
+                                                      True))
+
+
 @pytest.mark.parametrize("cyl", [True, False], ids=["phi_wrap", "zero_pad"])
 @pytest.mark.parametrize("layout", ["ncdhw", "channels_last"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)

@@ -164,11 +164,33 @@ def test_shipped_configs_build_with_the_embed(xmls, part, monkeypatch):
 
 
 def test_pre_embed_and_other_embeds_raise(xmls):
-    """FCN is not ported (M11); a pre-embed without HGCAL is refused with a
-    message, where the JAX package fails too (its model at the orig layout,
-    its loader unpickling the binning XML as an HGCal geometry)."""
-    with pytest.raises(NotImplementedError, match="M11"):
-        CaloDiffusion(ds1_config("photon", xmls["photon"], SHOWER_EMBED="FCN"), device="cpu")
+    """The dense FCN model (M11) builds on flat showers ("orig-FCN") and
+    denoises as the JAX package, within 2e-4; "FCN" without "orig" is
+    refused naming "orig", where the JAX package's denoise returns a wrongly
+    shaped output (its Dense layers act on SHAPE_PAD's last axis, so the
+    conditioning broadcasts against the batch).  A pre-embed without HGCAL is refused with a message, where
+    the JAX package fails too (its model at the orig layout, its loader
+    unpickling the binning XML as an HGCal geometry)."""
+    cfg = ds1_config("photon", xmls["photon"], SHOWER_EMBED="orig-FCN", NUM_LAYERS_LINEAR=3)
+    jm = JaxModel(dict(cfg), n_steps=10)
+    params = random_params(jax.eval_shape(jm.init, jax.random.PRNGKey(0)), seed=3)
+    tm = CaloDiffusion(dict(cfg), n_steps=10, device="cpu")
+    tm.load_state_dict(params_to_state_dict(params, cfg))
+    x, E, layers = _batch(cfg, 2, seed=4)
+    sig = np.full((2, 1), 0.7, np.float32)
+    want = np.asarray(jm.denoise(params, x, E=E, sigma=sig, layers=layers))
+    with torch.no_grad():
+        got = tm.denoise(torch.from_numpy(x), E=torch.from_numpy(E), sigma=torch.from_numpy(sig),
+                         layers=torch.from_numpy(layers))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-4)
+    cfg = ds1_config("photon", xmls["photon"], SHOWER_EMBED="FCN", NUM_LAYERS_LINEAR=3)
+    with pytest.raises(ValueError, match="orig"):
+        CaloDiffusion(dict(cfg), device="cpu")
+    jm = JaxModel(dict(cfg), n_steps=10)
+    x = np.zeros((2, *jm._data_shape), np.float32)  # SHAPE_PAD (2, 1, 368)
+    out = jax.eval_shape(lambda p: jm.denoise(p, x, E=E, sigma=np.full((2, 1, 1), 0.7, np.float32),
+                                              layers=layers), jm.init(jax.random.PRNGKey(0)))
+    assert out.shape == (2, 2, 368) != x.shape  # the conditioning broadcasts over the batch
     for embed in ("orig-pre-embed", "NN-pre-embed"):
         cfg = ds1_config("photon", xmls["photon"], SHOWER_EMBED=embed, FILES=[], VAL_FILES=[])
         with pytest.raises(ValueError, match="needs HGCAL"):

@@ -150,7 +150,26 @@ def test_generate_end_to_end_on_cpu(pair):
     torch.testing.assert_close(chunked, whole, rtol=0, atol=1e-5)
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(pair):
+    # M11's options build in both packages: COLD_DIFFU, REMAT, "FCN-orig";
+    # a REMAT U-Net from the pair's weights denoises as the JAX package does
+    # (remat changes no value; 2e-4)
+    cfg, jm, params, _ = pair
+    for kw in (dict(COLD_DIFFU=True), dict(REMAT=True),
+               dict(SHOWER_EMBED="FCN-orig", NUM_LAYERS_LINEAR=3)):
+        JaxModel(_cfg(**kw), n_steps=10)
+        CaloDiffusion(_cfg(**kw), n_steps=10, device="cpu")
+    tm = CaloDiffusion(_cfg(REMAT=True), n_steps=10, device="cpu")
+    tm.load_state_dict(params_to_state_dict(params, cfg))
+    assert tm.net.unet.remat
+    x, E, layers = fake_batch(cfg, batch=2, seed=1)
+    sig = np.full((2, 1, 1, 1, 1), 0.7, np.float32)
+    want = np.asarray(jax.jit(
+        lambda p, x, E, s, lay: jm.denoise(p, x, E=E, sigma=s, layers=lay)
+    )(params, x, E, sig, layers))
+    got = tm.denoise(torch.from_numpy(x), E=torch.from_numpy(E),
+                     sigma=torch.from_numpy(sig), layers=torch.from_numpy(layers))
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=0, atol=DENOISE_ATOL)
     # the in-model embeds are ported: without their geometry file (BIN_FILE
     # "") both packages raise where they read it
     for kw in (dict(SHOWER_EMBED="NN"), dict(HGCAL=True)):
