@@ -9,8 +9,10 @@ slices ``<file>.hdf5.s<start>...``).
 
 Batching is a synchronous numpy iterator; the trainer moves each batch to
 the card.  With a ``torch.distributed`` process group initialised, each
-rank reads its share of the files (the JAX package shards by
-``jax.process_index()``).  ``h5py`` is imported only where an h5 file is
+node reads its share of the files (the JAX package shards by
+``jax.process_index()``, one process a host): the ranks of one node read
+the same batches, and the trainer splits each over them, as JAX splits a
+process's batch over its devices.  ``h5py`` is imported only where an h5 file is
 opened: with every cache present and ``nevts`` -1, loading never needs it.
 
 HGCal files (``HGCAL``) go through ``hgcal_utils.load_hgcal_h5`` (the
@@ -193,13 +195,11 @@ def _preprocess_one(
 
 
 def _process_rank() -> tuple[int, int]:
-    """(rank, world size) of the ``torch.distributed`` process group, else
-    (0, 1)."""
-    import torch.distributed as dist
+    """(node index, node count) of the ``torch.distributed`` process group
+    (``parallel/mesh.process_index``), else (0, 1)."""
+    from calodiffusion_tpu_torch.parallel.mesh import process_index
 
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
+    return process_index()
 
 
 def load_data(flags, config: dict, eval: bool = False, device=None):

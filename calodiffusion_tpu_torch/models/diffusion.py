@@ -40,6 +40,7 @@ from calodiffusion_tpu_torch.models.hgcal_converter import HGCalConverterModule
 from calodiffusion_tpu_torch.models.losses import get_loss
 from calodiffusion_tpu_torch.models.nn_modules import CondUnet, ResNetDense, quantizable_convs
 from calodiffusion_tpu_torch.ops import quant
+from calodiffusion_tpu_torch.parallel import mesh as mesh_lib
 from calodiffusion_tpu_torch.samplers import schedules
 from calodiffusion_tpu_torch.samplers.base import randn
 from calodiffusion_tpu_torch.utils import hgcal_utils, preprocessing
@@ -210,6 +211,8 @@ class CaloDiffusion:
             unet_kwargs, self.layer_cond, rz_images, self.dtype, generator,
             phi_image=phi_image, nn_embed=nn_embed, fully_connected=self.fully_connected,
         ).to(self.device).eval()
+        # the module denoise calls: net, or a trainer's DDP wrapper of it
+        self.forward_net: nn.Module = self.net
         self._int8_scales: Optional[dict] = None  # {flax path: activation scale}
         # the cold-diffusion prior (init_cold_diffu / set_cold_prior)
         self._avg_showers = self._std_showers = self._E_bins = None
@@ -303,7 +306,7 @@ class CaloDiffusion:
         in/skip/out scalings (reference calodiffusion.py:154-169)."""
         t_emb = self.do_time_embed(sigma.reshape(-1))
         scales = self.loss_function.get_scaling(sigma)
-        pred = self.net(x * scales["c_in"], E, t_emb, layers)
+        pred = self.forward_net(x * scales["c_in"], E, t_emb, layers)
 
         name = self.training_objective
         if "noise_pred" in name:
@@ -437,8 +440,14 @@ class CaloDiffusion:
     @torch.inference_mode()
     def sample(self, energy, layers=None, num_steps: int = 400,
                generator: Optional[torch.Generator] = None,
-               sample_offset: int = 0, debug: bool = False, sampler=None):
+               sample_offset: int = 0, debug: bool = False, sampler=None, mesh=None):
         """Generate one batch of showers (reference diffusion.py:77-104).
+
+        With a ``parallel/mesh.py`` ``mesh``, ``energy`` and ``layers`` are
+        the global batch's and each rank samples and returns its rows
+        (``mesh.row_range``), from its rows of the global start noise and of
+        every later draw or injected noise table (``mesh.row_draws``): the
+        ranks' rows, concatenated, are one process's sample.
 
         Batches above ``SAMPLE_MICROBATCH`` (default 128) that it divides
         run as sequential microbatches of that size.  With ``QUANT_INT8``
@@ -447,6 +456,11 @@ class CaloDiffusion:
         noise, before the microbatches (JAX diffusion.py:490-503)."""
         if sampler is None:
             sampler = self.make_sampler()
+        if mesh is not None:
+            lo, hi = mesh_lib.row_range(mesh, energy.shape[0])
+            with mesh_lib.row_draws(mesh, hi - lo):
+                return self.sample(energy[lo:hi], None if layers is None else layers[lo:hi],
+                                   num_steps, generator, sample_offset, debug, sampler)
         B = energy.shape[0]
         start = randn((B, *self._data_shape), generator, self.device)
         if self.config.get("COLD_DIFFU", False) and self.has_cold_prior():
@@ -472,10 +486,13 @@ class CaloDiffusion:
                  sample_offset: int = 0, sampler=None,
                  debug: bool = False, roundtrip: bool = False,
                  sparse_decoding: bool = False, sparse_per_batch: bool = False,
-                 rng: Optional[np.random.Generator] = None) -> tuple[Any, Any]:
+                 rng: Optional[np.random.Generator] = None, mesh=None) -> tuple[Any, Any]:
         """Sample every ``(E, layers, batch)`` of ``data_loader`` and invert
         the preprocessing (reference diffusion.py:118-197).  Returns numpy
-        (showers of SHAPE_ORIG, energies).  With ``debug`` the first batch's
+        (showers of SHAPE_ORIG, energies).  With a ``mesh`` each rank samples
+        and inverts its rows of every batch (``sample``'s split) and returns
+        them: with one batch the ranks' outputs, concatenated, are one
+        process's.  With ``debug`` the first batch's
         reverse trajectory is plotted against the loader's showers
         (``_debug_sample_plot``).  ``roundtrip`` samples nothing: the
         loader's own showers pass through the embed's encode and decode
@@ -498,12 +515,15 @@ class CaloDiffusion:
                    if self.layer_cond else None)
             if i == 0 and self.int8_sampling_enabled() and self._int8_scales is None:
                 self.prepare_int8(E=E_t, layers=lay, generator=generator)
+            lo, hi = mesh_lib.row_range(mesh, len(E_t))
+            E, layers_ = np.asarray(E)[lo:hi], (None if layers_ is None
+                                                else np.asarray(layers_)[lo:hi])
             if roundtrip:
-                out = self.embed_roundtrip(d_batch)
+                out = self.embed_roundtrip(np.asarray(d_batch)[lo:hi])
             else:
                 out = self.sample(E_t, layers=lay, num_steps=sample_steps,
                                   generator=generator, sample_offset=sample_offset,
-                                  sampler=sampler, debug=debug)
+                                  sampler=sampler, debug=debug, mesh=mesh)
             if debug and not roundtrip:
                 out, xs, x0s = out
                 if i == 0 and xs is not None:  # some samplers expose no trajectory

@@ -25,8 +25,8 @@ and ``generate`` decodes each batch (the pre-embed's converter built once,
 dense or sparse).  With ``QUANT_INT8`` stage 2 runs the U-Net's convs in
 int8, calibrated on the base U-Net alone (the layer net has no
 convolutions); ``generate`` calibrates on the true layers and a stage-1
-sample.  Not ported yet: the network variants (ROADMAP M11);
-``CaloDiffusion`` refuses their configs.
+sample.  With a ``parallel/mesh.py`` mesh, ``sample`` and ``generate`` run
+both stages on this rank's rows of each batch, as ``CaloDiffusion``'s do.
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ import torch
 
 from calodiffusion_tpu_torch.models.diffusion import CaloDiffusion
 from calodiffusion_tpu_torch.models.nn_modules import ResNetDense
+from calodiffusion_tpu_torch.parallel import mesh as mesh_lib
 from calodiffusion_tpu_torch.samplers.base import randn
 
 BASE, LAYER, WHITEN = "base_model.", "layer_model.", "layer_model.whiten."
@@ -82,6 +83,7 @@ class LayerDiffusion(CaloDiffusion):
             dim_in=c["SHAPE_FINAL"][2] + 1, num_layers=5, cond_size=3 if self.hgcal else 1,
             generator=generator,
         ).to(self.device).eval()
+        self.layer_forward_net = self.layer_net  # or a trainer's DDP wrapper of it
         self.whiten: Optional[dict] = None  # {"mean", "std"} f32 (dim,) buffers
 
     def set_layer_state(self, is_layer: bool = False):
@@ -152,7 +154,7 @@ class LayerDiffusion(CaloDiffusion):
         :109-112 with the shared scalings, calodiffusion.py:154-169)."""
         t_emb = self.do_time_embed(sigma.reshape(-1))
         scales = self.loss_function.get_scaling(sigma)
-        pred = self.layer_net(x * scales["c_in"], cond=E, time=t_emb)
+        pred = self.layer_forward_net(x * scales["c_in"], cond=E, time=t_emb)
         name = self.training_objective
         if "noise_pred" in name:
             return x - sigma * pred
@@ -211,16 +213,29 @@ class LayerDiffusion(CaloDiffusion):
     def sample(self, energy, layers=None, num_steps: int = 400,
                generator: Optional[torch.Generator] = None, sample_offset: int = 0,
                debug: bool = False, sampler=None, return_layers: bool = False,
-               start=None, layer_start=None) -> dict:
+               start=None, layer_start=None, mesh=None) -> dict:
         """Two-stage sampling of one batch (reference layerdiffusion.py
         :130-163): ``{"x": showers}`` (with ``"xs"``, ``"x0s"`` under
         ``debug``, ``"layers"`` with ``return_layers``).  ``layers`` skips
         stage 1 (the oracle-layers diagnostic).  Stage 2 runs the whole
         batch at once, as the JAX package does.  ``layer_start`` and
         ``start`` are the two stages' unit-normal starts, else drawn.  With
-        ``QUANT_INT8`` stage 2 runs int8 (``int8_scope``)."""
+        ``QUANT_INT8`` stage 2 runs int8 (``int8_scope``).  With a
+        ``parallel/mesh.py`` ``mesh`` the arguments are the global batch's
+        and each rank runs both stages on its rows and returns them, as
+        ``CaloDiffusion.sample`` does."""
         if sampler is None:
             sampler = self.make_sampler()
+        if mesh is not None:
+            lo, hi = mesh_lib.row_range(mesh, energy.shape[0])
+
+            def rows(t):
+                return None if t is None else t[lo:hi]
+
+            with mesh_lib.row_draws(mesh, hi - lo):
+                return self.sample(energy[lo:hi], rows(layers), num_steps, generator,
+                                   sample_offset, debug, sampler, return_layers,
+                                   rows(start), rows(layer_start))
         if layers is not None:
             gen_layers = layers
         else:
@@ -244,7 +259,7 @@ class LayerDiffusion(CaloDiffusion):
                  generator: Optional[torch.Generator] = None, sample_offset: int = 0,
                  sampler=None, debug: bool = False, oracle_layers: bool = False,
                  sparse_decoding: bool = False, sparse_per_batch: bool = False,
-                 rng: Optional[np.random.Generator] = None):
+                 rng: Optional[np.random.Generator] = None, mesh=None):
         """Sample every ``(E, layers, batch)`` of ``data_loader`` through
         both stages and invert the preprocessing batch by batch with the
         stage-1 layers as ``layerE`` (reference layerdiffusion.py:165-256;
@@ -253,7 +268,8 @@ class LayerDiffusion(CaloDiffusion):
         With ``QUANT_INT8`` and no scale table, the first batch calibrates
         one on E twice over and [the loader's layers, a stage-1 sample],
         m = min(32, B) rows each (JAX layerdiffusion.py:263-277), drawn from
-        ``generator``.  Returns numpy (showers of SHAPE_ORIG, energies)."""
+        ``generator``.  Returns numpy (showers of SHAPE_ORIG, energies).
+        With a ``mesh``, this rank's rows of each batch (``sample``'s split)."""
         c = self.config
         if sampler is None:
             sampler = self.make_sampler()
@@ -270,7 +286,9 @@ class LayerDiffusion(CaloDiffusion):
                                   layers=torch.cat([true_t[:m], samp]), generator=generator)
             out = self.sample(E_t, layers=lay, num_steps=sample_steps, generator=generator,
                               sample_offset=sample_offset, debug=debug, sampler=sampler,
-                              return_layers=True)
+                              return_layers=True, mesh=mesh)
+            lo, hi = mesh_lib.row_range(mesh, len(E_np))
+            E_np = E_np[lo:hi]
             gen, E_out = self.reverse_norm(
                 out["x"].float().cpu().numpy(), E_np, out["layers"].float().cpu().numpy(),
                 sparse_decoding=sparse_decoding, sparse_per_batch=sparse_per_batch, rng=rng)

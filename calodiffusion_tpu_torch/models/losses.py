@@ -15,6 +15,12 @@ caller's ``torch.Generator``.
 
 ``minsnr`` is implemented as intended (EDM c_skip/c_out target with unit
 weights, arXiv:2303.09556); the reference's dispatch never reaches it.
+
+Over the data axis of ``parallel/mesh.py`` (``data_group`` set) each rank's
+loss is its share of the global batch's: its rows' numerator over the whole
+batch's denominator (one all-reduce of a scalar), times the axis size, so
+the ranks' mean, which DDP takes of the gradients, is the loss one process
+computes on the whole batch (``share_of_mean``).
 """
 
 from __future__ import annotations
@@ -23,9 +29,18 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from calodiffusion_tpu_torch.samplers import schedules
-from calodiffusion_tpu_torch.samplers.base import bshape, randn
+from calodiffusion_tpu_torch.samplers.base import bshape, randint, randn
+
+
+def share_of_mean(num, den, group):
+    """This rank's share of a mean over the ranks of ``group``: num over the
+    sum of every rank's den, times the group's size."""
+    den = den.detach().clone()
+    dist.all_reduce(den, group=group)
+    return num * dist.get_world_size(group) / den
 
 
 class Loss:
@@ -42,6 +57,8 @@ class Loss:
             self.P_std = 1.2
             self.sigma_data = 1.0
         self.loss = self._loss(loss_type)
+        self.parts = self._parts(loss_type)
+        self.data_group = None  # the data axis's process group (parallel/mesh.py)
 
     def update_step(self, steps: int) -> None:
         self.n_steps = steps
@@ -96,15 +113,48 @@ class Loss:
             )
         return losses[loss_type]
 
+    @staticmethod
+    def _parts(loss_type: str) -> Callable:
+        # (numerator, denominator) of each loss, the loss being their ratio:
+        # the sums that add up over the data axis's ranks
+        def _m(vals, mask):
+            ones = torch.ones_like(vals)
+            return ones if mask is None else mask.reshape(bshape(vals)) * ones
+
+        def l1(pred, target, weight=1.0, mask=None):
+            m = _m(pred, mask)
+            return ((pred - target).abs() * m).sum(), m.sum()
+
+        def l2(pred, target, weight, mask=None):
+            w = weight * _m(pred, mask)
+            return (w * (pred - target) ** 2).sum(), w.sum()
+
+        def mse(pred, target, weight=1.0, mask=None):
+            m = _m(pred, mask)
+            return ((pred - target) ** 2 * m).sum(), m.sum()
+
+        def huber(pred, target, weight=1.0, delta=1.0, mask=None):
+            abs_err = (pred - target).abs()
+            quad = torch.clamp(abs_err, max=delta)
+            m = _m(pred, mask)
+            return ((0.5 * quad**2 + delta * (abs_err - quad)) * m).sum(), m.sum()
+
+        return {"l1": l1, "l2": l2, "mse": mse, "huber": huber}[loss_type]
+
+    def reduce(self, pred, target, weight, mask=None):
+        """The loss of the batch: the reference's reduction on one rank, this
+        rank's ``share_of_mean`` over the data axis."""
+        if self.data_group is None:
+            return self.loss(pred, target, weight, mask=mask)
+        return share_of_mean(*self.parts(pred, target, weight, mask=mask), self.data_group)
+
     def draw_sigma(self, data, generator: Optional[torch.Generator] = None,
                    time=None, rnd_normal=None):
         """Per-sample f32 sigma with shape (B, 1, 1, ...) on data's device."""
         B, dev = data.shape[0], data.device
         if self.discrete_time:
             if time is None:
-                gen_dev = generator.device if generator is not None else dev
-                time = torch.randint(0, self.n_steps, (B,), generator=generator,
-                                     device=gen_dev)
+                time = randint(self.n_steps, B, generator, dev)
             idx = torch.as_tensor(time, device="cpu").long()
             abar = torch.from_numpy(self.sqrt_alphas_cumprod)[idx]
             one_m = torch.from_numpy(self.sqrt_one_minus_alphas_cumprod)[idx]
@@ -137,7 +187,7 @@ class noise_pred(Loss):
         x0_pred = denoise_fn(x_noisy, E=E, sigma=sigma, layers=layers)
         x0_pred = data - sigma * x0_pred
         pred = (data - x0_pred) / sigma
-        return self.loss(pred, noise, torch.ones_like(pred), mask=mask)
+        return self.reduce(pred, noise, torch.ones_like(pred), mask=mask)
 
 
 class mean_pred(Loss):
@@ -147,7 +197,7 @@ class mean_pred(Loss):
         x_noisy = data + sigma * noise
         x0_pred = denoise_fn(x_noisy, E=E, sigma=sigma, layers=layers)
         weight = 1.0 / (sigma**2) * torch.ones_like(x0_pred)
-        return self.loss(x0_pred, data, weight, mask=mask)
+        return self.reduce(x0_pred, data, weight, mask=mask)
 
 
 class hybrid_weight(Loss):
@@ -157,7 +207,7 @@ class hybrid_weight(Loss):
         x_noisy = data + sigma * noise
         x0_pred = denoise_fn(x_noisy, E=E, sigma=sigma, layers=layers)
         weight = (1.0 + 1.0 / sigma**2).reshape(bshape(data)) * torch.ones_like(x0_pred)
-        return self.loss(x0_pred, data, weight, mask=mask)
+        return self.reduce(x0_pred, data, weight, mask=mask)
 
 
 class minsnr(Loss):
@@ -173,7 +223,7 @@ class minsnr(Loss):
         snr = (self.sigma_data / sigma) ** 2
         weight = torch.clamp(snr, max=self.gamma) / snr
         weight = weight.reshape(bshape(data)) * torch.ones_like(x0_pred)
-        return self.loss(x0_pred, data, weight, mask=mask)
+        return self.reduce(x0_pred, data, weight, mask=mask)
 
 
 LOSS_REGISTRY = {

@@ -163,7 +163,7 @@ class BespokeNonStationary(Sample):
         # schedule"); injectable for trajectory parity
         inj = self.take_noise(steps, (start.shape[0],), start.device)
         if inj is None:
-            inj = randn((steps, start.shape[0]), generator, start.device)
+            inj = randn((steps, start.shape[0]), generator, start.device, batch_dim=1)
         sigmas = inj.reshape((steps,) + bs)
 
         x = start

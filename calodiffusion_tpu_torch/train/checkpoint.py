@@ -55,10 +55,13 @@ class ForeignCheckpointError(ValueError):
 def load_arrays(path: str, map_location=None) -> Any:
     path = _abspath(path)
     if os.path.isdir(path):
+        folder, name = os.path.split(path)
         raise ForeignCheckpointError(
             f"{path} is a directory: a checkpoint of the JAX package (Orbax), "
-            "which calodiffusion_tpu_torch does not read; converting one is "
-            "ROADMAP M15"
+            "which calodiffusion_tpu_torch does not read; convert it (where "
+            "orbax is installed) with: python scripts/orbax_to_torch.py -c "
+            f"<config.json> --folder {folder} --name {name.removesuffix('.ckpt')} "
+            "--out <folder for the port's checkpoint>"
         )
     return torch.load(path, map_location=map_location, weights_only=True)
 

@@ -40,8 +40,10 @@ import torch
 from torch import nn
 
 from calodiffusion_tpu_torch.models.diffusion import net_key
+from calodiffusion_tpu_torch.models.losses import share_of_mean
+from calodiffusion_tpu_torch.parallel import mesh as mesh_lib
 from calodiffusion_tpu_torch.samplers import schedules
-from calodiffusion_tpu_torch.samplers.base import bshape, randn
+from calodiffusion_tpu_torch.samplers.base import bshape, multinomial, randn
 from calodiffusion_tpu_torch.train import checkpoint as ckpt_io
 from calodiffusion_tpu_torch.train.trainer import TrainDiffusion, _copy
 
@@ -87,6 +89,11 @@ class TrainDistillation(TrainDiffusion):
         return ckpt_io.load_inference_weights(loc, self.device)  # the teacher's SWA/EMA weights
 
     def init_model(self):
+        if mesh_lib.axis(self.mesh, "model")[1] > 1:
+            raise NotImplementedError(
+                "consistency distillation runs on a mesh's data axis only: its teacher and "
+                "target calls swap weights into the student's network, which a model axis "
+                "shards (FSDP2)")
         super().init_model()
         teacher = self._load_teacher()
         if teacher is not None:
@@ -165,9 +172,12 @@ class TrainDistillation(TrainDiffusion):
             c = float(self.config.get("DISTILL_HUBER_C", 0.00054 * np.sqrt(d_elems)))
             elem = torch.sqrt(diff**2 + c**2) - c
         vals = (1.0 / gaps[idx]).reshape(bs) * elem  # iCT weight 1/(sigma_{i+1} - sigma_i)
-        if mask is None:
+        group = self.model.loss_function.data_group
+        if mask is None and group is None:
             return vals.mean()
-        m = mask.reshape(bs) * torch.ones_like(vals)
+        m = torch.ones_like(vals) if mask is None else mask.reshape(bs) * torch.ones_like(vals)
+        if group is not None:  # this rank's share of the global batch's mean
+            return share_of_mean((vals * m).sum(), m.sum(), group)
         return (vals * m).sum() / m.sum()
 
     # -- steps -----------------------------------------------------------------
@@ -182,19 +192,20 @@ class TrainDistillation(TrainDiffusion):
     def train_step(self, data, E, layers, idx=None, noise=None):
         """One distillation step: indices from the index logits, then the
         noise (the JAX order), each drawn from the trainer's generator
-        unless given; Adam; the EMA target update."""
-        if idx is None:
-            if self._idx_probs is None:
-                logits = torch.from_numpy(self._idx_logits(len(self._sigma_grid())))
-                self._idx_probs = torch.softmax(logits, 0).to(self.device)
-            idx = torch.multinomial(self._idx_probs, data.shape[0], replacement=True,
-                                    generator=self.generator)
-        if noise is None:
-            noise = randn(data.shape, self.generator, self.device)
-        for p in self.model.parameters():
-            p.grad = None
-        loss = self.distill_loss(data, E, layers, idx, noise, target=self.ema_params)
-        loss.backward()
+        unless given; Adam; the EMA target update.  On a mesh the draws are
+        the global batch's, sliced to this rank's rows."""
+        with self._rows(data.shape[0]):
+            if idx is None:
+                if self._idx_probs is None:
+                    logits = torch.from_numpy(self._idx_logits(len(self._sigma_grid())))
+                    self._idx_probs = torch.softmax(logits, 0).to(self.device)
+                idx = multinomial(self._idx_probs, data.shape[0], self.generator)
+            if noise is None:
+                noise = randn(data.shape, self.generator, self.device)
+            for p in self.model.parameters():
+                p.grad = None
+            loss = self.distill_loss(data, E, layers, idx, noise, target=self.ema_params)
+            loss.backward()
         self._apply_update()
         return loss.detach()
 

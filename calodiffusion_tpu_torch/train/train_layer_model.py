@@ -10,7 +10,9 @@ The val loss is the inherited one: the base model's ``denoise_fn``, the
 frozen base U-Net's diffusion loss on the showers, as in the JAX package
 (its ``val_step`` reaches ``LayerDiffusion.denoise``, the base U-Net).  It
 drives the plateau LR, the early stop and ``best_val`` there as here
-(ROADMAP Queue 3 records it as reference behaviour the port keeps).
+(ROADMAP Queue 3 records it as reference behaviour the port keeps).  On a
+mesh the layer net is the network DDP wraps; the frozen base U-Net is
+replicated (every rank loads the same weights).
 """
 
 from __future__ import annotations
@@ -25,10 +27,15 @@ from calodiffusion_tpu_torch.train.trainer import TrainDiffusion
 
 class TrainLayerModel(TrainDiffusion):
     def __init__(self, flags, config, load_data: bool = True, save_model: bool = True,
-                 inference: bool = False, device=None, loader_train=None, loader_val=None):
+                 inference: bool = False, device=None, loader_train=None, loader_val=None,
+                 mesh=None):
         super().__init__(flags, config, load_data=load_data, save_model=save_model,
-                         device=device, loader_train=loader_train, loader_val=loader_val)
+                         device=device, loader_train=loader_train, loader_val=loader_val,
+                         mesh=mesh)
         self.inference = inference
+
+    def _trained_net(self):
+        return self.model.layer_net, "layer_forward_net"
 
     def init_model(self):
         self.model = LayerDiffusion(
@@ -40,6 +47,7 @@ class TrainLayerModel(TrainDiffusion):
         self.model.set_layer_state(not self.inference)
         if not self.inference and self.loader_train is not None:
             self.model.set_whiten(*self._layer_whiten_stats())
+        self._place_model()
         self._init_aux_params()
         return self.model
 

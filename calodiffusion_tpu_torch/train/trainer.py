@@ -14,12 +14,26 @@ The plateau LR is set on the optimizer's param_groups.  Batches come from
 Randomness comes from a ``torch.Generator`` on the card seeded from
 ``flags.seed``.  With ``COLD_DIFFU`` the train and val noise is the model's
 ``gen_cold_image`` of the unit noise (JAX trainer.py:342-363, :422-425), the
-prior loaded from ``AVG_SHOWER_LOC`` where the model holds none yet.  Not
-ported yet: scale-out over several cards.
+prior loaded from ``AVG_SHOWER_LOC`` where the model holds none yet.  With
+``TRACE_DIR`` (or ``flags.trace_dir``) the second epoch's steps are traced
+into it (``utils/profiling.trace``), as the JAX trainer captures them.
+
+Scale-out (JAX trainer.py:53-59, :433-440, :548-560): under a process group
+the trainer runs on a ``parallel/mesh.py`` mesh (every rank by default, as
+JAX takes every device; ``mesh=`` picks another, e.g. a "model" axis).  The
+network a step trains is wrapped once (DDP over "data", FSDP2 with a
+"model" axis); each global batch is padded to a multiple of the data ranks
+by repeating its last row (the repeats count in the loss, as in JAX) and
+each rank uploads only its rows; the noise and sigmas are the global
+batch's draws, sliced (``mesh.row_draws``), and the loss each rank's share
+of the global batch's, so N ranks take the step one process takes.  The
+epoch's train and val losses are all-reduced, so the plateau LR, the early
+stop and ``best_val`` agree on every rank; only rank 0 writes files.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -27,14 +41,16 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from calodiffusion_tpu_torch.data.loader import load_data as load_data_fn
 from calodiffusion_tpu_torch.models.diffusion import CaloDiffusion
+from calodiffusion_tpu_torch.parallel import mesh as mesh_lib
 from calodiffusion_tpu_torch.samplers.base import randn
 from calodiffusion_tpu_torch.train import checkpoint as ckpt_io
 from calodiffusion_tpu_torch.train.schedulers import EarlyStopper, ReduceLROnPlateau
 from calodiffusion_tpu_torch.utils.device import resolve_device
-from calodiffusion_tpu_torch.utils.profiling import StepTimer
+from calodiffusion_tpu_torch.utils.profiling import StepTimer, trace
 
 
 def _norm_cache_cfg(v):
@@ -56,14 +72,18 @@ def _copy(state: dict) -> dict:
 
 class Train:
     def __init__(self, flags, config, load_data: bool = True, save_model: bool = True,
-                 device=None, loader_train=None, loader_val=None):
+                 device=None, loader_train=None, loader_val=None, mesh=None):
         """``load_data``: build the loaders with ``load_data(flags, config)``,
-        unless ``loader_train`` or ``loader_val`` is given: those win."""
+        unless ``loader_train`` or ``loader_val`` is given: those win.
+        ``mesh``: a ``parallel/mesh.py`` mesh, by default every rank of the
+        process group on "data" (None without one)."""
         self.flags = flags
         self.config = config
         self.save_model = save_model
         self.batch_size = config.get("BATCH", 256)
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else mesh_lib.make_mesh(device_type=self.device.type)
+        self._wrapped = None  # the module a train step calls, once placed on the mesh
         if load_data and loader_train is None and loader_val is None:
             loader_train, loader_val = load_data_fn(flags, config, device=self.device)
         self.loader_train, self.loader_val = loader_train, loader_val
@@ -75,7 +95,7 @@ class Train:
         )
         if getattr(flags, "model_loc", None):
             self.checkpoint_folder = os.path.dirname(flags.model_loc)
-        if self.save_model:
+        if self.save_model and mesh_lib.is_writer():
             os.makedirs(self.checkpoint_folder, exist_ok=True)
             with open(os.path.join(self.checkpoint_folder, "config.json"), "w") as f:
                 json.dump(config if isinstance(config, dict) else {}, f, default=str)
@@ -99,20 +119,56 @@ class Train:
                       training_losses, val_losses):
         raise NotImplementedError
 
+    # -- the mesh ----------------------------------------------------------
+    def _trained_net(self):
+        """(module, attribute of the model that calls it) of the network a
+        train step differentiates."""
+        return self.model.net, "forward_net"
+
+    def _place_model(self):
+        """Put the model on the mesh (JAX replicates its params there): the
+        trained network wrapped once by ``mesh.wrap`` and called through
+        the wrapper, the loss each rank's share of the global batch's."""
+        if self.mesh is None or self._wrapped is not None:
+            return
+        net, attr = self._trained_net()
+        self._wrapped = mesh_lib.wrap(self.mesh, net)
+        setattr(self.model, attr, self._wrapped)
+        self.model.loss_function.data_group = mesh_lib.data_group(self.mesh)
+
+    def _rows(self, local_rows: int, rows=None):
+        """Context: the draws of this rank's ``local_rows`` rows are the
+        global batch's (of ``rows`` real rows; ``mesh.row_draws``)."""
+        return mesh_lib.row_draws(self.mesh, local_rows, rows)
+
+    def _write_arrays(self, name: str, arrays: dict, host: dict) -> None:
+        """``<name>.ckpt`` and ``<name>_state.json`` of rank 0 (FSDP2's
+        DTensors gathered whole, a collective), then a barrier."""
+        arrays = mesh_lib.full_state(arrays)
+        if mesh_lib.is_writer():
+            ckpt_io.save_arrays(os.path.join(self.checkpoint_folder, f"{name}.ckpt"), arrays)
+            with open(os.path.join(self.checkpoint_folder, f"{name}_state.json"), "w") as f:
+                json.dump(host, f)
+        mesh_lib.barrier()
+
     # -- checkpointing -----------------------------------------------------
     def _save(self, name, epoch, training_losses, val_losses, scheduler, early_stopper):
         if not self.save_model:
             return
-        ckpt_io.save_checkpoint(
-            self.checkpoint_folder, name,
-            params=self.model.state_dict(), opt_state=self.opt.state_dict(),
-            ema_params=self.ema_params,
-            swa_params=self.swa_params, swa_n=self.swa_n,
-            epoch=epoch, training_losses=training_losses,
-            val_losses=val_losses,
-            scheduler_state=scheduler.state_dict(),
-            early_stop_state=early_stopper.state_dict(),
-        )
+        # FSDP2's DTensors gathered whole on every rank (a collective)
+        state = mesh_lib.full_state(dict(params=self.model.state_dict(),
+                                         opt_state=self.opt.state_dict(),
+                                         ema_params=self.ema_params,
+                                         swa_params=self.swa_params))
+        if mesh_lib.is_writer():
+            ckpt_io.save_checkpoint(
+                self.checkpoint_folder, name, **state, swa_n=self.swa_n,
+                epoch=epoch, training_losses=training_losses,
+                val_losses=val_losses,
+                scheduler_state=scheduler.state_dict(),
+                early_stop_state=early_stopper.state_dict(),
+            )
+        mesh_lib.barrier()
 
     def _checkpoint_location(self):
         model_loc = getattr(self.flags, "model_loc", None)
@@ -143,13 +199,15 @@ class Train:
                 flush=True,
             )
             arrays["opt_state"] = None
-        self.model.load_state_dict(arrays["params"])
+        live = self.model.state_dict()
+        self.model.load_state_dict(mesh_lib.shard_like(arrays["params"], live))
         if arrays.get("opt_state") is not None and not restart_training:
             self.opt.load_state_dict(arrays["opt_state"])
+            mesh_lib.shard_optimizer_state(self.opt)
         if arrays.get("ema_params") is not None:
-            self.ema_params = _copy(arrays["ema_params"])
+            self.ema_params = _copy(mesh_lib.shard_like(arrays["ema_params"], live))
         if arrays.get("swa_params") is not None and not restart_training:
-            self.swa_params = _copy(arrays["swa_params"])
+            self.swa_params = _copy(mesh_lib.shard_like(arrays["swa_params"], live))
             self.swa_n = int(host.get("swa_n", 0))
         if not restart_training:
             if host.get("scheduler_state"):
@@ -169,7 +227,8 @@ class Train:
             self.init_model()
         folder, name = self._checkpoint_location()
         arrays, host = ckpt_io.load_checkpoint(folder, name, map_location=self.device)
-        self.model.load_state_dict(ckpt_io.inference_params(arrays, host))
+        self.model.load_state_dict(mesh_lib.shard_like(ckpt_io.inference_params(arrays, host),
+                                                       self.model.state_dict()))
         if self.config.get("COLD_DIFFU", False) and not self.model.has_cold_prior():
             # sampling starts from the average-shower cold prior
             self.model.init_cold_diffu()
@@ -235,6 +294,7 @@ class TrainDiffusion(Train):
             loss_type=self.config["LOSS_TYPE"], device=self.device,
             generator=torch.Generator().manual_seed(self.seed),
         )
+        self._place_model()
         self._init_aux_params()
         return self.model
 
@@ -315,13 +375,17 @@ class TrainDiffusion(Train):
         With ``COLD_DIFFU`` each chunk's unit noise (drawn, or the injected
         slice) goes through ``_cold_noise``, as the JAX step draws it inside
         each chunk's loss; the layer model's loss takes no shower noise (the
-        JAX step discards it there)."""
+        JAX step discards it there).
+
+        On a mesh ``data`` is this rank's rows (``_device_batch``): chunk i
+        is its share of the global batch's chunk i, the draws are the global
+        chunk's, sliced, and DDP all-reduces the gradients once, in the last
+        chunk's backward (the others run under ``no_sync``), as JAX's scan
+        reduces them once."""
         cold = self.config.get("COLD_DIFFU", False) and not getattr(self.model, "layer_loss",
                                                                     False)
-        micro = int(self.config.get("TRAIN_MICROBATCH", 0) or 0)
-        B = data.shape[0]
-        n_chunks = B // micro if micro and B > micro and B % micro == 0 else 1
-        size = B // n_chunks
+        n_chunks = self._chunks(data.shape[0] * mesh_lib.node_share(self.mesh)[1])
+        size = data.shape[0] // n_chunks
         params = list(self.model.parameters())
         for p in params:
             p.grad = None
@@ -332,16 +396,19 @@ class TrainDiffusion(Train):
             def part(a):
                 return None if a is None else a[sl]
 
-            chunk_noise = part(noise)
-            if cold:
-                if chunk_noise is None:
-                    chunk_noise = randn(data[sl].shape, self.generator, self.device)
-                chunk_noise = self._cold_noise(chunk_noise, E[sl])
-            loss = self.model.compute_loss(
-                data[sl], E[sl], self.generator, layers=part(layers),
-                noise=chunk_noise, rnd_normal=part(rnd_normal),
-            )
-            loss.backward()
+            last = i == n_chunks - 1
+            with (contextlib.nullcontext() if last else mesh_lib.no_sync(self._wrapped)), \
+                    self._rows(size):
+                chunk_noise = part(noise)
+                if cold:
+                    if chunk_noise is None:
+                        chunk_noise = randn(data[sl].shape, self.generator, self.device)
+                    chunk_noise = self._cold_noise(chunk_noise, E[sl])
+                loss = self.model.compute_loss(
+                    data[sl], E[sl], self.generator, layers=part(layers),
+                    noise=chunk_noise, rnd_normal=part(rnd_normal),
+                )
+                loss.backward()
             loss_sum += loss.detach()
         if n_chunks > 1:
             for p in params:
@@ -385,9 +452,27 @@ class TrainDiffusion(Train):
             noise=noise, layers=layers, rnd_normal=rnd_normal, mask=mask,
         )
 
+    def _chunks(self, rows: int) -> int:
+        """The microbatches of a batch of ``rows`` rows: ``TRAIN_MICROBATCH``
+        where it divides them, else one."""
+        micro = int(self.config.get("TRAIN_MICROBATCH", 0) or 0)
+        return rows // micro if micro and rows > micro and rows % micro == 0 else 1
+
     # -- data --------------------------------------------------------------
-    def _device_batch(self, E, layers, data):
+    def _device_batch(self, E, layers, data, chunks=None):
+        """This rank's rows of a loader batch on the device: the batch
+        padded to a multiple of the node's data ranks by repeating its last
+        row (JAX trainer.py:433-440: the repeats count in the loss), then
+        ``mesh.shard_batch`` of it over ``chunks`` microbatches (by default
+        the train step's)."""
+        n = mesh_lib.node_share(self.mesh)[1]
+        (E, layers, data), _ = mesh_lib.pad_batch_to_multiple(
+            tuple(np.asarray(a) for a in (E, layers, data)), n)
+        if chunks is None:
+            chunks = self._chunks(E.shape[0])
+
         def put(a):
+            a = mesh_lib.shard_batch(self.mesh, a, chunks)
             return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
 
         return put(E), put(layers), put(data)
@@ -425,18 +510,25 @@ class TrainDiffusion(Train):
             self._device_cache = cached
 
     def _val_batches(self, val_rnd):
-        """The fixed val working set: (data, E, layers, rnd_normal, mask)
-        per batch, built once.  ``mask`` marks the batch's real rows; on one
-        card no batch is padded, so it is all ones."""
+        """The fixed val working set, this rank's rows, built once: (data, E,
+        layers, rnd_normal, mask, the batch's real rows) per batch.  ``mask``
+        marks the real rows: a batch padded to a multiple of the data ranks
+        has zeros in its repeats, and its sigma draws zeros there (JAX
+        trainer.py:548-560); on one card no batch is padded."""
         if self._val_cache is None:
             cache = []
             for i, (vE, vlayers, vdata) in enumerate(self.loader_val):
                 if i >= val_rnd.shape[0]:
                     break
                 n_real = np.asarray(vE).shape[0]
-                vE_d, vlay_d, vdata_d = self._device_batch(vE, vlayers, vdata)
+                vE_d, vlay_d, vdata_d = self._device_batch(vE, vlayers, vdata, chunks=1)
+                n_pad = vE_d.shape[0] * mesh_lib.node_share(self.mesh)[1] - n_real
                 mask = torch.ones(n_real, device=self.device)
-                cache.append((vdata_d, vE_d, vlay_d, val_rnd[i][:n_real], mask))
+                rnd = val_rnd[i][:n_real]
+                if self.mesh is not None:
+                    mask = mesh_lib.shard_batch(self.mesh, F.pad(mask, (0, n_pad)))
+                    rnd = mesh_lib.shard_batch(self.mesh, F.pad(rnd, (0, n_pad)))
+                cache.append((vdata_d, vE_d, vlay_d, rnd, mask, n_real))
             self._val_cache = cache
         return self._val_cache
 
@@ -453,27 +545,40 @@ class TrainDiffusion(Train):
             val_rnd = randn((n_val, val_batch), self.generator, self.device)
 
         timer = StepTimer()
+        trace_dir = getattr(self.flags, "trace_dir", None) or self.config.get("TRACE_DIR")
+        # nodes read their own files: agree each epoch's batch count
+        several_nodes = mesh_lib.process_index()[1] > 1
         min_validation_loss = 99999.0
         epoch = start_epoch
         for epoch in range(start_epoch, num_epochs):
             print(f"Beginning epoch {epoch}", flush=True)
+            n_batches = (mesh_lib.agree_min(self.mesh, len(self.loader_train))
+                         if several_nodes else None)
             # losses stay on the card during the epoch: one sync per epoch
             epoch_losses = []
-            for E_d, lay_d, data_d in self._epoch_batches(timer):
-                with timer.phase("step"):
-                    epoch_losses.append(
-                        self.train_step(data_d, E_d, lay_d if layer_cond else None)
-                    )
-            train_loss = float(torch.stack(epoch_losses).mean()) if epoch_losses else 0.0
+            with trace(trace_dir if epoch == start_epoch + 1 else None):
+                for E_d, lay_d, data_d in self._epoch_batches(timer):
+                    if n_batches is not None and len(epoch_losses) == n_batches:
+                        break
+                    with timer.phase("step"):
+                        epoch_losses.append(
+                            self.train_step(data_d, E_d, lay_d if layer_cond else None)
+                        )
+            train_loss = (float(mesh_lib.all_reduce_mean(self.mesh, torch.stack(epoch_losses))
+                                .mean()) if epoch_losses else 0.0)
             print(f"epoch phases: {timer.summary()}", flush=True)
             training_losses[epoch] = train_loss
             print(f"loss: {train_loss}")
 
             val_loss = 0.0
             if self.loader_val is not None:
-                vl = [self.val_step(vdata, vE, vlay if layer_cond else None, rnd, mask)
-                      for vdata, vE, vlay, rnd, mask in self._val_batches(val_rnd)]
-                val_loss = float(torch.stack(vl).mean()) if vl else 0.0
+                vl = []
+                for vdata, vE, vlay, rnd, mask, n_real in self._val_batches(val_rnd):
+                    with self._rows(vdata.shape[0], n_real):
+                        vl.append(self.val_step(vdata, vE, vlay if layer_cond else None, rnd,
+                                                mask))
+                val_loss = (float(mesh_lib.all_reduce_mean(self.mesh, torch.stack(vl)).mean())
+                            if vl else 0.0)
                 val_losses[epoch] = val_loss
                 print(f"val_loss: {val_loss}", flush=True)
 
@@ -491,11 +596,8 @@ class TrainDiffusion(Train):
                     arrays["ema_params"] = self.ema_params
                 if self.swa_params is not None and self.swa_n > 0:
                     arrays["swa_params"] = self.swa_params
-                ckpt_io.save_arrays(os.path.join(self.checkpoint_folder, "best_val.ckpt"),
-                                    arrays)
-                with open(os.path.join(self.checkpoint_folder,
-                                       "best_val_state.json"), "w") as f:
-                    json.dump({"epoch": epoch, "swa_n": int(self.swa_n)}, f)
+                self._write_arrays("best_val", arrays,
+                                   {"epoch": epoch, "swa_n": int(self.swa_n)})
                 min_validation_loss = val_loss
 
             if early_stopper.early_stop(val_loss):

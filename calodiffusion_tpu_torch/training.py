@@ -11,11 +11,22 @@ Distillation>/`` as the JAX trainers name them (``checkpoint``,
 
     ... layer [--layer-model-loc CKPT]    the cascade's layer-energy model
     ... distill --teacher-loc CKPT        consistency distillation
+
+Under ``torchrun`` (``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` set) the
+command joins the process group (NCCL on the card, each rank on
+``cuda:LOCAL_RANK``; gloo with ``--device cpu``) and trains data-parallel
+over every rank, as the JAX CLI trains over every local device:
+
+    torchrun --nproc-per-node N -m calodiffusion_tpu_torch.training ...
+
+It leaves the group at the end; a group the caller initialised stays.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 
 from calodiffusion_tpu_torch.utils.config import LoadJson, dotdict
 
@@ -55,9 +66,36 @@ def train_parser() -> argparse.ArgumentParser:
     return parser
 
 
+@contextlib.contextmanager
+def process_group(device: str):
+    """The device this rank trains on, inside the process group that
+    ``torchrun``'s environment names (joined here and left at the end);
+    ``device`` itself where there is none or one is initialised already."""
+    import torch
+    import torch.distributed as dist
+
+    if "RANK" not in os.environ or dist.is_initialized():
+        yield device
+        return
+    card = torch.device(device).type == "cuda"
+    if card:
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if card else "gloo")
+    try:
+        yield device
+    finally:
+        dist.destroy_process_group()
+
+
 def main(argv=None):
     """Run one command line; returns the trainer."""
     flags = dotdict(vars(train_parser().parse_args(argv)))
+    with process_group(flags.device) as flags.device:
+        return _train(flags)
+
+
+def _train(flags):
     flags.config = LoadJson(flags.config)
     if flags.hgcal is not None:
         flags.config["HGCAL"] = flags.hgcal

@@ -1,7 +1,10 @@
-"""Profiling utilities: ``StepTimer``, per-phase wall-clock aggregation for
-the trainer (data / host->device / step), printed per epoch.
+"""Profiling utilities (port of ``calodiffusion_tpu/utils/profiling.py``):
 
-A copy of ``StepTimer`` from ``calodiffusion_tpu/utils/profiling.py``.
+- ``trace(logdir)``: a ``torch.profiler`` trace of the card and the host
+  into ``logdir`` in TensorBoard's format (no-op when logdir is falsy);
+- ``annotate(name)``: a named trace region (``record_function``);
+- ``StepTimer``: per-phase wall-clock aggregation for the trainer (data /
+  host->device / step), printed per epoch.
 """
 
 from __future__ import annotations
@@ -9,6 +12,29 @@ from __future__ import annotations
 import contextlib
 import time
 from collections import defaultdict
+
+import torch
+
+
+@contextlib.contextmanager
+def trace(logdir: str | None):
+    """Capture a trace of the host and, where there is one, the CUDA card
+    into ``logdir`` (a ``*.pt.trace.json`` a process; no-op when logdir is
+    falsy)."""
+    if not logdir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(logdir)):
+        yield
+
+
+def annotate(name: str):
+    return torch.profiler.record_function(name)
 
 
 class StepTimer:

@@ -235,7 +235,26 @@ prints no result:
             kernel_plan); ControlNet (ControlledUnet: a forward, K1 11, and a
             train step with the base frozen, K2 7, timed; the f32 forward
             card vs CPU within 2e-4)
-16. result  {"kernels": [...]} (each kernel's launches by path: generate,
+16. scale-out the trainer and sampling on torch.distributed at ds2's full
+            width, on the cli phase's ds2 caches and phase 4's weights:
+            (a) training.main in this process under an NCCL group of one
+            rank (the U-Net in DDP), 4 steps of 128, bf16: K1 and K2 7 a
+            step, the losses those of the cli phase's run without a group
+            (the largest difference printed; bit for bit expected, held to
+            phase 5's STEP_LOSS_RTOL); then 2 epochs with TRACE_DIR: one
+            trace of the second epoch, naming K1's and K2's kernels.  Then
+            two ranks on the one card over gloo (NCCL refuses two ranks on
+            one device), processes of this script (--scale-out-rank), f32,
+            TF32 off: (b) DDP, 64 rows a rank: one step's loss, every
+            gradient and every parameter after Adam against one process's
+            step at batch 128 (phase 5's tolerances; a parameter within 2
+            lr, the tree within STEP_LOSS_RTOL in norm), K1 and K2 7 on each
+            rank; a sharded 20-step DDim sample of 128 against one
+            process's (evaluations x 2e-4); (c) data 1 x model 2 through
+            FSDP2 (each rank all 128 rows, the weights' dim 0 sharded): the
+            same step checks.  Each sub-phase's ms a step, peak memory and
+            the card's name and power limit printed
+17. result  {"kernels": [...]} (each kernel's launches by path: generate,
             train, the cli paths, samplers, bns, variants, cascade_train,
             cascade_sample, distill_train, distill_val, distill_sample,
             ds1_photon_train, ds1_photon_sample, ds1_pion_train,
@@ -245,8 +264,9 @@ prints no result:
             optimize_sample, int8_generate, int8_cascade_sample,
             int8_transpose, cold_train, cold_sample, fcn_train, fcn_sample,
             remat_train, convnext_forward, convnext_train, convnext_int8,
-            controlnet_forward, controlnet_train; K1's and K2's "launches"
-            sum the last sixteen, the last three slices' paths, Q1's its
+            controlnet_forward, controlnet_train, ddp_train, ddp_sample,
+            hsdp_train (rank 0's); K1's and K2's "launches" sum the last
+            nineteen, the last four slices' paths, Q1's its
             four; their "ds1" and "hgcal" hold one U-Net call's times of
             each config; Q1's times are one ds2 int8 denoise's 36 launches,
             its ConvNext geometries and plans apart) and, last, {"ok": true,
@@ -1007,7 +1027,8 @@ def run_cli(name, cfg, cfg_path, data, ckpt, seed, attn, card, phase="cli", show
         if not (folder / fname).exists():
             fail(f"{phase} {name}: train wrote no {folder / fname}")
     steady = statistics.mean(s["s"] for s in steps[1:])
-    train = dict(steps=len(steps), losses=[s["loss"] for s in steps], cold_step_s=steps[0]["s"],
+    train = dict(steps=len(steps), losses=[s["loss"] for s in steps], seed=seed,
+                 cold_step_s=steps[0]["s"],
                  steady_step_s=steady, samples_per_s=spec["batch"] / steady, wall_s=train_wall,
                  k1=k1, k2=k2, max_memory_gib=train_mem)
     print(f"{phase} {name} train: training.main, {len(steps)} steps of {spec['batch']}, bf16, full "
@@ -3504,16 +3525,348 @@ def run_networks_phase(cfg, state_dict, args, attn, q1, nn_modules, card):
     return res, paths, q1_cases
 
 
+# ---------------------------------------------------------------------------
+# 16. scale-out: the trainer and sampling on torch.distributed
+# ---------------------------------------------------------------------------
+
+SCALE_OUT_PATHS = ("ddp_train", "ddp_sample", "hsdp_train")
+# (b) and (c): (name, model axis) of the 2-rank meshes on the one card
+SCALE_OUT_MESHES = (("ddp", 1), ("hsdp", 2))
+SCALE_OUT_TIMED_STEPS = 3  # (b) and (c): steps timed after the compared one
+SCALE_OUT_SAMPLE_STEPS = 20  # (b): the sharded DDim sample's steps
+RANK_TIMEOUT_S = 300
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def trace_kernels(trace_dir: Path) -> tuple[list, set]:
+    """The trace files under ``trace_dir`` and the names of the CUDA kernels
+    their events hold."""
+    files = sorted(trace_dir.rglob("*.pt.trace.json"))
+    names = set()
+    for f in files:
+        for e in json.loads(f.read_text()).get("traceEvents", []):
+            if e.get("cat") == "kernel":
+                names.add(e.get("name", ""))
+    return files, names
+
+
+def run_nccl_one_rank(cfg, cfg_path, data, root, cli_train, attn, card):
+    """(a): training.main in this process under an NCCL group of one rank
+    (the trainer's mesh 1 x 1, the U-Net in DDP) on the cli phase's ds2
+    caches and seed: K1 and K2 7 a step, the losses those of the cli
+    phase's run without a group; then 2 epochs with TRACE_DIR, whose trace
+    of the second epoch must name K1's and K2's kernels."""
+    import torch.distributed as dist
+    from torch.nn.parallel import DistributedDataParallel
+    from unittest import mock
+
+    from calodiffusion_tpu_torch import training
+    from calodiffusion_tpu_torch.train.trainer import TrainDiffusion
+
+    n = len(DS2_ATTENTION_BLOCKS)
+    out = root / "scale_out"
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        recorder = Recorder(TrainDiffusion.train_step, attn)
+        common = ["-c", cfg_path, "-d", data, "--seed", str(cli_train["seed"])]
+        torch.cuda.reset_peak_memory_stats()
+        counts_reset(attn)
+        t0 = time.perf_counter()
+        with mock.patch.object(TrainDiffusion, "train_step", recorder.bind()):
+            trainer = training.main(common + ["--checkpoint", str(out / "ckpt"), "diffusion"])
+        wall = time.perf_counter() - t0
+        k1, k2 = counts_read(attn)
+        mem = torch.cuda.max_memory_allocated() / 2**30
+        if not isinstance(trainer._wrapped, DistributedDataParallel):
+            fail(f"scale-out (a): the U-Net ran in {type(trainer._wrapped).__name__}, not DDP")
+        steps = recorder.calls
+        recorder.check("scale-out (a) train step", cli_train["steps"], (n, n))
+        if (k1, k2) != (n * (len(steps) + 1), n * len(steps)):
+            fail(f"scale-out (a): train launched K1 {k1} and K2 {k2} times")
+        losses, want = [s["loss"] for s in steps], cli_train["losses"]
+        diff = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+        if diff > STEP_LOSS_RTOL:
+            fail(f"scale-out (a): losses {losses} under NCCL against {want} without a group: "
+                 f"{diff:.3g} relative > {STEP_LOSS_RTOL}")
+        steady = statistics.mean(s["s"] for s in steps[1:])
+        print(f"scale-out (a): training.main under NCCL, 1 rank (DDP), {len(steps)} steps of "
+              f"{BATCH}, bf16, full width: steady {1e3 * steady:.2f} ms/step on {card}; peak "
+              f"memory {mem:.2f} GiB; K1 {k1}, K2 {k2}; losses {losses}, without a group "
+              f"{want}: largest difference {diff:.3g} relative"
+              f"{' (bit for bit)' if losses == want else ''}", flush=True)
+
+        trace_dir = out / "trace"
+        trace_cfg = out / "trace_config.json"
+        trace_cfg.write_text(json.dumps(dict(cfg, MAXEPOCH=2, TRACE_DIR=str(trace_dir))))
+        counts_reset(attn)
+        t0 = time.perf_counter()
+        training.main(["-c", str(trace_cfg)] + common[2:]
+                      + ["--checkpoint", str(out / "trace_ckpt"), "diffusion"])
+        trace_wall = time.perf_counter() - t0
+        files, names = trace_kernels(trace_dir)
+        k1_names = sorted(x for x in names if "attention_block_kernel" in x)
+        k2_names = sorted(x for x in names if "attention_block_bwd_kernel" in x)
+        if len(files) != 1 or not k1_names or not k2_names:
+            fail(f"scale-out (a): TRACE_DIR wrote {len(files)} traces (expected 1) naming K1 "
+                 f"{k1_names} and K2 {k2_names}")
+        print(f"scale-out (a): TRACE_DIR, 2 epochs in {trace_wall:.2f} s: {files[0].name}, "
+              f"{files[0].stat().st_size / 2**20:.1f} MiB, {len(names)} kernel names, K1 "
+              f"{k1_names[0][:60]}, K2 {k2_names[0][:60]}", flush=True)
+    finally:
+        dist.destroy_process_group()
+    return dict(steps=len(steps), losses=losses, losses_without_group=want,
+                largest_loss_rel_diff=diff, bit_for_bit=losses == want,
+                steady_step_s=steady, wall_s=wall, max_memory_gib=mem, k1=k1, k2=k2,
+                trace_file_mib=files[0].stat().st_size / 2**20, trace_wall_s=trace_wall,
+                trace_k1=k1_names[0], trace_k2=k2_names[0])
+
+
+def scale_out_inputs(state_dict, seed) -> dict:
+    """The compared step's and sample's inputs at ds2's shapes, batch 128:
+    the batch, its noise and sigma draws, and the sample's conditioning."""
+    from calodiffusion_tpu_torch.utils.config import load_config
+
+    cfg = load_config(str(CONFIG))
+    n_layers = cfg["SHAPE_FINAL"][2] + 1
+    E, layers, data = synthetic_batch(BATCH, n_layers, seed)
+    rng = np.random.default_rng(seed + 1)
+    return dict(state_dict=state_dict, E=E, layers=layers, data=data,
+                noise=rng.standard_normal(data.shape).astype(np.float32),
+                rnd=rng.standard_normal(BATCH).astype(np.float32),
+                sample_E=rng.uniform(0.0, 1.0, (BATCH, 1)).astype(np.float32),
+                sample_layers=rng.standard_normal((BATCH, n_layers)).astype(np.float32),
+                seed=seed)
+
+
+def scale_out_step(inp, mesh, attn):
+    """One f32 train step at ds2's full width on ``mesh`` (None: one
+    process) from the inputs' weights, batch, noise and sigmas: its loss,
+    gradients and parameters after Adam, whole; then SCALE_OUT_TIMED_STEPS
+    more, timed; K1 and K2 launches of the compared step."""
+    from calodiffusion_tpu_torch.parallel import mesh as mesh_lib
+    from calodiffusion_tpu_torch.train.trainer import TrainDiffusion
+    from calodiffusion_tpu_torch.utils.config import default_flags, load_config
+
+    cfg = dict(load_config(str(CONFIG)), PRECISION="f32")
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        t = TrainDiffusion(default_flags(checkpoint_folder=ckpt_dir, seed=inp["seed"]), cfg,
+                           load_data=False, save_model=False, mesh=mesh)
+    t.init_model()
+    t.model.load_state_dict(mesh_lib.shard_like(inp["state_dict"], t.model.state_dict()))
+    t.make_optimizer(float(cfg["LR"]))
+    E, layers, data = t._device_batch(inp["E"], inp["layers"], inp["data"])
+    noise, rnd = (mesh_lib.shard_batch(mesh, torch.from_numpy(inp[k]).cuda())
+                  for k in ("noise", "rnd"))
+    torch.cuda.reset_peak_memory_stats()
+    counts_reset(attn)
+    loss = t._accumulate_grads(data, E, layers, noise=noise, rnd_normal=rnd)
+    t._apply_update()
+    k1, k2 = counts_read(attn)
+    loss = float(mesh_lib.all_reduce_mean(mesh, loss))
+    # copies: a state_dict's tensors are the live parameters the timed steps move
+    grads = {k: v.cpu().clone() for k, v in mesh_lib.full_state(
+        {k: p.grad.detach() for k, p in t.model.named_parameters()}).items()}
+    params = {k: v.cpu().clone()
+              for k, v in mesh_lib.full_state(t.model.state_dict()).items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SCALE_OUT_TIMED_STEPS):
+        t.train_step(data, E, layers)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / SCALE_OUT_TIMED_STEPS
+    return dict(loss=loss, grads=grads, params=params, k1=k1, k2=k2,
+                step_ms=1e3 * step_s, rows=int(data.shape[0]),
+                wrapper=type(t._wrapped).__name__ if t._wrapped is not None else None,
+                max_memory_gib=torch.cuda.max_memory_allocated() / 2**30, lr=float(cfg["LR"]))
+
+
+def scale_out_sample(inp, mesh, attn):
+    """A 2-rank-shardable f32 DDim sample of the inputs' 128 conditionings
+    from the inputs' weights (SCALE_OUT_SAMPLE_STEPS steps): this rank's
+    rows, K1 launches, wall."""
+    from calodiffusion_tpu_torch.models.diffusion import CaloDiffusion
+    from calodiffusion_tpu_torch.utils.config import load_config
+
+    cfg = dict(load_config(str(CONFIG)), PRECISION="f32")
+    model = CaloDiffusion(cfg)
+    model.load_state_dict(inp["state_dict"])
+    E, layers = (torch.from_numpy(inp[k]).cuda() for k in ("sample_E", "sample_layers"))
+    counts_reset(attn)
+    t0 = time.perf_counter()
+    x = model.sample(E, layers, SCALE_OUT_SAMPLE_STEPS,
+                     generator=torch.Generator(device="cuda").manual_seed(inp["seed"]),
+                     mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2 = counts_read(attn)
+    return dict(x=x.float().cpu(), k1=k1, k2=k2, wall_s=wall)
+
+
+def scale_out_rank(rank: int, world: int, model_axis: int, port: int, folder: str) -> None:
+    """One rank of (b) or (c), in its own process: a gloo group over
+    localhost, the card's CUDA tensors, a (world / model_axis, model_axis)
+    mesh; the step and (data axis only) the sample; the results to
+    ``<folder>/rank<rank>.pt``."""
+    import torch.distributed as dist
+
+    from calodiffusion_tpu_torch.ops import linear_attention as attn
+    from calodiffusion_tpu_torch.parallel import mesh as mesh_lib
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    inp = torch.load(Path(folder) / "inputs.pt", weights_only=False)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world)
+    try:
+        mesh = mesh_lib.make_mesh(data=world // model_axis, model=model_axis)
+        out = scale_out_step(inp, mesh, attn)
+        if model_axis == 1:
+            out["sample"] = scale_out_sample(inp, mesh, attn)
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, Path(folder) / f"rank{rank}.pt")
+
+
+def run_ranks_on_card(world: int, model_axis: int, folder: Path) -> list:
+    """Start the ranks of (b) or (c) as processes of this script, wait for
+    every one (each killed at RANK_TIMEOUT_S), fail on any failure; their
+    results by rank."""
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--scale-out-rank", str(r), str(world), str(model_axis), str(port),
+                               str(folder)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=RANK_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode != 0 for p in procs):
+        fail(f"scale-out: a rank of {world // model_axis} x {model_axis} failed:\n"
+             + "\n".join(f"rank {r}: {log[-3000:]}" for r, log in enumerate(logs)))
+    return [torch.load(folder / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def check_step_against_one_process(what, got, want, start, card):
+    """A sharded f32 step against one process's from the weights ``start``:
+    the loss within phase 5's STEP_LOSS_RTOL, every gradient within
+    STEP_GRAD_TOL (max-norm, relative to max |g| + 1e-3 G), every parameter
+    after Adam within 2 lr of one process's (Adam's first step moves an
+    entry by lr times the sign of its gradient: an entry whose gradient is
+    at roundoff may move the other way) and the update, over the whole
+    tree, within 2 % of one process's in norm."""
+    loss_rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    G = max(g.abs().max().item() for g in want["grads"].values())
+    errs = {k: ((got["grads"][k] - g).abs().max() / (g.abs().max() + 1e-3 * G)).item()
+            for k, g in want["grads"].items()}
+    worst = max(errs, key=errs.get)
+    p_abs = max((got["params"][k] - p).abs().max().item() for k, p in want["params"].items())
+    u_norm = math.sqrt(sum(((got["params"][k] - p) ** 2).sum().item()
+                           for k, p in want["params"].items())
+                       / sum(((p - start[k].float()) ** 2).sum().item()
+                             for k, p in want["params"].items()))
+    if not (np.isfinite(got["loss"]) and loss_rel <= STEP_LOSS_RTOL
+            and errs[worst] <= STEP_GRAD_TOL and p_abs <= 2 * want["lr"] * (1 + 1e-3)
+            and u_norm <= 0.02):
+        fail(f"scale-out {what}: against one process: loss {got['loss']} vs {want['loss']} "
+             f"({loss_rel:.3g}), gradient {worst} {errs[worst]:.3g}, parameters {p_abs:.3g} "
+             f"(2 lr {2 * want['lr']:.3g}), the update {u_norm:.3g} apart in norm")
+    print(f"scale-out {what}: f32 step of {BATCH} ({got['rows']} rows a rank, "
+          f"{got['wrapper']}) against one process: loss {got['loss']:.6g} vs "
+          f"{want['loss']:.6g} ({loss_rel:.3g} relative, tol {STEP_LOSS_RTOL}); worst "
+          f"gradient {worst} {errs[worst]:.3g} (tol {STEP_GRAD_TOL}); parameters after Adam "
+          f"{p_abs:.3g} (tol 2 lr), the update {u_norm:.3g} apart in norm (tol 0.02); "
+          f"{got['step_ms']:.1f} ms/step (one process {want['step_ms']:.1f}), peak memory "
+          f"{got['max_memory_gib']:.2f} GiB a rank on {card}", flush=True)
+    return dict(loss=got["loss"], loss_one_process=want["loss"], loss_rel=loss_rel,
+                worst_grad=worst, worst_grad_err=errs[worst], param_max_abs=p_abs,
+                update_norm_rel=u_norm, step_ms=got["step_ms"],
+                step_ms_one_process=want["step_ms"], max_memory_gib=got["max_memory_gib"],
+                rows_a_rank=got["rows"], wrapper=got["wrapper"])
+
+
+def run_scale_out_phase(root: Path, made, cli, state_dict, seed, attn, card):
+    """Phase 16: (a) one NCCL rank through training.main, then on the one
+    card over gloo (NCCL refuses two ranks on one device) (b) two data
+    ranks (DDP): a step against one process's and a sharded sample against
+    one process's, and (c) data 1 x model 2 (FSDP2): the step."""
+    from calodiffusion_tpu_torch.ops import linear_attention
+
+    n = len(DS2_ATTENTION_BLOCKS)
+    cfg, cfg_path, data = made["ds2"]
+    res = {"nccl_one_rank": run_nccl_one_rank(cfg, cfg_path, data, root, cli["ds2"]["train"],
+                                              attn, card)}
+    folder = root / "scale_out" / "ranks"
+    folder.mkdir(parents=True)
+    inp = scale_out_inputs(state_dict, seed)
+    torch.save(inp, folder / "inputs.pt")
+    one = scale_out_step(inp, None, linear_attention)
+    one_sample = scale_out_sample(inp, None, linear_attention)
+    for name, model_axis in SCALE_OUT_MESHES:
+        t0 = time.perf_counter()
+        ranks = run_ranks_on_card(2, model_axis, folder)
+        wall = time.perf_counter() - t0
+        for r, got in enumerate(ranks):
+            if (got["k1"], got["k2"]) != (n, n):
+                fail(f"scale-out {name}: rank {r} launched K1 {got['k1']} and K2 "
+                     f"{got['k2']} times in the step, expected {n} and {n}")
+        sub = check_step_against_one_process(
+            f"({'b' if model_axis == 1 else 'c'}) {name} {2 // model_axis} x {model_axis}",
+            ranks[0], one, inp["state_dict"], card)
+        sub.update(wall_s=wall, launches_by_rank=[(g["k1"], g["k2"]) for g in ranks])
+        if model_axis == 1:
+            x = torch.cat([g["sample"]["x"] for g in ranks])
+            err = (x - one_sample["x"]).abs().max().item()
+            tol = SCALE_OUT_SAMPLE_STEPS * 2e-4  # evaluations x 2e-4 (docs/DESIGN.md:32)
+            launches = [(g["sample"]["k1"], g["sample"]["k2"]) for g in ranks]
+            if not err <= tol or any(s != (n * SCALE_OUT_SAMPLE_STEPS, 0) for s in launches):
+                fail(f"scale-out (b): the 2-rank sample differs from one process's by {err:.3g} "
+                     f"(tol {tol:.3g}); launches by rank {launches}")
+            walls = [g["sample"]["wall_s"] for g in ranks]
+            print(f"scale-out (b): sharded f32 DDim sample of {BATCH} ({SCALE_OUT_SAMPLE_STEPS} "
+                  f"steps, {BATCH // 2} rows a rank): against one process max_abs_err {err:.3g} "
+                  f"(tol {tol:.3g}); {max(walls):.2f} s (one process "
+                  f"{one_sample['wall_s']:.2f} s) on {card}; K1 by rank {launches}",
+                  flush=True)
+            sub["sample"] = dict(max_abs_err=err, tol=tol, wall_s=max(walls),
+                                 wall_s_one_process=one_sample["wall_s"],
+                                 launches_by_rank=launches)
+        res[name] = sub
+    paths = {"ddp_train": res["ddp"]["launches_by_rank"][0],
+             "ddp_sample": res["ddp"]["sample"]["launches_by_rank"][0],
+             "hsdp_train": res["hsdp"]["launches_by_rank"][0] if "hsdp" in res else (0, 0)}
+    return res, paths
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batches", type=int, default=2)
     ap.add_argument("--steps", type=int, default=400)
     ap.add_argument("--train-steps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
+    # phase 16 starts its ranks as processes of this script
+    ap.add_argument("--scale-out-rank", nargs=5, metavar=("RANK", "WORLD", "MODEL", "PORT", "DIR"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         fail("no CUDA device")
+    if args.scale_out_rank:
+        rank, world, model_axis, port, folder = args.scale_out_rank
+        return scale_out_rank(int(rank), int(world), int(model_axis), int(port), folder)
     t_start = time.perf_counter()
     try:
         from calodiffusion_tpu_torch.models import nn_modules
@@ -3669,6 +4022,13 @@ def main() -> None:
     networks, network_paths, q1_net_cases = run_networks_phase(
         cfg, model.state_dict(), args, attn, q1, nn_modules, card)
     print(f"networks: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 16. scale-out, on the cli phase's ds2 caches and phase 4's weights
+    t0 = time.perf_counter()
+    scale_out, scale_out_paths = run_scale_out_phase(
+        root, made, cli, {k: v.cpu() for k, v in model.state_dict().items()}, args.seed + 90,
+        attn, card)
+    print(f"scale-out: {time.perf_counter() - t0:.1f} s", flush=True)
     tmp.cleanup()
 
     # 16. result
@@ -3708,12 +4068,16 @@ def main() -> None:
             "int8_transpose": int8["generate"]["transpose"][key],
         })
         by_path.update({p: network_paths[p][0 if key == "k1" else 1] for p in NETWORK_PATHS})
+        # rank 0's launches on the scale-out paths (phase 16)
+        by_path.update({p: scale_out_paths[p][0 if key == "k1" else 1]
+                        for p in SCALE_OUT_PATHS})
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            # launches on the last three slices' paths: CNNCompare's sampling,
+            # launches on the last four slices' paths: CNNCompare's sampling,
             # the optimize trial's training and sampling, the int8 paths, the
-            # network variants'
-            launches=sum(by_path[k] for k in EVALUATE_PATHS + INT8_PATHS + NETWORK_PATHS),
+            # network variants', the scale-out paths
+            launches=sum(by_path[k] for k in EVALUATE_PATHS + INT8_PATHS + NETWORK_PATHS
+                         + SCALE_OUT_PATHS),
             launches_by_path=by_path,
             max_abs_err=max(c["max_abs_err"] for c in bf16),
             # times of the 7 launches of one ds2 U-Net call, B=128, bf16
@@ -3797,7 +4161,7 @@ def main() -> None:
                       "samplers": zoo, "samplers_card_vs_cpu": zoo_cpu, "bns": bns,
                       "cascade": cascade, "distill": distill, "ds1": ds1, "hgcal": hgcal,
                       "evaluate": evaluation, "int8": int8, "networks": networks,
-                      "card": card}),
+                      "scale_out": scale_out, "card": card}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -392,9 +392,11 @@ def test_unported_sample_options_raise(argv, error, item):
 
 
 def test_jax_checkpoint_is_refused_with_a_message(tmp_path):
-    """The JAX package's checkpoints are Orbax directories."""
+    """The JAX package's checkpoints are Orbax directories: the message names
+    the converter and its command for this checkpoint."""
     (tmp_path / "final.ckpt").mkdir()
-    with pytest.raises(ckpt_io.ForeignCheckpointError, match="M15"):
+    with pytest.raises(ckpt_io.ForeignCheckpointError,
+                       match=f"scripts/orbax_to_torch.py .*--folder {tmp_path} --name final"):
         ckpt_io.load_checkpoint(str(tmp_path), "final")
 
 

@@ -1,5 +1,6 @@
 """calodiffusion_tpu_torch stands alone: no module of the port, nor
-chip_smoke.py, imports JAX, flax or the JAX package, and the port imports
+chip_smoke.py, imports JAX, flax, orbax, the JAX package or the scripts
+(scripts/orbax_to_torch.py, which needs orbax, among them), and the port imports
 and runs with those (and the packages the card machine lacks: h5py, yaml,
 click, matplotlib, sklearn, pandas, optuna) blocked, its train and sample
 CLIs from npz caches too, and its classifier metrics and random study."""
@@ -14,7 +15,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "calodiffusion_tpu_torch"
-FORBIDDEN = ("jax", "flax", "calodiffusion_tpu")
+FORBIDDEN = ("jax", "flax", "orbax", "calodiffusion_tpu", "scripts", "orbax_to_torch")
 
 
 def _forbidden(name: str) -> bool:
