@@ -545,6 +545,19 @@ class HistMaxELayer(Plot):
             self.save_fig(name, fig, ax0)
 
 
+class HistMaxE(Plot):
+    def __call__(self, data_dict, energies):
+        feed_dict = {}
+        for key, data in data_dict.items():
+            p = data.reshape(data.shape[0], -1)
+            feed_dict[key] = np.ma.divide(np.max(p, -1), np.sum(p, -1)).filled(0)
+        binning = np.linspace(0, 1, 10)
+        fig, ax0 = self._hist(feed_dict, xlabel="Max. voxel/Dep. energy",
+                              binning=binning)
+        for name in self.save_names("MaxEnergy"):
+            self.save_fig(name, fig, ax0)
+
+
 class Plot_Shower_2D(Plot):
     """2D average/example shower images for square cartesian grids
     (reference :1026-1090)."""

@@ -211,7 +211,23 @@ prints no result:
             cascade phase's checkpoints with QUANT_INT8_EXCLUDE the JAX
             down-path fence (INT8_FENCE): 128 showers, 400 + 400 steps, Q1 20
             and K1 7 a stage-2 denoise, the calibration and the stages' walls
-            apart
+            apart.  Then the sub-phases int8_ds3_generate (configs/
+            config_dataset3.json, batch 64), int8_hgcal_generate
+            (config_HGCal_photons.json on the hgcal phase's caches, batch
+            256) and int8_ds1_generate (config_dataset1_photon.json on the
+            synthetic binning, batch 128), each at full width, bf16, from
+            seeded weights (cut: DDim 400 -> INT8_FAMILY_STEPS = 50): the
+            calibration on the batch's E and layers timed apart, one batch
+            generated (finite, >= 0, of SHAPE_ORIG; Q1 once a table conv and
+            K1 7 a denoise, the plain version never; Q1's launches by plan,
+            the stream plan among them on HGCal and dataset-1 photons), Q1
+            bit for bit at every geometry of the denoise, bf16 and f32, with
+            its plan, time, device time, the plain version's (timed once,
+            in slices of Q1_REFERENCE_BYTES of im2col), cuDNN's conv3d and
+            the bound, and one f32 int8 denoise card against CPU; and the
+            sample CLI's `sample --int8 ... diffusion` on the hgcal phase's
+            HGCal photons checkpoint (256 showers, 50 steps, the stream plan
+            among Q1's launches)
 15. networks the network variants at ds2's full width (configs/
             config_dataset2.json, bf16, batch 128, seeded weights): cold
             diffusion (COLD_DIFFU: 512 synthetic ds2 showers preprocessed as
@@ -262,14 +278,18 @@ prints no result:
             hgcal_photons_sparse_sample, hgcal_glam_train, hgcal_pions_train,
             hgcal_pions_sample, evaluate_cnn_sample, optimize_train,
             optimize_sample, int8_generate, int8_cascade_sample,
-            int8_transpose, cold_train, cold_sample, fcn_train, fcn_sample,
-            remat_train, convnext_forward, convnext_train, convnext_int8,
+            int8_transpose, int8_ds3_generate, int8_hgcal_generate,
+            int8_hgcal_cli_sample, int8_ds1_generate, cold_train,
+            cold_sample, fcn_train, fcn_sample, remat_train,
+            convnext_forward, convnext_train, convnext_int8,
             controlnet_forward, controlnet_train, ddp_train, ddp_sample,
             hsdp_train (rank 0's); K1's and K2's "launches" sum the last
-            nineteen, the last four slices' paths, Q1's its
-            four; their "ds1" and "hgcal" hold one U-Net call's times of
+            twenty-three, the last five slices' paths, Q1's its
+            eight; their "ds1" and "hgcal" hold one U-Net call's times of
             each config; Q1's times are one ds2 int8 denoise's 36 launches,
-            its ConvNext geometries and plans apart) and, last, {"ok": true,
+            its ConvNext geometries and plans apart, its launches by plan
+            and one denoise's times of each int8 sub-phase in
+            "launches_by_plan" and "families") and, last, {"ok": true,
             "device": {...}}
 """
 
@@ -2792,41 +2812,71 @@ class Int8Counts:
                     k2=self.attn.attention_block_backward.launches)
 
 
+class Q1Launches:
+    """While entered, each Q1 launch's geometry in ``calls``: (x shape, wq
+    shape, stride, padding, cylindrical, kind), ``q1.launch`` patched; kind
+    "transpose core" inside an upsampling transpose (``nn_modules``'
+    ``int8_conv3d_transpose`` patched too, where given), else "conv"; and
+    the mode ``kernel_plan`` names for each geometry in ``plans``."""
+
+    def __init__(self, q1, nn_modules=None):
+        self.q1, self.nn_modules, self.calls, self.plans = q1, nn_modules, [], {}
+
+    def __enter__(self):
+        from unittest import mock
+
+        from calodiffusion_tpu_torch.ops.conv import triple
+
+        launch, inside = self.q1.launch, []
+
+        def recorded(lib, x, wq, scale, bias, inv, stride=1, padding=0, cylindrical=False):
+            key = (tuple(x.shape), tuple(self.q1.Int8Weights.of(wq).wq.shape), triple(stride),
+                   triple(padding), bool(cylindrical), "transpose core" if inside else "conv")
+            if key not in self.plans:
+                self.plans[key] = self.q1.kernel_plan(lib, *key[:5])["mode"]
+            self.calls.append(key)
+            return launch(lib, x, wq, scale, bias, inv, stride, padding, cylindrical)
+
+        self.patches = [mock.patch.object(self.q1, "launch", recorded)]
+        if self.nn_modules is not None:
+            transpose = self.nn_modules.int8_conv3d_transpose
+
+            def marked(*a, **kw):
+                inside.append(1)
+                try:
+                    return transpose(*a, **kw)
+                finally:
+                    inside.pop()
+
+            self.patches.append(mock.patch.object(self.nn_modules, "int8_conv3d_transpose",
+                                                  marked))
+        for patch in self.patches:
+            patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        for patch in self.patches:
+            patch.stop()
+
+    def by_plan(self) -> dict:
+        out = {"window": 0, "gather": 0, "stream": 0}
+        for call in self.calls:
+            out[self.plans[call]] += 1
+        return out
+
+
 def q1_calls_of_a_denoise(model, E, layers, q1, nn_modules):
     """One bf16 int8 denoise of ``model`` (its table with the transposes)
-    at batch 128, each Q1 call's geometry recorded: (x shape, wq shape,
-    stride, padding, cylindrical, kind), kind "transpose core" inside an
-    upsampling transpose."""
-    from unittest import mock
-
-    from calodiffusion_tpu_torch.ops.conv import triple
-
-    calls, inside = [], []
-    launch, transpose = q1.launch, nn_modules.int8_conv3d_transpose
-
-    def record(lib, x, wq, scale, bias, inv, stride=1, padding=0, cylindrical=False):
-        calls.append((tuple(x.shape), tuple(q1.Int8Weights.of(wq).wq.shape), triple(stride),
-                      triple(padding), bool(cylindrical), "transpose core" if inside else "conv"))
-        return launch(lib, x, wq, scale, bias, inv, stride, padding, cylindrical)
-
-    def marked(*a, **kw):
-        inside.append(1)
-        try:
-            return transpose(*a, **kw)
-        finally:
-            inside.pop()
-
+    at batch 128, each Q1 call's geometry recorded (``Q1Launches.calls``)."""
     sigma = torch.full((E.shape[0], 1, 1, 1, 1), 0.7, device="cuda")
     x = torch.randn((E.shape[0], *model._data_shape), device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(7))
-    with mock.patch.object(q1, "launch", record), \
-            mock.patch.object(nn_modules, "int8_conv3d_transpose", marked), \
-            torch.inference_mode(), model.int8_scope():
+    with Q1Launches(q1, nn_modules) as launches, torch.inference_mode(), model.int8_scope():
         y = model.denoise(x, E=E, sigma=sigma, layers=layers)
     torch.cuda.synchronize()
     if not torch.isfinite(y).all():
         fail("int8: the transposes' int8 denoise is not finite")
-    return calls
+    return launches.calls
 
 
 def q1_bound(x_shape, w_shape, out_shape, dtype):
@@ -2839,12 +2889,30 @@ def q1_bound(x_shape, w_shape, out_shape, dtype):
     return bound_ms(nbytes, ops, dtype, flop_rate=INT8_OPS_PER_S)
 
 
-def check_q1(q1, geometries):
+# the plain version's im2col, at most this many int8 bytes a call: a larger
+# batch runs in slices of whole samples (dataset 3's level-0 3x3x3 convs at
+# B = 64 would copy 2.2 GB, HGCal photons' at B = 128 1.3 GB)
+Q1_REFERENCE_BYTES = 1 << 30
+
+
+def q1_reference(q1, x, *args):
+    """int8_conv3d_reference over slices of x's batch, at most
+    Q1_REFERENCE_BYTES of im2col each: the same function (each sample's
+    output depends on that sample alone), bit for bit."""
+    wq, stride, pad = args[0], args[4], args[5]
+    rows = math.prod(q1.output_spatial(x.shape, wq.shape[2:], stride, pad))
+    per = max(1, Q1_REFERENCE_BYTES // (rows * math.prod(wq.shape[1:])))
+    return torch.cat([q1.int8_conv3d_reference(x[i:i + per], *args)
+                      for i in range(0, x.shape[0], per)])
+
+
+def check_q1(q1, geometries, plain_reps=(1, 3)):
     """Q1 against its plain version on the card at each distinct geometry of
-    a ds2 denoise (batch 128), bf16 and f32 activations: equal bit for bit
-    (the s32 sums exact, the dequantization alike; Q1_ULPS allows none
-    between Q1 and the plain version); Q1's time (CUDA events, and the device
-    time), the plain version's, cuDNN's float conv3d at the same shape (the
+    a denoise, bf16 and f32 activations: equal bit for bit (the s32 sums
+    exact, the dequantization alike; Q1_ULPS allows none between Q1 and the
+    plain version); the plan Q1 takes there (``kernel_plan``); Q1's time
+    (CUDA events, and the device time), the plain version's (``plain_reps``:
+    warm-up and timed calls), cuDNN's float conv3d at the same shape (the
     conv Q1 replaces; the library time) and the bound."""
     from calodiffusion_tpu_torch.ops.conv import wrap_pad_phi
 
@@ -2863,29 +2931,31 @@ def check_q1(q1, geometries):
             kept = (x, q1.Int8Weights(wq), *args[2:])
             got = q1.int8_conv3d(*kept)
             torch.cuda.synchronize()
-            want = q1.int8_conv3d_reference(*args)
+            want = q1_reference(q1, *args)
             if got.dtype != dtype or not torch.equal(got, want):
                 err = (got.float() - want.float()).abs().max().item()
                 fail(f"int8 Q1 {kind} x {x_shape} w {w_shape} stride {stride} pad {pad}, "
                      f"{dtype_name(dtype)}: differs from its plain version by {err:.3g}")
+            del want
+            plan = q1.kernel_plan(q1.KERNEL.library(x), x_shape, w_shape, stride, pad, cyl)
             w = wq.to(dtype)
             xp = wrap_pad_phi(x, pad[1]) if cyl else x
             lib_pad = (pad[0], 0, pad[2]) if cyl else pad
             b = None if bias is None else bias.to(dtype)
             k_ms = time_ms(lambda: q1.int8_conv3d(*kept))
             d_ms = device_ms(lambda: q1.int8_conv3d(*kept))
-            p_ms = time_ms(lambda: q1.int8_conv3d_reference(*args), warmup=1, reps=3)
+            p_ms = time_ms(lambda: q1_reference(q1, *args), *plain_reps)
             l_ms = time_ms(lambda: F.conv3d(xp, w, b, stride, lib_pad))
             bound, by, _ = q1_bound(x_shape, w_shape, got.shape, dtype)
             cases.append(dict(kind=kind, x=list(x_shape), w=list(w_shape), stride=list(stride),
                               padding=list(pad), cylindrical=cyl, dtype=dtype_name(dtype),
-                              max_abs_err=0.0, kernel_ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
-                              library_ms=l_ms, bound_ms=bound, bound_by=by))
+                              plan=plan["mode"], max_abs_err=0.0, kernel_ms=k_ms, device_ms=d_ms,
+                              plain_ms=p_ms, library_ms=l_ms, bound_ms=bound, bound_by=by))
             print(f"int8 Q1 {kind} x {x_shape} w {w_shape} stride {stride} pad {pad}"
-                  f"{' phi wrap' if cyl else ''} {dtype_name(dtype)}: equal to its plain "
-                  f"version bit for bit; {k_ms:.4f} ms (device {d_ms:.4f}), plain {p_ms:.2f} ms, "
-                  f"cuDNN {dtype_name(dtype)} conv3d {l_ms:.4f} ms, bound {bound:.4f} ms ({by})",
-                  flush=True)
+                  f"{' phi wrap' if cyl else ''} {dtype_name(dtype)}: plan {plan['mode']}, equal "
+                  f"to its plain version bit for bit; {k_ms:.4f} ms (device {d_ms:.4f}), plain "
+                  f"{p_ms:.2f} ms, cuDNN {dtype_name(dtype)} conv3d {l_ms:.4f} ms, bound "
+                  f"{bound:.4f} ms ({by})", flush=True)
     return cases
 
 
@@ -2898,7 +2968,7 @@ def per_denoise(cases, calls, key, dtype="bfloat16"):
     return sum(by_geometry[call] for call in calls)
 
 
-def check_int8_card_vs_cpu(cfg, state_dict, table, seed, q1):
+def check_int8_card_vs_cpu(cfg, state_dict, table, seed, q1, phase="int8"):
     """One f32 int8 denoise (batch 2) on the card and on the CPU from the
     same weights, scale table and input.  Each quantized conv's card output
     equals the plain version on the CPU, from the input it met on the card,
@@ -2909,11 +2979,13 @@ def check_int8_card_vs_cpu(cfg, state_dict, table, seed, q1):
     from calodiffusion_tpu_torch.ops import quant
 
     cfg = dict(cfg, PRECISION="f32", QUANT_INT8=True)
+    shape = data_shape(cfg)
     rng = np.random.default_rng(seed)
-    x = torch.from_numpy(rng.standard_normal((2, 1, 45, 16, 9)).astype(np.float32))
-    E = torch.from_numpy(rng.uniform(0, 1, (2, 1)).astype(np.float32))
-    lay = torch.from_numpy(rng.standard_normal((2, 46)).astype(np.float32))
-    sigma = torch.full((2, 1, 1, 1, 1), 0.7)
+    x = torch.from_numpy(rng.standard_normal((2, *shape)).astype(np.float32))
+    E = torch.from_numpy(rng.uniform(0, 1, (2, n_cond(cfg))).astype(np.float32))
+    lay = torch.from_numpy(rng.standard_normal((2, cfg["SHAPE_FINAL"][2] + 1))
+                           .astype(np.float32))
+    sigma = torch.full((2,) + (1,) * len(shape), 0.7)
     outs, seen = {}, {}
     for dev in ("cuda", "cpu"):
         m = CaloDiffusion(cfg, device=dev)
@@ -2936,17 +3008,17 @@ def check_int8_card_vs_cpu(cfg, state_dict, table, seed, q1):
         want = q1.int8_conv3d_reference(inp.cpu(), wq, scale, bias, quant.inv_scale(table[path]),
                                         mod.stride, mod.padding, mod.cylindrical)
         if not torch.equal(out.cpu(), want):
-            fail(f"int8 card vs CPU: {path}'s f32 output on the card differs from the plain "
+            fail(f"{phase} card vs CPU: {path}'s f32 output on the card differs from the plain "
                  f"version on its input by {(out.cpu() - want).abs().max().item():.3g}")
     gap = rms_rel(outs["cpu", "int8"], outs["cpu", "float"])
     err = rms_rel(outs["cuda", "int8"], outs["cpu", "int8"])
     float_err = (outs["cuda", "float"] - outs["cpu", "float"]).abs().max().item()
-    if len(seen) != INT8_CONVS or not (0 < gap and err <= INT8_NOISE_RMS * gap) or \
+    if len(seen) != len(table) or not (0 < gap and err <= INT8_NOISE_RMS * gap) or \
             not float_err <= 2e-4:
-        fail(f"int8 card vs CPU (f32): {len(seen)} convs hooked; RMS difference {err:.3g}, the "
-             f"CPU's int8-vs-float gap {gap:.3g} (at most {INT8_NOISE_RMS}x); float "
-             f"{float_err:.3g} (tol 2e-4)")
-    print(f"int8 card vs CPU (f32, batch 2): each of the {len(seen)} quantized convs equal to "
+        fail(f"{phase} card vs CPU (f32): {len(seen)} convs hooked of {len(table)}; RMS "
+             f"difference {err:.3g}, the CPU's int8-vs-float gap {gap:.3g} (at most "
+             f"{INT8_NOISE_RMS}x); float {float_err:.3g} (tol 2e-4)")
+    print(f"{phase} card vs CPU (f32, batch 2): each of the {len(seen)} quantized convs equal to "
           f"the plain version on the CPU from its card input, bit for bit; the int8 denoise "
           f"RMS difference {err:.4g} against the CPU's own int8-vs-float gap {gap:.4g} "
           f"(at most {INT8_NOISE_RMS}x: the card's and the CPU's float activations differ by "
@@ -3020,6 +3092,21 @@ def run_int8_generate(model, loader, args, q1, attn, nn_modules, card, bf16_sps)
     return result, calls, table
 
 
+def counted_prepare(cls, q1, attn, walls, calib):
+    """``cls.prepare_int8`` wrapped: its wall appended to ``walls``, the Q1
+    and K1 launches it made and its table's size put in ``calib``."""
+    prepare = cls.prepare_int8
+
+    def wrapper(model, **kw):
+        before = (q1.int8_conv3d.launches, attn.fused_attention_block.launches)
+        out = synced(prepare, walls)(model, **kw)
+        calib.update(q1=q1.int8_conv3d.launches - before[0],
+                     k1=attn.fused_attention_block.launches - before[1], scales=len(out))
+        return out
+
+    return wrapper
+
+
 def run_int8_cascade(cfg_path, data, base_loc, layer_loc, seed, q1, attn, card, root):
     """The sample CLI's ``sample --int8 ... layer`` on the cascade phase's
     checkpoints and the cli phase's ds2 caches, with QUANT_INT8_EXCLUDE the
@@ -3040,17 +3127,9 @@ def run_int8_cascade(cfg_path, data, base_loc, layer_loc, seed, q1, attn, card, 
                                    "layer", "--layer-model", layer_loc])
     walls = {"stage1": [], "sample": [], "generate": [], "calibration": []}
     calib = {}
-    prepare = LayerDiffusion.prepare_int8
-
-    def timed_prepare(model, **kw):
-        before = (q1.int8_conv3d.launches, attn.fused_attention_block.launches)
-        out = synced(prepare, walls["calibration"])(model, **kw)
-        calib.update(q1=q1.int8_conv3d.launches - before[0],
-                     k1=attn.fused_attention_block.launches - before[1], scales=len(out))
-        return out
-
     with Int8Counts(q1, attn) as counts, \
-            mock.patch.object(LayerDiffusion, "prepare_int8", timed_prepare), \
+            mock.patch.object(LayerDiffusion, "prepare_int8", counted_prepare(
+                LayerDiffusion, q1, attn, walls["calibration"], calib)), \
             mock.patch.object(LayerDiffusion, "sample_layers",
                               synced(LayerDiffusion.sample_layers, walls["stage1"])), \
             mock.patch.object(LayerDiffusion, "sample",
@@ -3082,11 +3161,155 @@ def run_int8_cascade(cfg_path, data, base_loc, layer_loc, seed, q1, attn, card, 
                 generate_s=gen_s, showers_per_s=n / gen_s, scales=calib["scales"], **sampling)
 
 
+# Phase 14's int8 sub-phases beyond ds2 (PR 18): each config at its full
+# width and depth, bf16, from seeded random weights, on one sampling batch
+# of its phase's caches (the cli phase's ds3, the hgcal and ds1 phases'
+# synthetic HGCal photons and dataset-1 photons), DDim cut from 400 to
+# INT8_FAMILY_STEPS steps; ``stream``: Q1's stream plan (the (64 <- 192,
+# 3x3x3) up-path conv of widths [32, 32, 64, 96]) must run
+INT8_FAMILY_STEPS = 50
+INT8_FAMILIES = {
+    "int8_ds3_generate": dict(data="ds3", cache="dataset_3_2.hdf5.npz", batch=DS3_BATCH,
+                              stream=False),
+    "int8_hgcal_generate": dict(data="hgcal_photons", cache="hgcal_photons_2.h5.npz",
+                                batch=256, stream=True),
+    "int8_ds1_generate": dict(data="ds1_photon", cache="dataset_1_photons_2.hdf5.npz",
+                              batch=BATCH, stream=True),
+}
+# and the sample CLI's sample --int8 ... diffusion on HGCal photons
+INT8_FAMILY_PATHS = tuple(INT8_FAMILIES) + ("int8_hgcal_cli_sample",)
+
+
+def run_int8_family(name, root, seed, q1, attn, card):
+    """One int8 sub-phase: its phase's config (``root``/data/config.json)
+    with QUANT_INT8, the model from seeded weights, one batch of E and
+    layers from its cache; the calibration on them timed apart, ``generate``
+    of that batch with INT8_FAMILY_STEPS-step DDim (Q1
+    once a table conv and K1 once an attention block a denoise, the plain
+    version and K2 never; Q1's launches by plan, stream > 0 where the spec
+    says), showers finite, >= 0, of SHAPE_ORIG; then Q1 at every geometry
+    of its denoise against the plain version (check_q1, the plain version
+    timed once) and one f32 int8 denoise card against CPU."""
+    from unittest import mock
+
+    from calodiffusion_tpu_torch.models.diffusion import CaloDiffusion
+
+    spec = INT8_FAMILIES[name]
+    folder, n = root / spec["data"], spec["batch"]
+    cfg = dict(json.loads((folder / "config.json").read_text()), QUANT_INT8=True)
+    model = CaloDiffusion(cfg, generator=torch.Generator().manual_seed(seed))
+    cache = np.load(folder / "data" / spec["cache"])
+    loader = [(cache["E"][:n].astype(np.float32), cache["layers"][:n].astype(np.float32), None)]
+    if len(loader[0][0]) != n:
+        fail(f"{name}: the cache {spec['cache']} holds fewer than {n} rows")
+    n_blocks = len(ATTENTION_BLOCKS[spec["data"]])
+    steps = INT8_FAMILY_STEPS
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    E0, lay0 = (torch.from_numpy(a).cuda() for a in loader[0][:2])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table = model.prepare_int8(E=E0, layers=lay0, generator=gen)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    if not table or set(table) != set(model.quantizable_convs()):
+        fail(f"{name}: calibration gave {len(table)} scales for "
+             f"{len(model.quantizable_convs())} quantizable convs")
+    first, gen_s = [], []
+    with Int8Counts(q1, attn) as counts, Q1Launches(q1) as q1_launches, \
+            mock.patch.object(CaloDiffusion, "denoise",
+                              synced(CaloDiffusion.denoise, first, first_only=True)), \
+            mock.patch.object(CaloDiffusion, "generate", synced(CaloDiffusion.generate, gen_s)):
+        showers, _ = model.generate(loader, steps, generator=gen)
+    got, by_plan = counts.read(), q1_launches.by_plan()
+    denoises = steps * -(-n // CLI_SAMPLE_BATCH)  # microbatches of 128
+    shape = (n, *cfg["SHAPE_ORIG"][1:])
+    if showers.shape != shape or not np.isfinite(showers).all() or (showers < 0).any():
+        fail(f"{name}: showers {showers.shape} (expected {shape}), not all finite and >= 0")
+    want = dict(q1=len(table) * denoises, plain=0, k1=n_blocks * denoises, k2=0)
+    if got != want or (spec["stream"] and by_plan["stream"] == 0):
+        fail(f"{name}: launches {got}, expected {want}; Q1 by plan {by_plan}")
+    sps = n / gen_s[0]
+    steady = n / ((gen_s[0] - first[0]) * denoises / (denoises - 1))
+    print(f"{name}: {spec['data']} full width, bf16, QUANT_INT8: calibration on the batch's E "
+          f"and layers ({len(table)} scales, 8 sigmas, batch {min(n, 64)}) {calib_s:.3f} s; {n} "
+          f"showers, {steps}-step DDim: {gen_s[0]:.2f} s, {sps:.3f} showers/s on {card} (first, "
+          f"cold denoise {first[0]:.3f} s; without it {steady:.3f} showers/s); launches Q1 "
+          f"{got['q1']} ({len(table)} a denoise; by plan {by_plan}), K1 {got['k1']}, K2 "
+          f"{got['k2']}, plain {got['plain']}", flush=True)
+    calls = q1_launches.calls[:len(table)]  # the first denoise's
+    cases = check_q1(q1, list(dict.fromkeys(calls)), plain_reps=(0, 1))
+    for c in cases:
+        if c["plan"] != q1_launches.plans[(tuple(c["x"]), tuple(c["w"]), tuple(c["stride"]),
+                                           tuple(c["padding"]), c["cylindrical"], c["kind"])]:
+            fail(f"{name}: Q1 x {c['x']} w {c['w']} {c['dtype']}: plan {c['plan']} in the check, "
+                 f"another in the generate")
+    card_vs_cpu = check_int8_card_vs_cpu(cfg, model.state_dict(), table, seed + 1, q1,
+                                         phase=name)
+    result = dict(calibration_s=calib_s, scales=len(table), showers=n, steps=steps,
+                  generate_s=gen_s[0], first_denoise_s=first[0], showers_per_s=sps,
+                  showers_per_s_after_first_step=steady, q1_by_plan=by_plan, **got,
+                  card_vs_cpu=card_vs_cpu,
+                  per_denoise={k: per_denoise(cases, calls, k) for k in (
+                      "kernel_ms", "device_ms", "plain_ms", "library_ms", "bound_ms")},
+                  denoise_calls=[list(map(list, c[:4])) + list(c[4:]) for c in calls])
+    return result, cases
+
+
+def run_int8_hgcal_cli(root, ckpt, seed, q1, attn, card):
+    """The sample CLI's ``sample --int8 ... diffusion`` on the hgcal phase's
+    HGCal photons checkpoint and caches: 256 showers, INT8_FAMILY_STEPS-step
+    DDim in microbatches of 128; the calibration (8 float network calls, no
+    Q1) inside generate counted apart; Q1 once a table conv and K1 once an
+    attention block a denoise, the stream plan among Q1's."""
+    from unittest import mock
+
+    from calodiffusion_tpu_torch import inference
+    from calodiffusion_tpu_torch.models.diffusion import CaloDiffusion
+
+    folder = root / "hgcal_photons"
+    cfg = json.loads((folder / "config.json").read_text())
+    n, steps, n_blocks = 256, INT8_FAMILY_STEPS, len(ATTENTION_BLOCKS["hgcal_photons"])
+    flags = inference.parse_flags(["-c", str(folder / "config.json"), "-d",
+                                   str(folder / "data") + "/", "--seed", str(seed), "-n", "-1",
+                                   "sample", "--batch-size", str(n), "--sample-steps",
+                                   str(steps), "--model-loc", ckpt, "--int8", "diffusion"])
+    calib, walls = {}, {"calibration": [], "generate": []}
+    with Int8Counts(q1, attn) as counts, Q1Launches(q1) as q1_launches, \
+            mock.patch.object(CaloDiffusion, "prepare_int8", counted_prepare(
+                CaloDiffusion, q1, attn, walls["calibration"], calib)), \
+            mock.patch.object(CaloDiffusion, "generate",
+                              synced(CaloDiffusion.generate, walls["generate"])):
+        showers, _, _ = inference.generate_showers(flags, flags.config)
+    got, by_plan = counts.read(), q1_launches.by_plan()
+    shape = (n, *cfg["SHAPE_ORIG"][1:])
+    if showers.shape != shape or not np.isfinite(showers).all() or (showers < 0).any():
+        fail(f"int8_hgcal_cli_sample: showers {showers.shape} (expected {shape}), not all "
+             f"finite and >= 0")
+    denoises = steps * n // CLI_SAMPLE_BATCH
+    sampling = dict(q1=got["q1"] - calib["q1"], k1=got["k1"] - calib["k1"], k2=got["k2"],
+                    plain=got["plain"])
+    want = dict(q1=calib["scales"] * denoises, k1=n_blocks * denoises, k2=0, plain=0)
+    if calib["q1"] != 0 or sampling != want or by_plan["stream"] == 0:
+        fail(f"int8_hgcal_cli_sample: calibration {calib}, sampling launches {sampling}, Q1 by "
+             f"plan {by_plan}; expected no Q1 in the calibration, {want}, stream > 0")
+    gen_s = walls["generate"][0]
+    print(f"int8_hgcal_cli_sample: inference CLI sample --int8 ... diffusion, {n} HGCal photons "
+          f"showers, {steps}-step DDim, bf16: calibration {walls['calibration'][0]:.3f} s "
+          f"({calib['scales']} scales); generate {gen_s:.2f} s, {n / gen_s:.3f} showers/s on "
+          f"{card}; sampling launched Q1 {sampling['q1']} (by plan {by_plan}), K1 "
+          f"{sampling['k1']}, K2 {sampling['k2']}, plain {sampling['plain']}", flush=True)
+    return dict(calibration_s=walls["calibration"][0], generate_s=gen_s, showers=n,
+                steps=steps, showers_per_s=n / gen_s, scales=calib["scales"],
+                q1_by_plan=by_plan, **sampling)
+
+
 def run_int8_phase(model, loader, args, cascade_loc, made, cli, root, q1, attn, nn_modules,
-                   card, bf16_sps):
+                   card, bf16_sps, hgcal_ckpt):
     """Phase 14: the int8 generate and its transposes, Q1 at each geometry of
     their denoise, one f32 int8 denoise card against CPU, the fenced int8
-    cascade through the sample CLI."""
+    cascade through the sample CLI; then the sub-phases of INT8_FAMILIES
+    (dataset 3, HGCal photons, dataset-1 photons) and HGCal's sample
+    --int8 through the CLI (``hgcal_ckpt``)."""
     generate, calls, table = run_int8_generate(model, loader, args, q1, attn, nn_modules, card,
                                                bf16_sps)
     geometries = list(dict.fromkeys(calls))
@@ -3096,8 +3319,18 @@ def run_int8_phase(model, loader, args, cascade_loc, made, cli, root, q1, attn, 
     _, cfg_path, data = made["ds2"]
     cascade = run_int8_cascade(cfg_path, data, cli["ds2"]["checkpoint"], cascade_loc,
                                args.seed + 92, q1, attn, card, root)
-    return dict(generate=generate, card_vs_cpu=card_vs_cpu, cascade=cascade,
-                denoise_calls=[list(map(list, c[:4])) + list(c[4:]) for c in calls]), cases, calls
+    families, family_cases = {}, {}
+    for i, name in enumerate(INT8_FAMILIES):
+        t0 = time.perf_counter()
+        families[name], family_cases[name] = run_int8_family(name, root, args.seed + 93 + 2 * i,
+                                                             q1, attn, card)
+        if name == "int8_hgcal_generate":
+            families["int8_hgcal_cli_sample"] = run_int8_hgcal_cli(
+                root, hgcal_ckpt, args.seed + 99, q1, attn, card)
+        print(f"int8 {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(generate=generate, card_vs_cpu=card_vs_cpu, cascade=cascade, families=families,
+                denoise_calls=[list(map(list, c[:4])) + list(c[4:]) for c in calls]), cases, \
+        calls, family_cases
 
 
 # ---------------------------------------------------------------------------
@@ -4013,8 +4246,9 @@ def main() -> None:
 
     # 14. int8, from phase 4's weights and the cascade phase's checkpoints
     t0 = time.perf_counter()
-    int8, q1_cases, q1_calls = run_int8_phase(model, loader, args, cascade["checkpoint"], made,
-                                              cli, root, q1, attn, nn_modules, card, bf16_sps)
+    int8, q1_cases, q1_calls, q1_family_cases = run_int8_phase(
+        model, loader, args, cascade["checkpoint"], made, cli, root, q1, attn, nn_modules, card,
+        bf16_sps, hgcal["hgcal_photons"]["checkpoint"])
     print(f"int8: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 15. networks, from phase 4's weights
@@ -4067,17 +4301,19 @@ def main() -> None:
             "int8_cascade_sample": int8["cascade"][key],
             "int8_transpose": int8["generate"]["transpose"][key],
         })
+        by_path.update({p: int8["families"][p][key] for p in INT8_FAMILY_PATHS})
         by_path.update({p: network_paths[p][0 if key == "k1" else 1] for p in NETWORK_PATHS})
         # rank 0's launches on the scale-out paths (phase 16)
         by_path.update({p: scale_out_paths[p][0 if key == "k1" else 1]
                         for p in SCALE_OUT_PATHS})
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            # launches on the last four slices' paths: CNNCompare's sampling,
-            # the optimize trial's training and sampling, the int8 paths, the
-            # network variants', the scale-out paths
-            launches=sum(by_path[k] for k in EVALUATE_PATHS + INT8_PATHS + NETWORK_PATHS
-                         + SCALE_OUT_PATHS),
+            # launches on the last five slices' paths: CNNCompare's sampling,
+            # the optimize trial's training and sampling, the int8 paths (ds2's
+            # and the other families'), the network variants', the scale-out
+            # paths
+            launches=sum(by_path[k] for k in EVALUATE_PATHS + INT8_PATHS + INT8_FAMILY_PATHS
+                         + NETWORK_PATHS + SCALE_OUT_PATHS),
             launches_by_path=by_path,
             max_abs_err=max(c["max_abs_err"] for c in bf16),
             # times of the 7 launches of one ds2 U-Net call, B=128, bf16
@@ -4136,12 +4372,14 @@ def main() -> None:
     q1_paths = {"int8_generate": int8["generate"]["q1"],
                 "int8_cascade_sample": int8["cascade"]["q1"],
                 "int8_transpose": int8["generate"]["transpose"]["q1"],
-                "convnext_int8": networks["convnext"]["int8"]["q1"]}
+                "convnext_int8": networks["convnext"]["int8"]["q1"],
+                **{p: int8["families"][p]["q1"] for p in INT8_FAMILY_PATHS}}
     kernels.append(dict(
         name="int8_conv3d", route="cuda", source=SOURCES["int8_conv3d"],
         replaces=REPLACES["int8_conv3d"], launches=sum(q1_paths.values()),
         launches_by_path=q1_paths,
-        max_abs_err=max(c["max_abs_err"] for c in q1_bf16 + q1_net_cases),
+        max_abs_err=max(c["max_abs_err"] for c in q1_bf16 + q1_net_cases
+                        + sum(q1_family_cases.values(), [])),
         **{name: per_denoise(q1_cases, main_calls, key) for name, key in (
             ("ms", "kernel_ms"), ("plain_ms", "plain_ms"), ("device_ms", "device_ms"),
             ("bound_ms", "bound_ms"), ("library_ms", "library_ms"))},
@@ -4152,6 +4390,14 @@ def main() -> None:
         launches_per_call=INT8_CONVS, igmma_instructions=igmma, cases=q1_cases,
         # and at the ConvNext U-Net's geometries (phase 15), with their plans
         convnext_cases=q1_net_cases, convnext_plans=networks["convnext"]["q1_plans"],
+        # and on phase 14's dataset-3, HGCal-photons and dataset-1-photons
+        # paths: the launches by plan, one bf16 denoise's times (Q1 at each
+        # launch's geometry, B as generated) and every geometry's cases
+        launches_by_plan={p: int8["families"][p]["q1_by_plan"] for p in INT8_FAMILY_PATHS},
+        families={p: dict(int8["families"][p]["per_denoise"],
+                          launches_per_call=int8["families"][p]["scales"],
+                          cases=q1_family_cases[p])
+                  for p in INT8_FAMILIES},
     ))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"train": {k: v for k, v in train.items() if k != "steps"},

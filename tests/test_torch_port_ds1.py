@@ -40,6 +40,7 @@ from calodiffusion_tpu_torch.utils.geom import GeomConverter
 from calodiffusion_tpu_torch.utils.xml_handler import XMLHandler
 from tests.test_torch_port_data import make_h5
 from tests.test_torch_port_model import random_params
+from tests.test_torch_int8_family import Int8Runs, check_int8_generate
 
 CONFIGS = os.path.join(os.path.dirname(__file__), "..", "configs")
 PARTS = ("photon", "pion")
@@ -319,6 +320,49 @@ def test_ddim_from_an_injected_start_matches_jax(pair):
                                        torch.from_numpy(layers), steps, 0, None, False)
     assert got.shape == want.shape == start.shape
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=DENOISE_ATOL)
+
+
+# ---------------------------------------------------------------------------
+# int8 (W8A8) sampling through the in-model embed (tests/test_torch_int8_family.py)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def int8_runs(pair):
+    """The int8 comparisons of each particle's pair, computed once: the
+    embed runs in f32 outside the quantized U-Net."""
+    part, cfg, jm, params, tm = pair
+    x, E, layers = _batch(cfg, 2, seed=40)
+    start = _batch(cfg, 2, seed=41)[0]
+    return Int8Runs(cfg, jm, params, tm, x, E, layers, np.full((2, 1), 0.7, np.float32), start,
+                    seed=42)
+
+
+def test_int8_calibration_table_matches_jax(pair, int8_runs):
+    """The key set of JAX's table (the U-Net's convs, none of NN_embed), with
+    and without the transposes, the values within 1e-4."""
+    int8_runs.check_tables()
+    assert all(k.startswith("CondUnet_0/") for k in int8_runs.tables[1])
+
+
+def test_each_conv_of_an_int8_denoise_matches_the_jax_op(int8_runs):
+    int8_runs.check_convs()
+
+
+@pytest.mark.parametrize("what", ["denoise", "ddim"])
+def test_int8_call_lies_within_int8_noise_of_jax(pair, int8_runs, what):
+    """The int8 denoise and a 4-step int8 DDim from an injected start, in
+    the flat orig layout, within INT8_NOISE_RMS of JAX's int8-vs-float gap."""
+    int8_runs.check_within_int8_noise(what)
+    assert int8_runs.port[f"{what}_int8"].shape == (2, pair[1]["SHAPE_ORIG"][1])
+
+
+def test_int8_generate_calibrates_on_the_first_batch(pair):
+    """generate --int8 on dataset 1: the calibration on the first batch's E
+    and layers, the int8 U-Net behind the f32 embed, the flat orig-shape
+    showers of the inverse preprocessing."""
+    part, cfg, jm, params, tm = pair
+    loader = [_batch(cfg, 2, seed=s)[1:] + (None,) for s in (43, 44)]
+    check_int8_generate(tm, loader)
 
 
 def test_embed_roundtrip_matches_jax(pair):

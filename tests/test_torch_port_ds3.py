@@ -23,6 +23,7 @@ from calodiffusion_tpu_torch.samplers import get_sampler
 from calodiffusion_tpu_torch.tools.jax_import import params_to_state_dict
 from calodiffusion_tpu_torch.utils import preprocessing as tprep
 from tests.test_torch_port_model import random_params
+from tests.test_torch_int8_family import Int8Runs, check_int8_generate
 from tests.utils_test import fake_batch
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -138,3 +139,38 @@ def test_generate_end_to_end_on_cpu(pair):
     showers, energies = tm.generate(loader, 2, generator=torch.Generator().manual_seed(0))
     assert showers.shape == (4, 40500) and energies.shape == (4, 1)
     assert np.isfinite(showers).all() and (showers >= 0).all()
+
+
+# ---------------------------------------------------------------------------
+# int8 (W8A8) sampling on the full grid (tests/test_torch_int8_family.py)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def int8_runs(pair):
+    cfg, jm, params, tm = pair
+    x, E, _ = fake_batch(cfg, batch=2, seed=20)
+    start = fake_batch(cfg, batch=2, seed=21)[0]
+    return Int8Runs(cfg, jm, params, tm, x, E, None, np.full((2, 1, 1, 1, 1), 0.7, np.float32),
+                    start, seed=22)
+
+
+def test_int8_calibration_table_matches_jax(int8_runs):
+    """No layer conditioning: E alone; JAX's key set with and without the
+    transposes, the values within 1e-4."""
+    int8_runs.check_tables()
+
+
+def test_each_conv_of_an_int8_denoise_matches_the_jax_op(int8_runs):
+    int8_runs.check_convs()
+
+
+@pytest.mark.parametrize("what", ["denoise", "ddim"])
+def test_int8_call_lies_within_int8_noise_of_jax(int8_runs, what):
+    int8_runs.check_within_int8_noise(what)
+    assert int8_runs.port[f"{what}_int8"].shape == (2, 1, 45, 50, 18)
+
+
+def test_int8_generate_calibrates_on_the_first_batch(pair):
+    cfg, _, _, tm = pair
+    loader = [fake_batch(cfg, batch=1, seed=s)[1:] + (None,) for s in (23, 24)]
+    assert check_int8_generate(tm, loader).shape == (2, 40500)

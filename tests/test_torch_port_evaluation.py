@@ -81,6 +81,41 @@ def test_hlf_features_match_jax(binnings, name):
     np.testing.assert_array_equal(t.feature_matrix(energies), j.feature_matrix(energies))
 
 
+def test_hist_max_e_feeds_the_jax_histogram(tmp_path):
+    """HistMaxE (JAX evaluation/plots.py:523-533): the histogram input (each
+    shower's max voxel over its sum, 0 for an empty shower), its binning
+    and its label equal the JAX class's on the same showers, with the
+    figure drawn neither side."""
+    from types import SimpleNamespace
+
+    from calodiffusion_tpu.evaluation import plots as jplots
+    from calodiffusion_tpu_torch.evaluation import plots as tplots
+
+    x, E = _showers(12, 6480, seed=7)
+    x[3] = 0  # an empty shower: the masked division's 0
+    data = {"Geant4": x, "CaloDiffusion": np.flip(x, 0).copy()}
+    cfg = {"SHAPE_FINAL": [-1, 1, 45, 16, 9], "SHAPE_PAD": [-1, 1, 45, 16, 9],
+           "CHECKPOINT_NAME": "hist"}
+    flags = SimpleNamespace(plot_folder=str(tmp_path), generated="gen.h5")
+    fed = {}
+    for name, mod in (("jax", jplots), ("port", tplots)):
+        plot = mod.HistMaxE(flags, dict(cfg))
+
+        def hist(feed_dict, name=name, **kw):
+            fed[name] = (feed_dict, kw)
+            return None, None
+
+        plot._hist, plot.save_fig = hist, lambda *a: None
+        plot(data, E)
+    (want, want_kw), (got, got_kw) = fed["jax"], fed["port"]
+    assert set(got) == set(want) == set(data)
+    for key in data:
+        assert got[key].dtype == want[key].dtype and got[key].tobytes() == want[key].tobytes()
+    assert want["Geant4"][3] == 0 and (want["Geant4"] > 0).sum() == 11
+    np.testing.assert_array_equal(got_kw.pop("binning"), want_kw.pop("binning"))
+    assert got_kw == want_kw == {"xlabel": "Max. voxel/Dep. energy"}
+
+
 def test_frechet_matches_jax():
     rng = np.random.default_rng(2)
     real = rng.normal(0, 1, (600, 6))

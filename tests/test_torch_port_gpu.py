@@ -827,6 +827,59 @@ def test_int8_conv3d_kernel_matches_plain(B, Cin, Cout, spatial, kernel, stride,
         assert torch.equal(got, want)
 
 
+# Q1 at the int8 geometries of the [32, 32, 64, 96] configs and of dataset
+# 3, at B = 4: the plan its shape picks on the card and the plans that fit
+# ("stream" alone for the (64 <- 192, 3x3x3) up-path conv, whose 64 x 27 x
+# 192 bytes of weights no CTA holds resident): HGCal photons' and dataset-1
+# photons' grids (12, 3, 5) and (2, 2, 7); HGCal's 96 -> 96 conv (Cp 96:
+# kr S = 9 k-steps a streamed chunk, an odd count); dataset 3's level-0
+# 3x3x3 conv on its (45, 50, 18) grid and its downsample
+ALL_PLANS = ["window", "gather", "stream"]
+Q1_PLAN_SHAPES = [(4, 192, 64, (12, 3, 5), (3, 3, 3), 1, 1, True, "stream", ["stream"]),
+                  (4, 192, 64, (2, 2, 7), (3, 3, 3), 1, 1, True, "stream", ["stream"]),
+                  (4, 192, 64, (12, 3, 5), (1, 1, 1), 1, 0, True, "gather", ALL_PLANS),
+                  (4, 96, 96, (12, 3, 5), (3, 3, 3), 1, 1, True, "window", ALL_PLANS),
+                  (4, 32, 32, (45, 50, 18), (3, 3, 3), 1, 1, True, "gather", ALL_PLANS),
+                  (4, 32, 32, (45, 50, 18), (3, 4, 4), 2, 1, True, "gather",
+                   ["gather", "stream"])]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("B,Cin,Cout,spatial,kernel,stride,padding,cyl,auto,modes",
+                         Q1_PLAN_SHAPES)
+def test_int8_conv3d_plans_match_plain(B, Cin, Cout, spatial, kernel, stride, padding, cyl, auto,
+                                       modes, dtype):
+    """The plan Q1 picks by shape is ``auto``; each plan that fits, forced,
+    equals the plain version bit for bit, with a bias and without; a plan
+    that does not fit raises (no fallback)."""
+    from calodiffusion_tpu_torch.ops import int8_conv
+
+    g = torch.Generator().manual_seed(Cin + Cout + sum(spatial))
+    x = torch.randn(B, Cin, *spatial, generator=g).to("cuda", dtype)
+    wq = torch.randint(-127, 128, (Cout, Cin, *kernel), generator=g, dtype=torch.int8).cuda()
+    scale = (1e-4 * (1 + torch.rand(Cout, generator=g))).cuda()
+    bias = (0.1 * torch.randn(Cout, generator=g)).cuda()
+    lib = int8_conv.KERNEL.library(x)
+    plan = int8_conv.kernel_plan(lib, x.shape, wq.shape, stride, padding, cyl)
+    assert plan["mode"] == auto and plan["smem_bytes"] <= 232448, plan
+    for mode in ALL_PLANS:
+        if mode not in modes:
+            with pytest.raises(RuntimeError, match="launch failed"):
+                int8_conv.launch(lib, x, wq, scale, bias, 127 / 2.5, stride, padding, cyl,
+                                 plan=mode)
+            continue
+        assert int8_conv.kernel_plan(lib, x.shape, wq.shape, stride, padding, cyl,
+                                     plan=mode)["mode"] == mode
+        for b in (bias, None):
+            want = int8_conv.int8_conv3d_reference(x, wq, scale, b, 127 / 2.5, stride, padding,
+                                                   cyl)
+            got = int8_conv.launch(lib, x, wq, scale, b, 127 / 2.5, stride, padding, cyl,
+                                   plan=mode)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and torch.equal(got, want), \
+                (mode, (got.float() - want.float()).abs().max().item())
+
+
 def test_int8_conv3d_keeps_its_weight_image_and_refuses_a_gradient():
     """An ``Int8Weights`` gives the same output as the bare int8 weights and
     keeps the reordered image it made; a call that would need a gradient

@@ -30,6 +30,7 @@ from calodiffusion_tpu_torch.tools.jax_import import params_to_state_dict
 from calodiffusion_tpu_torch.utils import hgcal_utils as th
 from calodiffusion_tpu_torch.utils.config import default_flags
 from tests.test_torch_port_model import random_params
+from tests.test_torch_int8_family import Int8Runs, check_int8_generate
 from tests.utils_test import tiny_ds2_config
 
 CONFIGS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs")
@@ -489,6 +490,61 @@ def test_generate_roundtrip_decodes_as_jax(pairs, sparse, monkeypatch):
         assert (got > 0).sum() < (tm.generate(loader, 1, roundtrip=True)[0] > 0).sum()
     else:
         assert _max_norm_rel(got, want) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# int8 (W8A8) sampling, pre-embed and in-model GLaM (tests/test_torch_int8_family.py)
+# ---------------------------------------------------------------------------
+
+INT8_EMBEDS = ("pre-embed", "trainable")
+
+
+@pytest.fixture(scope="module")
+def int8_runs(pairs):
+    """By embed, computed at first use: E the three gen-info columns, the
+    GLaM outside the quantized U-Net."""
+    runs = {}
+
+    def get(embed):
+        if embed not in runs:
+            _, cfg, jm, params, tm, _ = pairs(embed)
+            x, E, layers = _batch(cfg, 2, seed=30)
+            start = _batch(cfg, 2, seed=31)[0]
+            sigma = np.full((2,) + (1,) * (x.ndim - 1), 0.7, np.float32)
+            runs[embed] = Int8Runs(cfg, jm, params, tm, x, E, layers, sigma, start, seed=32)
+        return runs[embed]
+
+    return get
+
+
+@pytest.mark.parametrize("embed", INT8_EMBEDS)
+def test_int8_calibration_table_matches_jax(int8_runs, embed):
+    """E (B, 3) and layers (B, 5); JAX's key set with and without the
+    transposes (none of NN_embed), the values within 1e-4."""
+    runs = int8_runs(embed)
+    runs.check_tables()
+    assert all(k.startswith("CondUnet_0/") for k in runs.tables[1])
+
+
+@pytest.mark.parametrize("embed", INT8_EMBEDS)
+def test_each_conv_of_an_int8_denoise_matches_the_jax_op(int8_runs, embed):
+    int8_runs(embed).check_convs()
+
+
+@pytest.mark.parametrize("what", ["denoise", "ddim"])
+@pytest.mark.parametrize("embed", INT8_EMBEDS)
+def test_int8_call_lies_within_int8_noise_of_jax(int8_runs, embed, what):
+    int8_runs(embed).check_within_int8_noise(what)
+
+
+@pytest.mark.parametrize("embed", INT8_EMBEDS)
+def test_int8_generate_calibrates_on_the_first_batch(pairs, embed):
+    """generate --int8, then reverse_norm_hgcal (the pre-embed's GLaM decode
+    on the CPU, or the in-model GLaM's in the network): (n, 4, 91) cells."""
+    _, cfg, _, _, tm, _ = pairs(embed)
+    loader = [(E, np.clip(layers, -1, 1), None)
+              for _, E, layers in (_batch(cfg, 2, seed=s) for s in (33, 34))]
+    assert check_int8_generate(tm, loader).shape == (4, 4, NCELL)
 
 
 def test_layer_cascade_generates_hgcal_showers(geom_file):
