@@ -23,6 +23,17 @@ says) is the target network, and since inference prefers EMA weights, a
 distilled checkpoint is a plain ``CaloDiffusion`` checkpoint that
 ``sample ... diffusion --sample-algo Consistency`` samples from.
 
+On a mesh with a "model" axis the student's network is sharded by FSDP2,
+whose hooks gather only its own shards, so a swap of whole weights cannot
+run through it.  There the teacher and the target are networks of their
+own, built from the same config and sharded on the same mesh
+(``mesh.shard_params_tp``, frozen, resharded after each call), and the EMA
+update acts on the target's shards, which FSDP2 places as the student's:
+shard by shard it is the whole-tensor update.  ``ema_params`` is the
+target's state (its shards); an EMA restored from a checkpoint is loaded
+into the target before the next step.  JAX replicates all three where
+FSDP2 shards (ROADMAP Queue 3); the arithmetic is the same.
+
 Config keys: TEACHER_LOC (or ``--teacher-loc``, or ``teacher_params=``),
 CONSIS_NSTEPS (default 100), DISTILL_TARGET_DECAY, DISTILL_LOSS
 ("pseudo_huber" or "l2"), DISTILL_HUBER_C (default
@@ -39,7 +50,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from calodiffusion_tpu_torch.models.diffusion import net_key
+from calodiffusion_tpu_torch.models.diffusion import CaloDiffusion, net_key
 from calodiffusion_tpu_torch.models.losses import share_of_mean
 from calodiffusion_tpu_torch.parallel import mesh as mesh_lib
 from calodiffusion_tpu_torch.samplers import schedules
@@ -76,6 +87,9 @@ class TrainDistillation(TrainDiffusion):
         self._teacher_arg = teacher_params
         self.teacher_params = None
         self._idx_probs = None
+        # on a "model" axis: the teacher's and the target's own sharded networks
+        self._teacher = self._target = None
+        self._target_state = None  # the target's state, which ema_params is while in step
 
     # -- model and teacher ---------------------------------------------------
     def _load_teacher(self):
@@ -89,13 +103,10 @@ class TrainDistillation(TrainDiffusion):
         return ckpt_io.load_inference_weights(loc, self.device)  # the teacher's SWA/EMA weights
 
     def init_model(self):
-        if mesh_lib.axis(self.mesh, "model")[1] > 1:
-            raise NotImplementedError(
-                "consistency distillation runs on a mesh's data axis only: its teacher and "
-                "target calls swap weights into the student's network, which a model axis "
-                "shards (FSDP2)")
         super().init_model()
         teacher = self._load_teacher()
+        if mesh_lib.axis(self.mesh, "model")[1] > 1:
+            return self._init_sharded(teacher)
         if teacher is not None:
             self.teacher_params = {k: v.detach().to(self.device, torch.float32).clone()
                                    for k, v in teacher.items()}
@@ -105,6 +116,45 @@ class TrainDistillation(TrainDiffusion):
         self.ema_params = _copy(self.model.state_dict())
         self._denoiser = _Denoiser(self.model)
         return self.model
+
+    def _init_sharded(self, teacher: Optional[dict]):
+        """``init_model`` on a "model" axis: the student (FSDP2, placed by
+        ``_place_model``) starts from the teacher's weights through
+        ``shard_like``; the teacher and the target are frozen networks of
+        their own on the mesh, the target starting as the student."""
+        if teacher is not None:
+            self._teacher = self._frozen_network(teacher)
+            self.teacher_params = self._teacher.state_dict()
+            self.model.load_state_dict(mesh_lib.shard_like(
+                {k: v.to(self.device, torch.float32) for k, v in teacher.items()},
+                self.model.state_dict()))
+        self.ema_decay = float(self.config.get("DISTILL_TARGET_DECAY", 0.95))
+        self._target = self._frozen_network(self.model.state_dict())
+        self._target_state = self.ema_params = self._target.state_dict()
+        return self.model
+
+    def _frozen_network(self, weights: dict) -> CaloDiffusion:
+        """A ``CaloDiffusion`` of the config holding ``weights`` (whole
+        tensors, or DTensors placed as the student's), its network frozen
+        and sharded on the mesh as the student's is."""
+        model = CaloDiffusion(self.config, n_steps=self.config["NSTEPS"],
+                              loss_type=self.config["LOSS_TYPE"], device=self.device,
+                              generator=torch.Generator().manual_seed(self.seed))
+        model.net.requires_grad_(False)
+        mesh_lib.shard_params_tp(self.mesh, model.net)
+        model.load_state_dict(mesh_lib.shard_like(weights, model.state_dict()))
+        return model
+
+    def _target_network(self) -> CaloDiffusion:
+        """The target network, holding ``ema_params``: an EMA that is not
+        the target's own state (restored from a checkpoint, or set by a
+        caller) is loaded into it first, and ``ema_params`` becomes its
+        state again, so the EMA update moves the target's shards."""
+        if self.ema_params is not self._target_state:
+            self._target.load_state_dict(
+                mesh_lib.shard_like(self.ema_params, self._target.state_dict()))
+            self._target_state = self.ema_params = self._target.state_dict()
+        return self._target
 
     def _ema_follows_weights(self) -> bool:
         """The consistency target follows the student at any decay (JAX
@@ -133,18 +183,24 @@ class TrainDistillation(TrainDiffusion):
         p = np.maximum(cdf[1:] - cdf[:-1], 1e-12)
         return np.log(p / p.sum()).astype(np.float32)
 
-    def _denoise_with(self, weights: dict, x, E, sigma, layers):
+    def _denoise_with(self, weights, x, E, sigma, layers):
         """The student's network run on ``weights`` (a ``CaloDiffusion``
-        state_dict)."""
+        state_dict), or ``weights``'s own network where it is a frozen
+        ``CaloDiffusion`` of a "model" axis (resharded after the call)."""
+        if isinstance(weights, CaloDiffusion):
+            out = weights.denoise(x, E=E, sigma=sigma, layers=layers)
+            weights.net.reshard()  # FSDP2 keeps a root's gathered weights after its forward
+            return out
         params = {f"net.{net_key(k)}": v for k, v in weights.items()}
         return torch.func.functional_call(self._denoiser, params, (x, E, sigma, layers))
 
-    def distill_loss(self, data, E, layers, idx, noise, target: Optional[dict] = None,
-                     mask=None):
+    def distill_loss(self, data, E, layers, idx, noise, target=None, mask=None):
         """The consistency loss at grid indices ``idx`` (B,) and ``noise``
         (data's shape): the student's denoise against ``target``'s (a
-        state_dict; None: the student itself) at the teacher's Heun step
-        (JAX ``_distill_loss_fn``)."""
+        state_dict, or on a "model" axis the target network; None: the
+        student itself) at the teacher's Heun step (JAX
+        ``_distill_loss_fn``)."""
+        teacher = self._teacher if self._teacher is not None else self.teacher_params
         grid = torch.from_numpy(self._sigma_grid()).to(data.device)
         gaps = grid[1:] - grid[:-1]
         idx = torch.as_tensor(idx, device=data.device).long()
@@ -153,10 +209,10 @@ class TrainDistillation(TrainDiffusion):
         sig_cur = grid[idx].reshape(bs)
         x_next = data + sig_next * noise
         with torch.no_grad():  # teacher Heun PF-ODE step sigma_{i+1} -> sigma_i
-            x0_a = self._denoise_with(self.teacher_params, x_next, E, sig_next, layers)
+            x0_a = self._denoise_with(teacher, x_next, E, sig_next, layers)
             d_a = (x_next - x0_a) / sig_next
             x_mid = x_next + (sig_cur - sig_next) * d_a
-            x0_b = self._denoise_with(self.teacher_params, x_mid, E, sig_cur, layers)
+            x0_b = self._denoise_with(teacher, x_mid, E, sig_cur, layers)
             d_b = (x_mid - x0_b) / sig_cur
             x_prev = x_next + (sig_cur - sig_next) * 0.5 * (d_a + d_b)
             tgt = (self.model.denoise(x_prev, E=E, sigma=sig_cur, layers=layers)
@@ -204,7 +260,8 @@ class TrainDistillation(TrainDiffusion):
                 noise = randn(data.shape, self.generator, self.device)
             for p in self.model.parameters():
                 p.grad = None
-            loss = self.distill_loss(data, E, layers, idx, noise, target=self.ema_params)
+            target = self.ema_params if self._target is None else self._target_network()
+            loss = self.distill_loss(data, E, layers, idx, noise, target=target)
             loss.backward()
         self._apply_update()
         return loss.detach()

@@ -27,7 +27,9 @@ prints no result:
             every (C, N) of the two dataset-1 U-Nets (C = 16, 32, 64, 96;
             batch 128) and K3 (LinearAttention alone) at (1610, 16) and
             (28, 96); then K1 and K2 at every (C, N) of the three HGCal
-            U-Nets (HGCAL_ATTENTION_BLOCKS; batch 128)
+            U-Nets (HGCAL_ATTENTION_BLOCKS; batch 128); then K1's and K2's
+            bf16 times over the 7 launches of one U-Net call of each config
+            beside their bound
 4. main     dataset-2 shower generation at the full width of
             configs/config_dataset2.json (bf16, 400-step DDIM, batch 128)
             through CaloDiffusion.generate, from seeded random weights; the
@@ -224,7 +226,9 @@ prints no result:
             bit for bit at every geometry of the denoise, bf16 and f32, with
             its plan, time, device time, the plain version's (timed once,
             in slices of Q1_REFERENCE_BYTES of im2col), cuDNN's conv3d and
-            the bound, and one f32 int8 denoise card against CPU; and the
+            the bound (and Q1's times over one denoise, summed over its
+            launches, beside the bound so summed), and one f32 int8 denoise
+            card against CPU; and the
             sample CLI's `sample --int8 ... diffusion` on the hgcal phase's
             HGCal photons checkpoint (256 showers, 50 steps, the stream plan
             among Q1's launches)
@@ -268,9 +272,33 @@ prints no result:
             rank; a sharded 20-step DDim sample of 128 against one
             process's (evaluations x 2e-4); (c) data 1 x model 2 through
             FSDP2 (each rank all 128 rows, the weights' dim 0 sharded): the
-            same step checks.  Each sub-phase's ms a step, peak memory and
-            the card's name and power limit printed
-17. result  {"kernels": [...]} (each kernel's launches by path: generate,
+            same step checks; (d) hsdp_distill on the same ranks:
+            consistency distillation with phase 4's weights as the teacher,
+            the student FSDP2's, the teacher and the target networks of
+            their own sharded on the mesh: one f32 step with injected grid
+            indices and noise against one process's on the card ((c)'s
+            checks, the target after its EMA update too), both ranks the
+            same, then DISTILL_TIMED_STEPS bf16 steps timed; K1 28 (student,
+            teacher twice, target) and K2 7 in every step of each rank; the
+            checkpoint written by rank 0 with every shard gathered and
+            restored whole into a fresh pair of ranks; a 4-step Consistency
+            sample of 128 from it (finite, >= 0, of SHAPE_ORIG; K1 28).
+            Each sub-phase's ms a step, peak memory and the card's name and
+            power limit printed
+17. jobs    the job-launch scripts: scripts/torch_submit_training.py writes
+            the training job for the cli phase's ds2 caches (full width,
+            MAXEPOCH 2, cut like the cli phase) and its train.sh runs under
+            the real torchrun (--nproc-per-node gpu); once the first
+            attempt has checkpointed epoch 0 and begun epoch 1 its rank gets
+            SIGTERM, as a scheduler preempts a job; the script's loop runs
+            again with --load, which resumes at epoch 1 and ends at MAXEPOCH
+            (final_state.json: epoch 1, both epochs' losses); the second
+            attempt's rank launches K1 7 a step and the val batch and K2 7 a
+            step (counted by a sitecustomize hook on the job's PYTHONPATH);
+            attempts, epochs and walls printed.  The inference and plotting
+            jobs write h5 (no h5py here): tests/test_torch_port_jobs.py runs
+            them on the CPU
+18. result  {"kernels": [...]} (each kernel's launches by path: generate,
             train, the cli paths, samplers, bns, variants, cascade_train,
             cascade_sample, distill_train, distill_val, distill_sample,
             ds1_photon_train, ds1_photon_sample, ds1_pion_train,
@@ -283,8 +311,9 @@ prints no result:
             cold_sample, fcn_train, fcn_sample, remat_train,
             convnext_forward, convnext_train, convnext_int8,
             controlnet_forward, controlnet_train, ddp_train, ddp_sample,
-            hsdp_train (rank 0's); K1's and K2's "launches" sum the last
-            twenty-three, the last five slices' paths, Q1's its
+            hsdp_train, hsdp_distill (rank 0's), jobs_train; K1's and K2's
+            "launches" sum the last twenty-five, the last six slices' paths,
+            Q1's its
             eight; their "ds1" and "hgcal" hold one U-Net call's times of
             each config; Q1's times are one ds2 int8 denoise's 36 launches,
             its ConvNext geometries and plans apart, its launches by plan
@@ -300,6 +329,7 @@ import contextlib
 import importlib.util
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -657,6 +687,20 @@ def per_call(cases, key, dtype="bfloat16", dataset="ds2"):
     """Sum of a per-launch number over the 7 attention blocks of one U-Net call."""
     return sum(c[key] * c["launches_per_call"] for c in cases
                if c["dtype"] == dtype and c["dataset"] == dataset)
+
+
+def print_per_call(k1_cases, k2_cases):
+    """K1's and K2's bf16 times over the 7 launches of one U-Net call of
+    each config, beside their bound."""
+    for name, cases in (("K1", k1_cases), ("K2", k2_cases)):
+        for ds in dict.fromkeys(c["dataset"] for c in cases):
+            B = next(c["shape"][0] for c in cases if c["dataset"] == ds)
+            t = {k: per_call(cases, k, dataset=ds)
+                 for k in ("kernel_ms", "device_ms", "plain_ms", "bound_ms")}
+            print(f"kernel {name} per U-Net call, {ds} (B = {B}, bf16, "
+                  f"{len(ATTENTION_BLOCKS[ds])} launches): kernel {t['kernel_ms']:.4f} ms, device "
+                  f"{t['device_ms']:.4f}, plain {t['plain_ms']:.4f}, bound {t['bound_ms']:.4f} "
+                  f"(device {t['device_ms'] / t['bound_ms']:.1f}x the bound)", flush=True)
 
 
 def synthetic_loader(batches, n_layers, seed):
@@ -3252,6 +3296,11 @@ def run_int8_family(name, root, seed, q1, attn, card):
                   per_denoise={k: per_denoise(cases, calls, k) for k in (
                       "kernel_ms", "device_ms", "plain_ms", "library_ms", "bound_ms")},
                   denoise_calls=[list(map(list, c[:4])) + list(c[4:]) for c in calls])
+    t = result["per_denoise"]
+    print(f"{name}: Q1 over the {len(calls)} launches of one bf16 int8 denoise (B = "
+          f"{calls[0][0][0]}): {t['kernel_ms']:.3f} ms by events, device {t['device_ms']:.3f}, "
+          f"cuDNN's bf16 conv3d {t['library_ms']:.3f}, bound {t['bound_ms']:.4f} (device "
+          f"{t['device_ms'] / t['bound_ms']:.1f}x the bound) on {card}", flush=True)
     return result, cases
 
 
@@ -3762,7 +3811,7 @@ def run_networks_phase(cfg, state_dict, args, attn, q1, nn_modules, card):
 # 16. scale-out: the trainer and sampling on torch.distributed
 # ---------------------------------------------------------------------------
 
-SCALE_OUT_PATHS = ("ddp_train", "ddp_sample", "hsdp_train")
+SCALE_OUT_PATHS = ("ddp_train", "ddp_sample", "hsdp_train", "hsdp_distill")
 # (b) and (c): (name, model axis) of the 2-rank meshes on the one card
 SCALE_OUT_MESHES = (("ddp", 1), ("hsdp", 2))
 SCALE_OUT_TIMED_STEPS = 3  # (b) and (c): steps timed after the compared one
@@ -3876,6 +3925,9 @@ def scale_out_inputs(state_dict, seed) -> dict:
                 rnd=rng.standard_normal(BATCH).astype(np.float32),
                 sample_E=rng.uniform(0.0, 1.0, (BATCH, 1)).astype(np.float32),
                 sample_layers=rng.standard_normal((BATCH, n_layers)).astype(np.float32),
+                # (d)'s grid indices over the Consistency grid's CONSIS_NSTEPS - 1 gaps
+                distill_idx=np.random.default_rng(seed + 2).integers(
+                    0, cfg.get("CONSIS_NSTEPS", 100) - 1, BATCH),
                 seed=seed)
 
 
@@ -3944,10 +3996,10 @@ def scale_out_sample(inp, mesh, attn):
 
 
 def scale_out_rank(rank: int, world: int, model_axis: int, port: int, folder: str) -> None:
-    """One rank of (b) or (c), in its own process: a gloo group over
-    localhost, the card's CUDA tensors, a (world / model_axis, model_axis)
-    mesh; the step and (data axis only) the sample; the results to
-    ``<folder>/rank<rank>.pt``."""
+    """One rank of (b), or of (c) and (d), in its own process: a gloo group
+    over localhost, the card's CUDA tensors, a (world / model_axis,
+    model_axis) mesh; the step, then on the data axis the sample and on the
+    model axis the distillation; the results to ``<folder>/rank<rank>.pt``."""
     import torch.distributed as dist
 
     from calodiffusion_tpu_torch.ops import linear_attention as attn
@@ -3964,6 +4016,9 @@ def scale_out_rank(rank: int, world: int, model_axis: int, port: int, folder: st
         out = scale_out_step(inp, mesh, attn)
         if model_axis == 1:
             out["sample"] = scale_out_sample(inp, mesh, attn)
+        else:  # (d) on the same ranks
+            out["distill"] = scale_out_distill(inp, mesh, attn, Path(folder) / "distill",
+                                               checkpoint=True)
     finally:
         dist.destroy_process_group()
     torch.save(out, Path(folder) / f"rank{rank}.pt")
@@ -4007,35 +4062,214 @@ def check_step_against_one_process(what, got, want, start, card):
             for k, g in want["grads"].items()}
     worst = max(errs, key=errs.get)
     p_abs = max((got["params"][k] - p).abs().max().item() for k, p in want["params"].items())
+    # distillation's target after its EMA update, where the step has one
+    e_abs = max((got["ema"][k] - p).abs().max().item()
+                for k, p in want["ema"].items()) if "ema" in want else 0.0
     u_norm = math.sqrt(sum(((got["params"][k] - p) ** 2).sum().item()
                            for k, p in want["params"].items())
                        / sum(((p - start[k].float()) ** 2).sum().item()
                              for k, p in want["params"].items()))
     if not (np.isfinite(got["loss"]) and loss_rel <= STEP_LOSS_RTOL
             and errs[worst] <= STEP_GRAD_TOL and p_abs <= 2 * want["lr"] * (1 + 1e-3)
-            and u_norm <= 0.02):
+            and e_abs <= 2 * want["lr"] * (1 + 1e-3) and u_norm <= 0.02):
         fail(f"scale-out {what}: against one process: loss {got['loss']} vs {want['loss']} "
-             f"({loss_rel:.3g}), gradient {worst} {errs[worst]:.3g}, parameters {p_abs:.3g} "
-             f"(2 lr {2 * want['lr']:.3g}), the update {u_norm:.3g} apart in norm")
+             f"({loss_rel:.3g}), gradient {worst} {errs[worst]:.3g}, parameters {p_abs:.3g}, "
+             f"target {e_abs:.3g} (2 lr {2 * want['lr']:.3g}), the update {u_norm:.3g} apart "
+             "in norm")
+    target_text = f", target after its EMA update {e_abs:.3g} (tol 2 lr)" if "ema" in want else ""
     print(f"scale-out {what}: f32 step of {BATCH} ({got['rows']} rows a rank, "
           f"{got['wrapper']}) against one process: loss {got['loss']:.6g} vs "
           f"{want['loss']:.6g} ({loss_rel:.3g} relative, tol {STEP_LOSS_RTOL}); worst "
           f"gradient {worst} {errs[worst]:.3g} (tol {STEP_GRAD_TOL}); parameters after Adam "
-          f"{p_abs:.3g} (tol 2 lr), the update {u_norm:.3g} apart in norm (tol 0.02); "
-          f"{got['step_ms']:.1f} ms/step (one process {want['step_ms']:.1f}), peak memory "
+          f"{p_abs:.3g} (tol 2 lr){target_text}, the update {u_norm:.3g} apart in norm (tol "
+          f"0.02); {got['step_ms']:.1f} ms a timed {got.get('timed', 'f32')} step (one process "
+          f"{want['step_ms']:.1f}), peak memory "
           f"{got['max_memory_gib']:.2f} GiB a rank on {card}", flush=True)
     return dict(loss=got["loss"], loss_one_process=want["loss"], loss_rel=loss_rel,
                 worst_grad=worst, worst_grad_err=errs[worst], param_max_abs=p_abs,
+                target_max_abs=e_abs if "ema" in want else None,
                 update_norm_rel=u_norm, step_ms=got["step_ms"],
                 step_ms_one_process=want["step_ms"], max_memory_gib=got["max_memory_gib"],
                 rows_a_rank=got["rows"], wrapper=got["wrapper"])
+
+
+# (d) hsdp_distill: consistency distillation on data 1 x model 2
+DISTILL_TIMED_STEPS = 3  # bf16 steps timed after one untimed
+
+
+def scale_out_distill(inp, mesh, attn, folder, checkpoint=False):
+    """16(d) on ``mesh`` (None: one process): consistency distillation of
+    the teacher ``inp["state_dict"]`` (phase 4's weights) at ds2's full
+    width, batch 128.  One f32 step with the inputs' grid indices and noise
+    (its loss, the student's gradients, the student and the target after
+    it, whole; K1 and K2 launches); then DISTILL_TIMED_STEPS bf16 steps with
+    the trainer's own draws after an untimed one, each with its launches.
+    With ``checkpoint``, the bf16 trainer's checkpoint (rank 0 writes, every
+    shard gathered) restored into a fresh trainer: whether the student, the
+    target (in the target network) and Adam's state come back whole."""
+    from calodiffusion_tpu_torch.parallel import mesh as mesh_lib
+    from calodiffusion_tpu_torch.train.schedulers import EarlyStopper, ReduceLROnPlateau
+    from calodiffusion_tpu_torch.train.train_distill import TrainDistillation
+    from calodiffusion_tpu_torch.utils.config import default_flags, load_config
+
+    cfg = dict(load_config(str(CONFIG)), CHECKPOINT_NAME="hsdp_distill")
+    lr = float(cfg["LR"])
+
+    def trainer(precision):
+        t = TrainDistillation(default_flags(checkpoint_folder=str(folder), seed=inp["seed"]),
+                              dict(cfg, PRECISION=precision), teacher_params=inp["state_dict"],
+                              load_data=False, save_model=False, mesh=mesh)
+        t.init_model()
+        t.make_optimizer(lr)
+        return t
+
+    def whole(tree):
+        return {k: v.detach().cpu().clone() for k, v in mesh_lib.full_state(tree).items()}
+
+    t = trainer("f32")
+    E, layers, data = t._device_batch(inp["E"], inp["layers"], inp["data"])
+    idx, noise = (mesh_lib.shard_batch(mesh, torch.from_numpy(inp[k]).cuda())
+                  for k in ("distill_idx", "noise"))
+    torch.cuda.reset_peak_memory_stats()
+    counts_reset(attn)
+    loss = t.train_step(data, E, layers, idx=idx, noise=noise)
+    k1, k2 = counts_read(attn)
+    out = dict(loss=float(mesh_lib.all_reduce_mean(mesh, loss)), k1=k1, k2=k2, lr=lr,
+               grads=whole({k: p.grad for k, p in t.model.named_parameters()}),
+               params=whole(t.model.state_dict()), ema=whole(t.ema_params),
+               rows=int(data.shape[0]), sharded_target=t._target is not None,
+               wrapper=type(t._wrapped).__name__ if t._wrapped is not None else None)
+    del t
+    tb = trainer("bf16")
+    steps = []
+    for _ in range(DISTILL_TIMED_STEPS + 1):
+        counts_reset(attn)
+        t0 = time.perf_counter()
+        loss = tb.train_step(data, E, layers)
+        torch.cuda.synchronize()
+        steps.append(dict(s=time.perf_counter() - t0, loss=float(loss),
+                          launches=counts_read(attn)))
+    out.update(bf16_steps=steps, step_ms=1e3 * statistics.mean(s["s"] for s in steps[1:]),
+               timed="bf16", max_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+    if checkpoint:
+        def sched():
+            return ReduceLROnPlateau(lr, factor=0.1, patience=15), EarlyStopper(
+                patience=cfg["EARLYSTOP"], mode="val_loss", min_delta=1e-5)
+
+        tb.save_model = True
+        t0 = time.perf_counter()
+        tb._save("checkpoint", 0, {0: steps[-1]["loss"]}, {}, *sched())
+        save_s = time.perf_counter() - t0
+        fresh = trainer("bf16")
+        fresh.pickup_checkpoint(*sched(), restart_training=False)
+        target = (fresh._target_network().state_dict() if fresh._target is not None
+                  else fresh.ema_params)
+        pairs = [(whole(tb.model.state_dict()), whole(fresh.model.state_dict())),
+                 (whole(tb.ema_params), whole(target))]
+        opt = [mesh_lib.full_state(x.opt.state_dict()["state"]) for x in (tb, fresh)]
+        out.update(checkpoint=str(Path(tb.checkpoint_folder) / "checkpoint.ckpt"),
+                   save_s=save_s, restored_whole=all(
+                       torch.equal(v, b[k]) for a, b in pairs for k, v in a.items())
+                   and all(torch.equal(v.cpu(), opt[1][i][k].cpu())
+                           for i, st in opt[0].items() for k, v in st.items()
+                           if isinstance(v, torch.Tensor)))
+    return out
+
+
+def sample_distilled(path, inp, attn, card):
+    """A DISTILL_SAMPLE_STEPS-step Consistency sample of the inputs' 128
+    conditionings from the distilled checkpoint ``path``, loaded as a plain
+    CaloDiffusion checkpoint (its EMA, the target): showers finite, >= 0,
+    of SHAPE_ORIG; K1 7 an evaluation, K2 never."""
+    from calodiffusion_tpu_torch.samplers import get_sampler
+    from calodiffusion_tpu_torch.train.trainer import TrainDiffusion
+    from calodiffusion_tpu_torch.utils.config import default_flags, load_config
+
+    cfg = dict(load_config(str(CONFIG)), SAMPLER="Consistency")
+    model = TrainDiffusion(default_flags(model_loc=path), cfg, load_data=False,
+                           save_model=False).load_for_inference()
+    n = len(DS2_ATTENTION_BLOCKS)
+    loader = [(inp["sample_E"], inp["sample_layers"], None)]
+    counts_reset(attn)
+    t0 = time.perf_counter()
+    showers, _ = model.generate(loader, DISTILL_SAMPLE_STEPS,
+                                generator=torch.Generator(device="cuda").manual_seed(inp["seed"]),
+                                sampler=get_sampler("Consistency")(model.config))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2 = counts_read(attn)
+    shape = (BATCH, *cfg["SHAPE_ORIG"][1:])
+    if showers.shape != shape or not np.isfinite(showers).all() or (showers < 0).any():
+        fail(f"scale-out (d): Consistency showers {showers.shape} (expected {shape}), not all "
+             "finite and >= 0")
+    if (k1, k2) != (n * DISTILL_SAMPLE_STEPS, 0):
+        fail(f"scale-out (d): the Consistency sample launched K1 {k1} and K2 {k2} times")
+    print(f"scale-out (d): {DISTILL_SAMPLE_STEPS}-step Consistency sample of {BATCH} from the "
+          f"gathered checkpoint (a plain CaloDiffusion checkpoint): {wall:.2f} s, "
+          f"{BATCH / wall:.3f} showers/s on {card}; K1 {k1}, K2 {k2}", flush=True)
+    return dict(steps=DISTILL_SAMPLE_STEPS, wall_s=wall, showers_per_s=BATCH / wall, k1=k1, k2=k2)
+
+
+def check_hsdp_distill(ranks, one, inp, attn, card):
+    """16(d)'s checks: the student FSDP2's and the teacher and target
+    sharded on each rank; K1 4 x 7 (student, teacher twice, target) and K2
+    7 in every step of every rank; both ranks the same step; rank 0's f32
+    step against one process's (check_step_against_one_process, the target
+    too); the checkpoint restored whole on every rank; then the Consistency
+    sample from it."""
+    n = len(DS2_ATTENTION_BLOCKS)
+    want = (4 * n, n)
+    for r, got in enumerate(ranks):
+        launches = [(got["k1"], got["k2"])] + [s["launches"] for s in got["bf16_steps"]]
+        if any(tuple(x) != want for x in launches):
+            fail(f"scale-out (d) hsdp_distill: rank {r} launched (K1, K2) {launches} a step, "
+                 f"expected {want}")
+        if got["wrapper"] != "FSDPCaloDiffusionNet" or not got["sharded_target"]:
+            fail(f"scale-out (d) hsdp_distill: rank {r}'s student in {got['wrapper']}, teacher "
+                 f"and target sharded: {got['sharded_target']}")
+        if not got["restored_whole"]:
+            fail(f"scale-out (d) hsdp_distill: rank {r}'s checkpoint did not restore student, "
+                 "target and Adam state whole")
+    # each rank's loss is its own, which the card's reductions may round
+    # apart; the weights after the step are the gathered shards, the same
+    first = ranks[0]
+    rank_rel = max(abs(g["loss"] - first["loss"]) / abs(first["loss"]) for g in ranks)
+    same = all(torch.equal(v, first[key][k]) for g in ranks[1:] for key in ("params", "ema")
+               for k, v in g[key].items())
+    if not (rank_rel <= STEP_LOSS_RTOL and same):
+        fail(f"scale-out (d) hsdp_distill: the ranks' losses {[g['loss'] for g in ranks]} "
+             f"({rank_rel:.3g} apart), their student and target the same: {same}")
+    sub = check_step_against_one_process("(d) hsdp_distill 1 x 2", first, one, inp["state_dict"],
+                                         card)
+    bf16 = [s["loss"] for s in first["bf16_steps"]]
+    bf16_one = [s["loss"] for s in one["bf16_steps"]]
+    if not np.isfinite(bf16).all():
+        fail(f"scale-out (d) hsdp_distill: bf16 losses {bf16}")
+    print(f"scale-out (d) hsdp_distill: {DISTILL_TIMED_STEPS} bf16 steps of {BATCH} after one "
+          f"untimed: {first['step_ms']:.1f} ms/step (one process {one['step_ms']:.1f}), losses "
+          f"{[round(v, 5) for v in bf16]} (one process {[round(v, 5) for v in bf16_one]}); "
+          f"K1 {want[0]} and K2 {want[1]} a step on each rank; "
+          f"the ranks' losses {rank_rel:.3g} apart, their student and target equal; "
+          f"peak memory {first['max_memory_gib']:.2f} GiB a rank (one process "
+          f"{one['max_memory_gib']:.2f}); checkpoint written by rank 0 in "
+          f"{first['save_s']:.2f} s with every shard gathered, restored whole on both ranks on "
+          f"{card}", flush=True)
+    sub.update(bf16_step_ms=first["step_ms"], bf16_step_ms_one_process=one["step_ms"],
+               ranks_loss_rel=rank_rel,
+               bf16_losses=bf16, bf16_losses_one_process=bf16_one,
+               launches_a_step=list(want), checkpoint_save_s=first["save_s"],
+               launches_by_rank=[(g["k1"], g["k2"]) for g in ranks],
+               sample=sample_distilled(first["checkpoint"], inp, attn, card))
+    return sub
 
 
 def run_scale_out_phase(root: Path, made, cli, state_dict, seed, attn, card):
     """Phase 16: (a) one NCCL rank through training.main, then on the one
     card over gloo (NCCL refuses two ranks on one device) (b) two data
     ranks (DDP): a step against one process's and a sharded sample against
-    one process's, and (c) data 1 x model 2 (FSDP2): the step."""
+    one process's, (c) data 1 x model 2 (FSDP2): the step, and (d) on the
+    same ranks consistency distillation: a step against one process's,
+    timed bf16 steps, the checkpoint and a Consistency sample from it."""
     from calodiffusion_tpu_torch.ops import linear_attention
 
     n = len(DS2_ATTENTION_BLOCKS)
@@ -4048,6 +4282,7 @@ def run_scale_out_phase(root: Path, made, cli, state_dict, seed, attn, card):
     torch.save(inp, folder / "inputs.pt")
     one = scale_out_step(inp, None, linear_attention)
     one_sample = scale_out_sample(inp, None, linear_attention)
+    one_distill = scale_out_distill(inp, None, linear_attention, folder / "one_distill")
     for name, model_axis in SCALE_OUT_MESHES:
         t0 = time.perf_counter()
         ranks = run_ranks_on_card(2, model_axis, folder)
@@ -4077,11 +4312,193 @@ def run_scale_out_phase(root: Path, made, cli, state_dict, seed, attn, card):
             sub["sample"] = dict(max_abs_err=err, tol=tol, wall_s=max(walls),
                                  wall_s_one_process=one_sample["wall_s"],
                                  launches_by_rank=launches)
+        else:
+            res["hsdp_distill"] = check_hsdp_distill([g["distill"] for g in ranks], one_distill,
+                                                     inp, attn, card)
         res[name] = sub
     paths = {"ddp_train": res["ddp"]["launches_by_rank"][0],
              "ddp_sample": res["ddp"]["sample"]["launches_by_rank"][0],
-             "hsdp_train": res["hsdp"]["launches_by_rank"][0] if "hsdp" in res else (0, 0)}
+             "hsdp_train": res["hsdp"]["launches_by_rank"][0],
+             "hsdp_distill": res["hsdp_distill"]["launches_by_rank"][0]}
     return res, paths
+
+
+# ---------------------------------------------------------------------------
+# 17. jobs: the training job script under torchrun, preempted and requeued
+# ---------------------------------------------------------------------------
+
+JOB_PATHS = ("jobs_train",)
+JOB_MAXEPOCH = 2
+JOB_MAX_RESTARTS = 2
+JOB_TIMEOUT_S = 300  # the whole job, both attempts
+# Written into a directory first on the job's PYTHONPATH: each process of the
+# job that ran the port's attention kernels writes their launch counts at its
+# exit (a rank killed by a signal writes none).  Any other sitecustomize on
+# the path runs first.
+LAUNCH_COUNT_HOOK = '''"""Launch counts of the port's attention kernels at a process's exit."""
+import atexit
+import importlib.machinery
+import importlib.util
+import json
+import os
+import sys
+
+
+def _chain():
+    here = os.path.dirname(os.path.abspath(__file__))
+    rest = [p for p in sys.path if os.path.abspath(p or ".") != here]
+    spec = importlib.machinery.PathFinder.find_spec("sitecustomize", rest)
+    if spec is not None and spec.loader is not None:
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
+
+
+def _write():
+    attn = sys.modules.get("calodiffusion_tpu_torch.ops.linear_attention")
+    if attn is None:
+        return
+    out = os.environ["CALO_LAUNCH_COUNTS"]
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, f"{os.getpid()}.json"), "w") as f:
+        json.dump({"k1": attn.fused_attention_block.launches,
+                   "k2": attn.attention_block_backward.launches, "argv": sys.argv}, f)
+
+
+_chain()
+if os.environ.get("CALO_LAUNCH_COUNTS"):
+    atexit.register(_write)
+'''
+
+
+def job_ranks(root_pid: int) -> list:
+    """The processes under ``root_pid`` that torchrun started as ranks
+    (``LOCAL_RANK`` in their environment), read from /proc."""
+    children = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            ppid = int(Path(f"/proc/{d}/stat").read_text().rsplit(")", 1)[1].split()[1])
+        except (OSError, IndexError, ValueError):
+            continue
+        children.setdefault(ppid, []).append(int(d))
+    ranks, todo = [], [root_pid]
+    while todo:
+        for pid in children.get(todo.pop(), []):
+            todo.append(pid)
+            try:
+                environ = Path(f"/proc/{pid}/environ").read_bytes().split(b"\0")
+            except OSError:
+                continue
+            if any(e.startswith(b"LOCAL_RANK=") for e in environ):
+                ranks.append(pid)
+    return ranks
+
+
+def run_jobs_phase(root: Path, made, cli, seed, card):
+    """Phase 17: scripts/torch_submit_training.py writes the training job
+    for the cli phase's ds2 caches (the config at full width, MAXEPOCH
+    JOB_MAXEPOCH, cut like the cli phase); its train.sh runs under the real
+    torchrun (every card of the node: one here).  Once the first attempt's
+    first epoch is checkpointed and its second begun, its rank gets SIGTERM,
+    as a scheduler preempts a job; the loop's second attempt runs with
+    --load, resumes at epoch 1 and ends at MAXEPOCH.  K1 and K2 launches of
+    the second attempt's rank (LAUNCH_COUNT_HOOK): 7 a step and 7 the val
+    batch, 7 a step."""
+    import re
+    import shutil
+    import signal
+    import threading
+
+    n = len(DS2_ATTENTION_BLOCKS)
+    cfg, _, data = made["ds2"]
+    jobs = root / "jobs"
+    (jobs / "hook").mkdir(parents=True)
+    (jobs / "hook" / "sitecustomize.py").write_text(LAUNCH_COUNT_HOOK)
+    cfg_path = jobs / "config.json"
+    cfg_path.write_text(json.dumps(dict(cfg, MAXEPOCH=JOB_MAXEPOCH, CHECKPOINT_NAME="jobs_ds2")))
+    counts = jobs / "counts"
+    path = os.pathsep.join([str(Path(sys.executable).parent), os.environ.get("PATH", "")])
+    env = dict(os.environ, PATH=path, CALO_LAUNCH_COUNTS=str(counts),
+               PYTHONPATH=os.pathsep.join(p for p in (str(jobs / "hook"), str(ROOT),
+                                                      os.environ.get("PYTHONPATH")) if p))
+    torchrun = shutil.which("torchrun", path=path)
+    if torchrun is None:
+        fail(f"jobs: no torchrun on {path}")
+    made_job = subprocess.run(
+        [sys.executable, str(ROOT / "scripts" / "torch_submit_training.py"), "-c", str(cfg_path),
+         "-n", str(jobs / "job"), "-d", data, "--checkpoint-folder", str(jobs / "ckpt"),
+         "--max-restarts", str(JOB_MAX_RESTARTS), "--extra-args", f"--seed {seed}"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    script = jobs / "job" / "train.sh"
+    if made_job.returncode != 0 or not script.exists():
+        fail(f"jobs: torch_submit_training.py: {made_job.stderr[-2000:]}")
+    folder = jobs / "ckpt" / "jobs_ds2_Diffusion"
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(["bash", str(script)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    timer = threading.Timer(JOB_TIMEOUT_S, os.killpg, (proc.pid, signal.SIGKILL))
+    timer.start()
+    lines, preempted, restarted = [], None, None
+    started = []  # each attempt's first "Beginning epoch", in s from the job's start
+    try:
+        for line in iter(proc.stdout.readline, ""):
+            lines.append(line)
+            if "Beginning epoch" in line and len(started) < 1 + (restarted is not None):
+                started.append(time.perf_counter() - t0)
+            if (preempted is None and "Beginning epoch 1" in line
+                    and (folder / "checkpoint.ckpt").exists()):
+                pids = job_ranks(proc.pid)
+                for pid in pids:
+                    os.kill(pid, signal.SIGTERM)
+                preempted = dict(s=time.perf_counter() - t0, ranks=len(pids))
+            if restarted is None and line.startswith("restart 1/"):
+                restarted = time.perf_counter() - t0
+        rc = proc.wait()
+    finally:
+        timer.cancel()
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)  # whatever the job left behind
+    wall = time.perf_counter() - t0
+    log = "".join(lines)
+    (jobs / "job.log").write_text(log)
+    first, _, second = log.partition(f"restart 1/{JOB_MAX_RESTARTS}")
+    epochs = [[int(e) for e in re.findall(r"Beginning epoch (\d+)", part)]
+              for part in (first, second)]
+    attempts = 1 + log.count("resuming from checkpoint")
+    state = json.loads((folder / "final_state.json").read_text()) if (
+        folder / "final_state.json").exists() else {}
+    written = [json.loads(p.read_text()) for p in sorted(counts.glob("*.json"))]
+    steps = cli["ds2"]["train"]["steps"]  # a cut epoch's train steps; one val batch
+    want = (n * (steps + 1), n * steps)
+    got = (written[0]["k1"], written[0]["k2"]) if len(written) == 1 else None
+    if (rc != 0 or preempted is None or not preempted["ranks"] or attempts != 2
+            or epochs != [[0, 1], [1]] or "training finished cleanly" not in second
+            or state.get("epoch") != JOB_MAXEPOCH - 1
+            or sorted(state.get("train_loss_hist", {})) != [str(e) for e in range(JOB_MAXEPOCH)]
+            or got != want):
+        fail(f"jobs: exit code {rc}, preempted {preempted}, {attempts} attempts, epochs by "
+             f"attempt {epochs}, final state epoch {state.get('epoch')} losses "
+             f"{state.get('train_loss_hist')}, launches {written} (expected {want}):\n"
+             f"{log[-4000:]}")
+    second_s = wall - restarted
+    # from each attempt's launch to its first epoch: torchrun, the rank's
+    # imports, its process group, the caches and the model
+    startup = [started[0], started[1] - restarted]
+    print(f"jobs: torch_submit_training.py's train.sh under {torchrun} --nproc-per-node gpu "
+          f"(1 rank), ds2 full width, MAXEPOCH {JOB_MAXEPOCH}, {steps} steps of {BATCH} and a val "
+          f"batch an epoch: attempt 1 ran epochs {epochs[0]} and was preempted (SIGTERM to its "
+          f"rank) at {preempted['s']:.1f} s; attempt 2 (--load) resumed at epoch {epochs[1][0]} "
+          f"and ended at epoch {state['epoch']} (MAXEPOCH {JOB_MAXEPOCH}) in {second_s:.1f} s; "
+          f"{attempts} attempts, job wall {wall:.1f} s on {card}; from each attempt's launch to "
+          f"its first epoch {startup[0]:.1f} and {startup[1]:.1f} s; attempt 2's rank launched "
+          f"K1 {got[0]} and K2 {got[1]}", flush=True)
+    print("jobs: the inference and plotting jobs write h5, which this machine cannot (no "
+          "h5py): they run in tests/test_torch_port_jobs.py on the CPU", flush=True)
+    res = dict(attempts=attempts, epochs_by_attempt=epochs, preempted_at_s=preempted["s"],
+               resumed_at_epoch=epochs[1][0], final_epoch=state["epoch"], startup_s=startup,
+               train_loss_hist=state["train_loss_hist"], k1=got[0], k2=got[1],
+               attempt2_s=second_s, wall_s=wall)
+    return res, {"jobs_train": got}
 
 
 def main() -> None:
@@ -4161,6 +4578,7 @@ def main() -> None:
     for name, blocks in HGCAL_ATTENTION_BLOCKS.items():
         k1_cases += check_attention_kernel(attn, blocks, BATCH, name)
         k2_cases += check_backward_kernel(attn, blocks, BATCH, name)
+    print_per_call(k1_cases, k2_cases)
 
     # 4. main path: generation
     cfg = load_config(str(CONFIG))
@@ -4263,6 +4681,11 @@ def main() -> None:
         root, made, cli, {k: v.cpu() for k, v in model.state_dict().items()}, args.seed + 90,
         attn, card)
     print(f"scale-out: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 17. jobs, on the cli phase's ds2 caches
+    t0 = time.perf_counter()
+    jobs, job_paths = run_jobs_phase(root, made, cli, args.seed + 100, card)
+    print(f"jobs: {time.perf_counter() - t0:.1f} s", flush=True)
     tmp.cleanup()
 
     # 16. result
@@ -4306,14 +4729,16 @@ def main() -> None:
         # rank 0's launches on the scale-out paths (phase 16)
         by_path.update({p: scale_out_paths[p][0 if key == "k1" else 1]
                         for p in SCALE_OUT_PATHS})
+        # the requeued attempt's rank in phase 17
+        by_path.update({p: job_paths[p][0 if key == "k1" else 1] for p in JOB_PATHS})
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            # launches on the last five slices' paths: CNNCompare's sampling,
+            # launches on the last six slices' paths: CNNCompare's sampling,
             # the optimize trial's training and sampling, the int8 paths (ds2's
             # and the other families'), the network variants', the scale-out
-            # paths
+            # paths (distillation on the model axis among them), the job's
             launches=sum(by_path[k] for k in EVALUATE_PATHS + INT8_PATHS + INT8_FAMILY_PATHS
-                         + NETWORK_PATHS + SCALE_OUT_PATHS),
+                         + NETWORK_PATHS + SCALE_OUT_PATHS + JOB_PATHS),
             launches_by_path=by_path,
             max_abs_err=max(c["max_abs_err"] for c in bf16),
             # times of the 7 launches of one ds2 U-Net call, B=128, bf16
@@ -4407,7 +4832,7 @@ def main() -> None:
                       "samplers": zoo, "samplers_card_vs_cpu": zoo_cpu, "bns": bns,
                       "cascade": cascade, "distill": distill, "ds1": ds1, "hgcal": hgcal,
                       "evaluate": evaluation, "int8": int8, "networks": networks,
-                      "scale_out": scale_out, "card": card}),
+                      "scale_out": scale_out, "jobs": jobs, "card": card}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,12 +1,15 @@
 """calodiffusion_tpu_torch stands alone: no module of the port, nor
-chip_smoke.py, imports JAX, flax, orbax, the JAX package or the scripts
-(scripts/orbax_to_torch.py, which needs orbax, among them), and the port imports
+chip_smoke.py, nor the port's job scripts (scripts/torch_submit_*.py and the
+Python that scripts/torch_train_h100.sh runs), imports JAX, flax, orbax, the
+JAX package or the scripts (scripts/orbax_to_torch.py, which needs orbax,
+among them); the job scripts launch the port's modules only; and the port imports
 and runs with those (and the packages the card machine lacks: h5py, yaml,
 click, matplotlib, sklearn, pandas, optuna) blocked, its train and sample
 CLIs from npz caches too, and its classifier metrics and random study."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -23,13 +26,16 @@ def _forbidden(name: str) -> bool:
     return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
 
 
+JOB_SCRIPTS = sorted((ROOT / "scripts").glob("torch_submit_*.py"))
+TRAIN_SH = ROOT / "scripts" / "torch_train_h100.sh"
+
+
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + JOB_SCRIPTS
 
 
-@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
-def test_no_forbidden_imports(path):
-    tree = ast.parse(path.read_text(), filename=str(path))
+def _check_imports(path, source):
+    tree = ast.parse(source, filename=str(path))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]
@@ -39,6 +45,32 @@ def test_no_forbidden_imports(path):
             continue
         bad = [n for n in names if _forbidden(n)]
         assert not bad, f"{path.relative_to(ROOT)}:{node.lineno} imports {bad}"
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_forbidden_imports(path):
+    _check_imports(path, path.read_text())
+
+
+def _launched_modules(text: str) -> list[str]:
+    return re.findall(r"-m\s+(calodiffusion_tpu\w*)\.", text)
+
+
+@pytest.mark.parametrize("path", JOB_SCRIPTS + [TRAIN_SH],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_job_scripts_launch_the_port_only(path):
+    """Each job script launches the port's modules and nothing of the JAX
+    package; torch_train_h100.sh's Python (the config's CHECKPOINT_NAME)
+    imports neither JAX, the JAX package nor yaml."""
+    text = path.read_text()
+    assert JOB_SCRIPTS, "no scripts/torch_submit_*.py"
+    assert set(_launched_modules(text)) == {"calodiffusion_tpu_torch"}, path
+    assert not re.search(r"calodiffusion_tpu(?!_torch)\b", text)
+    if path.suffix == ".sh":
+        code = re.findall(r"<<'EOF'\n(.*?)\nEOF", text, re.S)
+        assert len(code) == 1
+        _check_imports(path, code[0])
+        assert "yaml" not in ast.dump(ast.parse(code[0]))
 
 
 _BLOCKED_RUN = r"""

@@ -20,6 +20,9 @@ and writes ``<folder>/out_<rank>.pt``.  It imports torch and the port only.
 - loader    the batches data/loader.load_data gives this rank
 - trainers  one step of the layer model's and of distillation's trainer,
             with their own draws
+- distill   distillation on a ("data", "model") mesh: a step with injected
+            indices and noise from a student and a target of their own, a
+            step with the trainer's own draws, a checkpoint restored
 """
 
 from __future__ import annotations
@@ -90,21 +93,30 @@ def mode_step(rank, world, folder, inp):
     return out
 
 
-def _resumes(inp, mesh, t, folder):
+def _resumes(inp, mesh, t, folder, make=_trainer):
     """Whether a checkpoint of ``t`` (rank 0's file; FSDP2's shards gathered)
-    restores its weights and Adam state whole into a fresh trainer."""
+    restores its weights, its EMA (distillation's target: in the target
+    network, as the next step meets it) and its Adam state whole into a
+    fresh trainer from ``make``."""
     from calodiffusion_tpu_torch.train.schedulers import EarlyStopper, ReduceLROnPlateau
 
     def sched():
         return ReduceLROnPlateau(inp["lr"]), EarlyStopper(patience=3, mode="val_loss")
 
+    def weights(x):
+        ema = x.ema_params
+        if getattr(x, "_target", None) is not None:
+            ema = x._target_network().state_dict()
+        return [_copy(x.model.state_dict())] + ([] if ema is None else [_copy(ema)])
+
     t.save_model = True
     t._save("checkpoint", 0, {0: 1.0}, {0: 1.0}, *sched())
-    fresh = _trainer(inp, mesh, folder)
+    fresh = make(inp, mesh, folder)
     fresh.pickup_checkpoint(*sched(), restart_training=False)
-    want, got = ([_copy(x.model.state_dict()),
-                  mesh_lib.full_state(x.opt.state_dict()["state"])] for x in (t, fresh))
-    return all(torch.equal(w, got[0][k]) for k, w in want[0].items()) and all(
+    want, got = ((weights(x), mesh_lib.full_state(x.opt.state_dict()["state"]))
+                 for x in (t, fresh))
+    return len(want[0]) == len(got[0]) and all(
+        torch.equal(v, b[k]) for a, b in zip(want[0], got[0]) for k, v in a.items()) and all(
         torch.equal(v, got[1][i][k]) for i, st in want[1].items() for k, v in st.items())
 
 
@@ -236,8 +248,58 @@ def mode_trainers(rank, world, folder, inp):
     return out
 
 
+def _distiller(inp, mesh, folder):
+    from calodiffusion_tpu_torch.train.train_distill import TrainDistillation
+
+    t = TrainDistillation(default_flags(checkpoint_folder=folder, seed=3), inp["cfg"],
+                          teacher_params=inp["teacher"], load_data=False, save_model=False,
+                          device="cpu", mesh=mesh)
+    t.init_model()
+    t.make_optimizer(inp["lr"])
+    return t
+
+
+def distill_steps(inp, mesh, folder):
+    """Distillation on ``mesh`` (None: one process), each trainer from
+    ``inp["teacher"]``: whether student and target start as the teacher;
+    one step (loss, student gradients, student and target after it) from
+    ``inp``'s student and target with its indices and noise; one step of a
+    fresh trainer with its own draws; and whether a checkpoint of the
+    first trainer (rank 0 writes; the shards gathered) restores student,
+    target and Adam state whole, the target network holding the restored
+    EMA."""
+    t = _distiller(inp, mesh, folder)
+    out = {"wrapper": type(t._wrapped).__name__ if t._wrapped is not None else None,
+           "sharded_target": t._target is not None}
+    start = [_copy(t.model.state_dict()), _copy(t.ema_params)]
+    out["started_as_teacher"] = all(torch.equal(s[k], v) for s in start
+                                    for k, v in inp["teacher"].items())
+    live = t.model.state_dict()
+    t.model.load_state_dict(mesh_lib.shard_like(inp["student"], live))
+    t.ema_params = {k: v.clone() for k, v in mesh_lib.shard_like(inp["target"], live).items()}
+    batch = t._device_batch(inp["E"], inp["layers"], inp["data"])
+    idx, noise = (mesh_lib.shard_batch(mesh, torch.from_numpy(inp[k])) for k in ("idx", "noise"))
+    loss = t.train_step(batch[2], batch[0], batch[1], idx=idx, noise=noise)
+    out["loss"] = float(mesh_lib.all_reduce_mean(mesh, loss))
+    out["grads"], out["params"], out["ema"] = (
+        _grads(t), _copy(t.model.state_dict()), _copy(t.ema_params))
+
+    fresh = _distiller(inp, mesh, folder)
+    loss = fresh.train_step(batch[2], batch[0], batch[1])
+    out["drawn_loss"] = float(mesh_lib.all_reduce_mean(mesh, loss))
+    out["drawn_grads"] = _grads(fresh)
+    out["resumed_equal"] = _resumes(inp, mesh, t, folder, make=_distiller)
+    return out
+
+
+def mode_distill(rank, world, folder, inp):
+    mesh = mesh_lib.make_mesh(data=world // inp["model"], model=inp["model"],
+                              device_type="cpu")
+    return distill_steps(inp, mesh, folder)
+
+
 MODES = {"step": mode_step, "accum": mode_accum, "cli": mode_cli, "generate": mode_generate,
-         "loader": mode_loader, "trainers": mode_trainers}
+         "loader": mode_loader, "trainers": mode_trainers, "distill": mode_distill}
 
 
 def main(argv):
