@@ -298,7 +298,23 @@ prints no result:
             attempts, epochs and walls printed.  The inference and plotting
             jobs write h5 (no h5py here): tests/test_torch_port_jobs.py runs
             them on the CPU
-18. result  {"kernels": [...]} (each kernel's launches by path: generate,
+18. fidelity the fidelity harnesses of scripts/, cut, in the cli phase's
+            directory: each family of torch_fidelity_families.py (hgcal, ds1,
+            ds1pion, ds3, layer) through its main with --int8 (--roundtrip
+            on ds1 and hgcal, --oracle on the cascade), then
+            torch_fewstep_check.py --int8 on one candidate of each sampler
+            family (FEWSTEP_CANDIDATES: DDim, DPMPP2M, Restart, Heun with
+            churn; the baseline too) with one showers/s measurement
+            (FEWSTEP_SPEED, bf16 and int8), then torch_cascade_seeds.py at
+            two seeds (cut: MAXEPOCH 1, the cascade's stage 1 too; 256 train
+            and 128 eval events; DDim 400 -> 10 steps, the few-step
+            candidates at their own): every separation key the JAX harness
+            writes for the family and its flags present and finite (a
+            missing classifier/FPD key only where the harness printed its
+            failure), the gates computed, and K1, K2 and Q1 launched as each
+            path's U-Net calls imply (UnetCalls: K1 an attention block a
+            call, K2 one a call under autograd, Q1 one an int8-scaled conv)
+19. result  {"kernels": [...]} (each kernel's launches by path: generate,
             train, the cli paths, samplers, bns, variants, cascade_train,
             cascade_sample, distill_train, distill_val, distill_sample,
             ds1_photon_train, ds1_photon_sample, ds1_pion_train,
@@ -311,11 +327,12 @@ prints no result:
             cold_sample, fcn_train, fcn_sample, remat_train,
             convnext_forward, convnext_train, convnext_int8,
             controlnet_forward, controlnet_train, ddp_train, ddp_sample,
-            hsdp_train, hsdp_distill (rank 0's), jobs_train; K1's and K2's
-            "launches" sum the last twenty-five, the last six slices' paths,
-            Q1's its
-            eight; their "ds1" and "hgcal" hold one U-Net call's times of
-            each config; Q1's times are one ds2 int8 denoise's 36 launches,
+            hsdp_train, hsdp_distill (rank 0's), jobs_train, fidelity_hgcal,
+            fidelity_ds1, fidelity_ds1pion, fidelity_ds3, fidelity_layer,
+            fewstep, cascade_seeds; K1's and K2's "launches" sum the last
+            thirty-two, the last seven slices' paths, Q1's its fifteen;
+            their "ds1" and "hgcal" hold one U-Net call's times of each
+            config; Q1's times are one ds2 int8 denoise's 36 launches,
             its ConvNext geometries and plans apart, its launches by plan
             and one denoise's times of each int8 sub-phase in
             "launches_by_plan" and "families") and, last, {"ok": true,
@@ -2860,11 +2877,13 @@ class Q1Launches:
     """While entered, each Q1 launch's geometry in ``calls``: (x shape, wq
     shape, stride, padding, cylindrical, kind), ``q1.launch`` patched; kind
     "transpose core" inside an upsampling transpose (``nn_modules``'
-    ``int8_conv3d_transpose`` patched too, where given), else "conv"; and
-    the mode ``kernel_plan`` names for each geometry in ``plans``."""
+    ``int8_conv3d_transpose`` patched too, where given), else "conv"; the
+    mode ``kernel_plan`` names for each geometry in ``plans`` and its
+    activations' dtype in ``dtypes``."""
 
     def __init__(self, q1, nn_modules=None):
         self.q1, self.nn_modules, self.calls, self.plans = q1, nn_modules, [], {}
+        self.dtypes = {}
 
     def __enter__(self):
         from unittest import mock
@@ -2878,6 +2897,7 @@ class Q1Launches:
                    triple(padding), bool(cylindrical), "transpose core" if inside else "conv")
             if key not in self.plans:
                 self.plans[key] = self.q1.kernel_plan(lib, *key[:5])["mode"]
+                self.dtypes[key] = dtype_name(x.dtype)
             self.calls.append(key)
             return launch(lib, x, wq, scale, bias, inv, stride, padding, cylindrical)
 
@@ -4501,6 +4521,312 @@ def run_jobs_phase(root: Path, made, cli, seed, card):
     return res, {"jobs_train": got}
 
 
+# ---------------------------------------------------------------------------
+# 18. fidelity: the fidelity harnesses of scripts/, cut
+# ---------------------------------------------------------------------------
+
+# each family of scripts/torch_fidelity_families.py, the few-step harness and
+# the seeds harness, in that order
+FIDELITY_FAMILIES = ("hgcal", "ds1", "ds1pion", "ds3", "layer")
+FIDELITY_PATHS = tuple(f"fidelity_{f}" for f in FIDELITY_FAMILIES) + ("fewstep",
+                                                                       "cascade_seeds")
+# the cut: MAXEPOCH (and the cascade's stage 1) 1, the train and eval events,
+# DDim 400 -> 10 steps in every stage
+FIDELITY_CUT = ["--events", "256", "--eval-events", "128"]
+FIDELITY_EPOCHS = 1
+FIDELITY_STEPS = 10
+# the flags of each family beyond --int8
+FIDELITY_FLAGS = {"hgcal": ["--roundtrip"], "ds1": ["--roundtrip"], "ds1pion": [], "ds3": [],
+                  "layer": ["--oracle"]}
+# one candidate of each sampler family, each at its own steps; one speed
+FEWSTEP_CANDIDATES = ("DDim_50", "DPMPP2M_18", "Restart_36", "Heun_36_churn")
+FEWSTEP_SPEED = ("DPMPP2M", 18)
+FIDELITY_SEEDS = "1,2"
+
+
+class UnetCalls:
+    """While entered, every ``CondUnet`` forward counted with what it
+    implies: one K1 launch an attention block (a heads-1 LinearAttention
+    behind PreNormResidual, the fused block), one K2 an attention block
+    where the call runs under autograd (its backward follows), one Q1 a
+    convolution with an int8 scale set; K1's, K2's and Q1's counters reset
+    on entry, so ``check`` holds them to those sums."""
+
+    def __init__(self, attn, q1, nn_modules):
+        self.attn, self.q1, self.nn = attn, q1, nn_modules
+        self.want = dict(k1=0, k2=0, q1=0, calls=0, grad_calls=0, int8_calls=0)
+
+    def __enter__(self):
+        from unittest import mock
+
+        nn, want, forward = self.nn, self.want, self.nn.CondUnet.forward
+        blocks = {}
+
+        def counted(unet, *a, **kw):
+            if id(unet) not in blocks:
+                blocks[id(unet)] = sum(
+                    isinstance(m, nn.PreNormResidual) and isinstance(m.fn.fn, nn.LinearAttention)
+                    and m.fn.fn.heads == 1 for m in unet.modules())
+            q = sum(getattr(m, "int8_scale", None) is not None for m in unet.modules())
+            want["calls"] += 1
+            want["k1"] += blocks[id(unet)]
+            if torch.is_grad_enabled():
+                want["grad_calls"] += 1
+                want["k2"] += blocks[id(unet)]
+            want["int8_calls"] += q > 0
+            want["q1"] += q
+            return forward(unet, *a, **kw)
+
+        torch.cuda.synchronize()
+        self.patch = mock.patch.object(nn.CondUnet, "forward", counted)
+        self.patch.start()
+        self.attn.fused_attention_block.launches = 0
+        self.attn.attention_block_backward.launches = 0
+        self.q1.int8_conv3d.launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        self.patch.stop()
+
+    def check(self, path: str, int8: bool) -> dict:
+        got = dict(k1=self.attn.fused_attention_block.launches,
+                   k2=self.attn.attention_block_backward.launches,
+                   q1=self.q1.int8_conv3d.launches)
+        w = self.want
+        if (got != {k: w[k] for k in got} or not w["k1"] or not w["k2"]
+                or bool(w["int8_calls"]) != int8):
+            fail(f"{path}: launches {got}; the path's network calls imply {w} (int8 "
+                 f"{'expected' if int8 else 'not expected'})")
+        return dict(got, unet_calls=w["calls"], unet_grad_calls=w["grad_calls"],
+                    unet_int8_calls=w["int8_calls"])
+
+
+class AttentionShapes:
+    """While entered, each K1 and K2 launch's shape and the plan it took:
+    ``plans`` maps ("k1" or "k2", B, N, C, dtype) to ``kernel_plan``'s plan
+    (``launch_forward`` and ``launch_backward`` patched)."""
+
+    def __init__(self, attn):
+        self.attn, self.plans = attn, {}
+
+    def __enter__(self):
+        from unittest import mock
+
+        attn, plans = self.attn, self.plans
+
+        def recorder(kind, launch, name):
+            def recorded(lib, x, *a, **kw):
+                key = (kind, *x.shape, dtype_name(x.dtype))
+                if key not in plans:
+                    plans[key] = attn.kernel_plan(lib, name, x.shape[1], x.shape[2], x.dtype)
+                return launch(lib, x, *a, **kw)
+            return recorded
+
+        self.patches = [
+            mock.patch.object(attn, "launch_forward",
+                              recorder("k1", attn.launch_forward, attn.FORWARD_KERNEL)),
+            mock.patch.object(attn, "launch_backward",
+                              recorder("k2", attn.launch_backward, attn.BACKWARD_KERNEL))]
+        for patch in self.patches:
+            patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        for patch in self.patches:
+            patch.stop()
+
+
+def check_fidelity_keys(path, report, family, keys, sharp, failures) -> None:
+    """Every separation the harness writes (``keys``, its
+    ``expected_keys``) present and finite, but the sharp instruments
+    (``sharp``) of a prefix whose FPD failed: one "classifier/FPD metrics
+    failed" line (``failures``, a singular covariance) for each prefix that
+    lacks them, and nothing else missing."""
+    missing = {k for k in keys if f"{family}_{k}" not in report}
+    bad = [k for k in keys if k not in missing and not math.isfinite(report[f"{family}_{k}"])]
+    prefixes = {k.removesuffix("Etot") for k in keys if k.endswith("Etot")}
+    lost = {p for p in prefixes if all(p + k in missing for k in sharp)}
+    if bad or missing != {p + k for p in lost for k in sharp} or len(lost) != len(failures):
+        fail(f"{path}: keys not finite {bad}, missing {sorted(missing)} (metric failures "
+             f"printed: {failures})")
+
+
+def check_path_shapes(attn, q1, shapes, q1_geometries, k1_cases, k2_cases, q1_checked):
+    """Phase 18's paths against the plain versions: K1 and K2 at every
+    (B, N, C) and Q1 at every geometry that the paths launched and no
+    earlier phase checked (check_attention_kernel, check_backward_kernel,
+    check_q1, each in bf16 and f32); then each shape's plan on its path
+    against the plan that the check took at its shape and dtype.
+    ``shapes``: {AttentionShapes key: (plan, path)}; ``q1_geometries``:
+    {Q1Launches key: (plan, dtype, path)}.  Returns the new cases of K1, K2
+    and Q1."""
+    new = {}
+    for kind, cases, check in (("k1", k1_cases, check_attention_kernel),
+                               ("k2", k2_cases, check_backward_kernel)):
+        seen = {(*c["shape"], c["dtype"]): c for c in cases}
+        todo = {}
+        for k, B, N, C, dtype in shapes:
+            if k == kind and (B, N, C, dtype) not in seen:
+                todo.setdefault(B, set()).add((C, N))
+        new[kind] = [c for B, blocks in sorted(todo.items())
+                     for c in check(attn, sorted(blocks), B, "fidelity")]
+        seen.update({(*c["shape"], c["dtype"]): c for c in new[kind]})
+        for (k, *shape), (plan, path) in shapes.items():
+            if k == kind and seen[tuple(shape)]["cluster_plan"] != plan:
+                fail(f"{path}: {kind} at {shape} took the plan {plan}; its check took "
+                     f"{seen[tuple(shape)]['cluster_plan']}")
+
+    def q1_key(c):
+        return (tuple(c["x"]), tuple(c["w"]), tuple(c["stride"]), tuple(c["padding"]),
+                c["cylindrical"], c["kind"], c["dtype"])
+
+    seen = {q1_key(c): c for c in q1_checked}
+    todo = sorted({g for g, (_, dtype, _) in q1_geometries.items() if (*g, dtype) not in seen})
+    new["q1"] = check_q1(q1, todo, plain_reps=(0, 1))
+    seen.update({q1_key(c): c for c in new["q1"]})
+    for g, (plan, dtype, path) in q1_geometries.items():
+        if seen[(*g, dtype)]["plan"] != plan:
+            fail(f"{path}: Q1 at {g} ({dtype}) took the plan {plan}; its check took "
+                 f"{seen[(*g, dtype)]['plan']}")
+    print(f"fidelity: the paths' shapes checked against the plain versions: K1 "
+          f"{sum(k == 'k1' for k, *_ in shapes)} ({len(new['k1'])} new cases), K2 "
+          f"{sum(k == 'k2' for k, *_ in shapes)} ({len(new['k2'])} new), Q1 "
+          f"{len(q1_geometries)} geometries ({len(new['q1'])} new cases); every plan as on "
+          f"its path", flush=True)
+    return new
+
+
+def run_fidelity_phase(root: Path, seed, attn, q1, nn_modules, card):
+    """Phase 18: each family of scripts/torch_fidelity_families.py through
+    its ``main`` (bf16 and --int8; --roundtrip on ds1 and HGCal, --oracle on
+    the cascade), then scripts/torch_fewstep_check.py (--int8, one candidate
+    of each sampler family) with one speed, and scripts/torch_cascade_seeds.py
+    (two seeds), at the cut: 1 epoch (the cascade's stage 1 too), 256 train
+    and 128 eval events, DDim 400 -> 10 steps.  Each path's K1, K2 and Q1
+    launches against its U-Net calls (UnetCalls), every key the harness
+    writes present and finite, the gates computed.  Returns the results,
+    each path's launches, and the K1/K2 shapes and Q1 geometries the paths
+    launched (for check_path_shapes)."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import torch_cascade_seeds
+    import torch_fewstep_check as tfs
+    import torch_fidelity_families as fam
+
+    folder = root / "fidelity"
+    report_path = folder / "torch_fidelity_report.json"
+    common = ["--device", "cuda", "--out", str(report_path), "--workdir", str(folder)]
+    results, paths, shapes, q1_geometries = {}, {}, {}, {}
+
+    def drive(path, int8, fn, *args):
+        """``fn(*args)`` with the path's launches counted and its shapes kept."""
+        with UnetCalls(attn, q1, nn_modules) as calls, AttentionShapes(attn) as seen, \
+                Q1Launches(q1, nn_modules) as q1_seen:
+            out = fn(*args)
+        paths[path] = calls.check(path, int8=int8)
+        for key, plan in seen.plans.items():
+            shapes.setdefault(key, (plan, path))
+        for key, plan in q1_seen.plans.items():
+            q1_geometries.setdefault(key, (plan, q1_seen.dtypes[key], path))
+        return out
+
+    for family in FIDELITY_FAMILIES:
+        path = f"fidelity_{family}"
+        flags = ["--int8"] + FIDELITY_FLAGS[family]
+        argv = ([str(FIDELITY_EPOCHS), family] + flags + FIDELITY_CUT + common
+                + ["--sample-steps", str(FIDELITY_STEPS), "--stage1-epochs", str(FIDELITY_EPOCHS),
+                   "--seed", str(seed)])
+        before = len(fam.METRIC_FAILURES)
+        t0 = time.perf_counter()
+        report = drive(path, True, fam.main, argv)
+        wall = time.perf_counter() - t0
+        check_fidelity_keys(path, report, family, fam.expected_keys(family, fam.parse(argv)),
+                            fam.SHARP_KEYS, fam.METRIC_FAILURES[before:])
+        if not isinstance(report.get(f"{family}_ok"), bool) or not isinstance(
+                report.get(f"{family}_int8_ok"), bool):
+            fail(f"{path}: the gates {family}_ok / {family}_int8_ok were not computed")
+        got = {k: report.get(f"{family}_{k}") for k in ("classifier_auc", "int8_classifier_auc",
+                                                        "fpd", "ok", "int8_ok")}
+        results[path] = dict(paths[path], wall_s=wall, **got,
+                             walls={k: report[f"{family}_{k}"] for k in (
+                                 "train_s", "generate_s", "int8_generate_s")})
+        print(f"{path}: {family} through torch_fidelity_families.py {' '.join(flags)}, cut "
+              f"({FIDELITY_EPOCHS} epoch, 256 + 128 events, {FIDELITY_STEPS}-step DDim): "
+              f"{wall:.1f} s (train {report[f'{family}_train_s']:.1f}, generate "
+              f"{report[f'{family}_generate_s']:.1f}, int8 "
+              f"{report[f'{family}_int8_generate_s']:.1f}) on {card}; AUC {got['classifier_auc']}"
+              f", int8 {got['int8_classifier_auc']}; gates {got['ok']} / {got['int8_ok']}; "
+              f"launches K1 {paths[path]['k1']}, K2 {paths[path]['k2']}, Q1 {paths[path]['q1']} "
+              f"over {paths[path]['unet_calls']} U-Net calls ({paths[path]['unet_grad_calls']} "
+              f"under autograd, {paths[path]['unet_int8_calls']} int8)", flush=True)
+
+    # the few-step harness: one candidate of each sampler family, bf16 and int8
+    argv = ([str(FIDELITY_EPOCHS), "--int8", "--seed", str(seed), "--candidates",
+             *FEWSTEP_CANDIDATES] + FIDELITY_CUT
+            + ["--device", "cuda", "--out", str(report_path), "--workdir",
+               str(folder / "fewstep")])
+    t0 = time.perf_counter()
+    res, _ = drive("fewstep", True, tfs.main, argv)
+    wall = time.perf_counter() - t0
+    report = json.loads(report_path.read_text())
+    tags = {}
+    for mode in ("bf16", "int8"):
+        tags[mode] = [t for t in (tfs.norm_cand(c)[2] for c in tfs.mode_candidates(mode))
+                      if t in FEWSTEP_CANDIDATES]
+        if sorted(res[mode]) != sorted(["DDim_400", *tags[mode]]):
+            fail(f"fewstep: {mode} candidates {sorted(res[mode])}, expected DDim_400 and "
+                 f"{tags[mode]}")
+        values, verdicts = tfs.report_keys(mode, tags[mode])
+        prefix = tfs.PREFIX[mode]
+        bad = [k for k in values if not math.isfinite(report.get(k, float("nan")))]
+        if (bad or not all(isinstance(report.get(g), bool) for g in verdicts)
+                or f"{prefix}_best" not in report or f"{prefix}_best_rel" not in report):
+            fail(f"fewstep: {prefix} keys not finite {bad}, verdicts "
+                 f"{[report.get(g) for g in verdicts]}")
+    if report.get("fewstep_int8_fenced") is not True:
+        fail("fewstep: the int8 rows are not marked as measured under the fence")
+    # one speed reading of each mode, whatever the candidate's gate at the cut
+    speed_tag = tfs.norm_cand(FEWSTEP_SPEED)[2]
+    cfg = tfs.fewstep_config(FIDELITY_EPOCHS)
+    speeds = {mode: tfs.candidate_speed(cfg, FEWSTEP_SPEED, mode, "cuda")
+              for mode in ("bf16", "int8")}
+    if not all(math.isfinite(v) and v > 0 for v in speeds.values()):
+        fail(f"fewstep: {speed_tag} showers/s {speeds}")
+    results["fewstep"] = dict(paths["fewstep"], wall_s=wall, **{
+        f"{mode}_{t}": {k: r["seps"].get(k) for k in ("classifier_auc", "fpd")}
+        | {"ok": r["ok"], "rel_ok": r["rel_ok"], "gen_s": r["gen_s"]}
+        for mode in res for t, r in res[mode].items()},
+        showers_per_s={f"{m}_{speed_tag}": v for m, v in speeds.items()})
+    print(f"fewstep: torch_fewstep_check.py --int8, cut ({FIDELITY_EPOCHS} epoch teacher, 256 + "
+          f"128 events), candidates {', '.join(FEWSTEP_CANDIDATES)} (int8: "
+          f"{', '.join(tags['int8'])}): {wall:.1f} s on {card}; {speed_tag} "
+          f"{speeds['bf16']:.1f} showers/s, int8 {speeds['int8']:.1f} (candidate_speed: batch "
+          f"128, best of 3, random weights); launches K1 {paths['fewstep']['k1']}, K2 "
+          f"{paths['fewstep']['k2']}, Q1 {paths['fewstep']['q1']} over "
+          f"{paths['fewstep']['unet_calls']} U-Net calls", flush=True)
+
+    # the cascade over two seeds
+    argv = ["--seeds", FIDELITY_SEEDS, "--epochs", str(FIDELITY_EPOCHS), "--stage1-epochs",
+            str(FIDELITY_EPOCHS), "--sample-steps", str(FIDELITY_STEPS), *FIDELITY_CUT,
+            "--device", "cuda", "--out", str(report_path), "--workdir", str(folder / "seeds")]
+    t0 = time.perf_counter()
+    agg = drive("cascade_seeds", False, torch_cascade_seeds.main, argv)
+    wall = time.perf_counter() - t0
+    rows = json.loads((folder / "torch_cascade_seeds.json").read_text())
+    n = len(FIDELITY_SEEDS.split(","))
+    if (sorted(rows) != [f"seed{s}" for s in FIDELITY_SEEDS.split(",")]
+            or agg["layer_seed_n"] != n or not isinstance(agg["layer_seeds_ok"], bool)
+            or not all(math.isfinite(agg[k]) for k in agg if k.startswith("layer_seed_"))):
+        fail(f"cascade_seeds: rows {sorted(rows)}, aggregate {agg}")
+    results["cascade_seeds"] = dict(paths["cascade_seeds"], wall_s=wall, **agg)
+    print(f"cascade_seeds: torch_cascade_seeds.py --seeds {FIDELITY_SEEDS}, cut: {wall:.1f} s on "
+          f"{card}; AUC {agg['layer_seed_auc_mean']} ± {agg['layer_seed_auc_ci95']}, FPD "
+          f"{agg['layer_seed_fpd_mean']} ± {agg['layer_seed_fpd_ci95']}; launches K1 "
+          f"{paths['cascade_seeds']['k1']}, K2 {paths['cascade_seeds']['k2']}", flush=True)
+    return (results, {p: (v["k1"], v["k2"], v["q1"]) for p, v in paths.items()}, shapes,
+            q1_geometries)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batches", type=int, default=2)
@@ -4686,9 +5012,21 @@ def main() -> None:
     t0 = time.perf_counter()
     jobs, job_paths = run_jobs_phase(root, made, cli, args.seed + 100, card)
     print(f"jobs: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 18. fidelity: the fidelity harnesses, cut, in the cli phase's directory;
+    # then every K1/K2 shape and Q1 geometry their paths launched that no
+    # earlier phase checked, against the plain versions
+    t0 = time.perf_counter()
+    fidelity, fidelity_paths, fid_shapes, fid_q1 = run_fidelity_phase(
+        root, args.seed + 110, attn, q1, nn_modules, card)
+    fid_cases = check_path_shapes(attn, q1, fid_shapes, fid_q1, k1_cases, k2_cases,
+                                  q1_cases + q1_net_cases + sum(q1_family_cases.values(), []))
+    k1_cases += fid_cases["k1"]
+    k2_cases += fid_cases["k2"]
+    print(f"fidelity: {time.perf_counter() - t0:.1f} s", flush=True)
     tmp.cleanup()
 
-    # 16. result
+    # 19. result
     launches = {"fused_attention_block": (gen_launches[0], train["k1"]),
                 "attention_block_backward": (gen_launches[1], train["k2"])}
     kernels = []
@@ -4731,14 +5069,17 @@ def main() -> None:
                         for p in SCALE_OUT_PATHS})
         # the requeued attempt's rank in phase 17
         by_path.update({p: job_paths[p][0 if key == "k1" else 1] for p in JOB_PATHS})
+        # the fidelity harnesses' paths (phase 18)
+        by_path.update({p: fidelity_paths[p][0 if key == "k1" else 1] for p in FIDELITY_PATHS})
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            # launches on the last six slices' paths: CNNCompare's sampling,
+            # launches on the last seven slices' paths: CNNCompare's sampling,
             # the optimize trial's training and sampling, the int8 paths (ds2's
             # and the other families'), the network variants', the scale-out
-            # paths (distillation on the model axis among them), the job's
+            # paths (distillation on the model axis among them), the job's,
+            # the fidelity harnesses'
             launches=sum(by_path[k] for k in EVALUATE_PATHS + INT8_PATHS + INT8_FAMILY_PATHS
-                         + NETWORK_PATHS + SCALE_OUT_PATHS + JOB_PATHS),
+                         + NETWORK_PATHS + SCALE_OUT_PATHS + JOB_PATHS + FIDELITY_PATHS),
             launches_by_path=by_path,
             max_abs_err=max(c["max_abs_err"] for c in bf16),
             # times of the 7 launches of one ds2 U-Net call, B=128, bf16
@@ -4798,12 +5139,13 @@ def main() -> None:
                 "int8_cascade_sample": int8["cascade"]["q1"],
                 "int8_transpose": int8["generate"]["transpose"]["q1"],
                 "convnext_int8": networks["convnext"]["int8"]["q1"],
-                **{p: int8["families"][p]["q1"] for p in INT8_FAMILY_PATHS}}
+                **{p: int8["families"][p]["q1"] for p in INT8_FAMILY_PATHS},
+                **{p: fidelity_paths[p][2] for p in FIDELITY_PATHS}}
     kernels.append(dict(
         name="int8_conv3d", route="cuda", source=SOURCES["int8_conv3d"],
         replaces=REPLACES["int8_conv3d"], launches=sum(q1_paths.values()),
         launches_by_path=q1_paths,
-        max_abs_err=max(c["max_abs_err"] for c in q1_bf16 + q1_net_cases
+        max_abs_err=max(c["max_abs_err"] for c in q1_bf16 + q1_net_cases + fid_cases["q1"]
                         + sum(q1_family_cases.values(), [])),
         **{name: per_denoise(q1_cases, main_calls, key) for name, key in (
             ("ms", "kernel_ms"), ("plain_ms", "plain_ms"), ("device_ms", "device_ms"),
@@ -4823,6 +5165,8 @@ def main() -> None:
                           launches_per_call=int8["families"][p]["scales"],
                           cases=q1_family_cases[p])
                   for p in INT8_FAMILIES},
+        # and at phase 18's geometries that no earlier phase checked
+        fidelity_cases=fid_cases["q1"],
     ))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"train": {k: v for k, v in train.items() if k != "steps"},
@@ -4832,7 +5176,8 @@ def main() -> None:
                       "samplers": zoo, "samplers_card_vs_cpu": zoo_cpu, "bns": bns,
                       "cascade": cascade, "distill": distill, "ds1": ds1, "hgcal": hgcal,
                       "evaluate": evaluation, "int8": int8, "networks": networks,
-                      "scale_out": scale_out, "jobs": jobs, "card": card}),
+                      "scale_out": scale_out, "jobs": jobs, "fidelity": fidelity,
+                      "card": card}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -55,6 +55,13 @@ ECUT_RAW_MEV = 0.0151
 SHOWERSCALE = 0.001
 N_TRAIN, N_EVAL = 8192, 2048
 
+# the JAX scripts' gate, which every harness of the port shares: the
+# histogram separations ...
+THRESH = {"Etot": 0.1, "ERatio": 0.1, "layer_profile_L1": 0.15}
+# ... and the sharp instruments (CaloChallenge convention: AUC < ~0.7 good)
+AUC_MAX = 0.70
+FPD_MAX = 1.0
+
 
 def synth_showers(n, rng):
     """Energy-dependent synthetic ds2 showers in raw MeV-like units (the
@@ -86,7 +93,7 @@ def build_config(epochs: int) -> dict:
 
 
 def compute_seps(ref, ref_e, gen, en, cfg, device):
-    from calodiffusion_tpu_torch.evaluation.evaluate import fidelity_metrics
+    from calodiffusion_tpu_torch.evaluation.evaluate import FDPCalculationError, fidelity_metrics
     from calodiffusion_tpu_torch.evaluation.metrics_utils import separation_power
 
     seps = {}
@@ -150,19 +157,25 @@ def compute_seps(ref, ref_e, gen, en, cfg, device):
             for name, val in p.last_separations.items():
                 seps[f"{key}|{name}"] = float(val)
 
-    # classifier AUC/JSD + FPD over the high-level features
-    seps.update(fidelity_metrics(ref, ref_e[:, 0], gen, en[:, 0], nlayers=45, device=device))
+    # classifier AUC/JSD + FPD over the high-level features; the report
+    # survives the FPD's singular covariance, as in the JAX script, and
+    # nothing else
+    try:
+        seps.update(fidelity_metrics(ref, ref_e[:, 0], gen, en[:, 0], nlayers=45,
+                                     device=device))
+    except FDPCalculationError as err:
+        print(f"classifier/FPD metrics failed: {err}", flush=True)
     return seps
 
 
 def gate(d) -> bool:
     """The JAX script's gate: the histogram separations, the classifier
-    AUC (CaloChallenge convention: < ~0.7 good) and FPD."""
-    ok = d["Etot"] < 0.1 and d["ERatio"] < 0.1 and d["layer_profile_L1"] < 0.15
+    AUC and FPD where recorded."""
+    ok = all(d[k] < v for k, v in THRESH.items())
     if "classifier_auc" in d:
-        ok = ok and d["classifier_auc"] <= 0.70
+        ok = ok and d["classifier_auc"] <= AUC_MAX
     if "fpd" in d:
-        ok = ok and d["fpd"] <= 1.0
+        ok = ok and d["fpd"] <= FPD_MAX
     return bool(ok)
 
 

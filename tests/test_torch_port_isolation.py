@@ -1,8 +1,10 @@
 """calodiffusion_tpu_torch stands alone: no module of the port, nor
 chip_smoke.py, nor the port's job scripts (scripts/torch_submit_*.py and the
-Python that scripts/torch_train_h100.sh runs), imports JAX, flax, orbax, the
-JAX package or the scripts (scripts/orbax_to_torch.py, which needs orbax,
-among them); the job scripts launch the port's modules only; and the port imports
+Python that scripts/torch_train_h100.sh runs), nor its fidelity harnesses
+(scripts/torch_fidelity_check.py, torch_fidelity_families.py,
+torch_fewstep_check.py, torch_cascade_seeds.py), imports JAX, flax, orbax,
+the JAX package or the scripts (scripts/orbax_to_torch.py, which needs
+orbax, and the JAX package's scripts by their bare names among them); the job scripts launch the port's modules only; and the port imports
 and runs with those (and the packages the card machine lacks: h5py, yaml,
 click, matplotlib, sklearn, pandas, optuna) blocked, its train and sample
 CLIs from npz caches too, and its classifier metrics and random study."""
@@ -18,7 +20,12 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "calodiffusion_tpu_torch"
-FORBIDDEN = ("jax", "flax", "orbax", "calodiffusion_tpu", "scripts", "orbax_to_torch")
+# and the JAX package's scripts by their bare names (the port's scripts
+# import their siblings so, from scripts/ on sys.path)
+JAX_SCRIPTS = tuple(sorted({p.stem for p in (ROOT / "scripts").glob("*.py")
+                            if not p.stem.startswith("torch_")} | {"bench"}))
+FORBIDDEN = ("jax", "flax", "orbax", "calodiffusion_tpu", "scripts", "orbax_to_torch") \
+    + JAX_SCRIPTS
 
 
 def _forbidden(name: str) -> bool:
@@ -28,10 +35,14 @@ def _forbidden(name: str) -> bool:
 
 JOB_SCRIPTS = sorted((ROOT / "scripts").glob("torch_submit_*.py"))
 TRAIN_SH = ROOT / "scripts" / "torch_train_h100.sh"
+# the fidelity harnesses and the ds2 check they build on
+HARNESSES = [ROOT / "scripts" / f"{name}.py" for name in (
+    "torch_fidelity_check", "torch_fidelity_families", "torch_fewstep_check",
+    "torch_cascade_seeds")]
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + JOB_SCRIPTS
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + JOB_SCRIPTS + HARNESSES
 
 
 def _check_imports(path, source):
