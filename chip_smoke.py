@@ -302,9 +302,9 @@ prints no result:
             directory: each family of torch_fidelity_families.py (hgcal, ds1,
             ds1pion, ds3, layer) through its main with --int8 (--roundtrip
             on ds1 and hgcal, --oracle on the cascade), then
-            torch_fewstep_check.py --int8 on one candidate of each sampler
-            family (FEWSTEP_CANDIDATES: DDim, DPMPP2M, Restart, Heun with
-            churn; the baseline too) with one showers/s measurement
+            torch_fewstep_check.py --int8 --distill 1 on one candidate of
+            each sampler family (FEWSTEP_CANDIDATES: DDim, DPMPP2M, Restart,
+            Heun with churn; the baseline too) with one showers/s measurement
             (FEWSTEP_SPEED, bf16 and int8), then torch_cascade_seeds.py at
             two seeds (cut: MAXEPOCH 1, the cascade's stage 1 too; 256 train
             and 128 eval events; DDim 400 -> 10 steps, the few-step
@@ -314,7 +314,22 @@ prints no result:
             failure), the gates computed, and K1, K2 and Q1 launched as each
             path's U-Net calls imply (UnetCalls: K1 an attention block a
             call, K2 one a call under autograd, Q1 one an int8-scaled conv)
-19. result  {"kernels": [...]} (each kernel's launches by path: generate,
+19. scripts the last five JAX scripts' counterparts of scripts/, cut:
+            torch_train_smoke.py (its seed-0 ds2 showers at 256 a file, the
+            full-size U-Net, 2 epochs, no loss check at the cut), then on
+            phase 18's few-step workdir torch_int8_fence_regate.py,
+            torch_distill_extend.py (the student to epoch 2, Consistency@1,
+            2 and 4) and torch_distill_variant.py (one epoch), and on its
+            cascade workdir torch_int8_cascade_ablation.py (every coarse
+            group), DDim 400 -> 10 steps: every report key the JAX script
+            writes, every number finite; K1, K2 and Q1 as each path's U-Net
+            calls imply (UnetCalls; the fence and the ablation sample only),
+            no conv of the fence int8 on any call, each ablation row's int8
+            calls running its table's convs alone (an excluded group
+            launches no Q1); then every K1/K2 shape and Q1 geometry the five
+            paths launched that no earlier phase checked, against the plain
+            versions
+20. result  {"kernels": [...]} (each kernel's launches by path: generate,
             train, the cli paths, samplers, bns, variants, cascade_train,
             cascade_sample, distill_train, distill_val, distill_sample,
             ds1_photon_train, ds1_photon_sample, ds1_pion_train,
@@ -329,8 +344,10 @@ prints no result:
             controlnet_forward, controlnet_train, ddp_train, ddp_sample,
             hsdp_train, hsdp_distill (rank 0's), jobs_train, fidelity_hgcal,
             fidelity_ds1, fidelity_ds1pion, fidelity_ds3, fidelity_layer,
-            fewstep, cascade_seeds; K1's and K2's "launches" sum the last
-            thirty-two, the last seven slices' paths, Q1's its fifteen;
+            fewstep, cascade_seeds, train_smoke, fence_regate,
+            cascade_ablation, distill_extend, distill_variant; K1's and K2's
+            "launches" sum the last thirty-seven, the last eight slices'
+            paths, Q1's its twenty;
             their "ds1" and "hgcal" hold one U-Net call's times of each
             config; Q1's times are one ds2 int8 denoise's 36 launches,
             its ConvNext geometries and plans apart, its launches by plan
@@ -4555,19 +4572,29 @@ class UnetCalls:
     def __init__(self, attn, q1, nn_modules):
         self.attn, self.q1, self.nn = attn, q1, nn_modules
         self.want = dict(k1=0, k2=0, q1=0, calls=0, grad_calls=0, int8_calls=0)
+        # each int8 call's set of int8-scaled conv paths, in call order
+        self.int8_paths: list = []
 
     def __enter__(self):
         from unittest import mock
 
+        from calodiffusion_tpu_torch.ops import quant
+
         nn, want, forward = self.nn, self.want, self.nn.CondUnet.forward
         blocks = {}
+
+        def int8_scaled(m):  # a weight-only conv runs float, not Q1
+            return getattr(m, "int8_scale", None) not in (None, quant.WEIGHT_ONLY)
 
         def counted(unet, *a, **kw):
             if id(unet) not in blocks:
                 blocks[id(unet)] = sum(
                     isinstance(m, nn.PreNormResidual) and isinstance(m.fn.fn, nn.LinearAttention)
                     and m.fn.fn.heads == 1 for m in unet.modules())
-            q = sum(getattr(m, "int8_scale", None) is not None for m in unet.modules())
+            q = sum(int8_scaled(m) for m in unet.modules())
+            if q:
+                self.int8_paths.append(frozenset(
+                    p for p, m in nn.quantizable_convs(unet).items() if int8_scaled(m)))
             want["calls"] += 1
             want["k1"] += blocks[id(unet)]
             if torch.is_grad_enabled():
@@ -4589,15 +4616,18 @@ class UnetCalls:
         torch.cuda.synchronize()
         self.patch.stop()
 
-    def check(self, path: str, int8: bool) -> dict:
+    def check(self, path: str, int8: bool, train: bool = True) -> dict:
+        """The launches against the calls' sums; K1 launched, K2 too where
+        the path ``train``s, Q1 where it samples ``int8``."""
         got = dict(k1=self.attn.fused_attention_block.launches,
                    k2=self.attn.attention_block_backward.launches,
                    q1=self.q1.int8_conv3d.launches)
         w = self.want
-        if (got != {k: w[k] for k in got} or not w["k1"] or not w["k2"]
+        if (got != {k: w[k] for k in got} or not w["k1"] or bool(w["k2"]) != train
                 or bool(w["int8_calls"]) != int8):
             fail(f"{path}: launches {got}; the path's network calls imply {w} (int8 "
-                 f"{'expected' if int8 else 'not expected'})")
+                 f"{'expected' if int8 else 'not expected'}, K2 "
+                 f"{'expected' if train else 'not expected'})")
         return dict(got, unet_calls=w["calls"], unet_grad_calls=w["grad_calls"],
                     unet_int8_calls=w["int8_calls"])
 
@@ -4637,6 +4667,34 @@ class AttentionShapes:
             patch.stop()
 
 
+class PathRecord:
+    """Phase 18's and 19's paths: each driven with its launches held to its
+    U-Net calls (UnetCalls), its int8 calls' conv sets kept (``int8_paths``)
+    and the K1/K2 shapes and Q1 geometries it launched kept, each with its
+    plan and the first path that launched it (``shapes``,
+    ``q1_geometries``, for check_path_shapes)."""
+
+    def __init__(self, attn, q1, nn_modules):
+        self.attn, self.q1, self.nn = attn, q1, nn_modules
+        self.paths, self.int8_paths, self.shapes, self.q1_geometries = {}, {}, {}, {}
+
+    def drive(self, path, int8, fn, *args, train=True):
+        """``fn(*args)`` with the path's launches counted and its shapes kept."""
+        with UnetCalls(self.attn, self.q1, self.nn) as calls, AttentionShapes(self.attn) as seen, \
+                Q1Launches(self.q1, self.nn) as q1_seen:
+            out = fn(*args)
+        self.paths[path] = calls.check(path, int8=int8, train=train)
+        self.int8_paths[path] = calls.int8_paths
+        for key, plan in seen.plans.items():
+            self.shapes.setdefault(key, (plan, path))
+        for key, plan in q1_seen.plans.items():
+            self.q1_geometries.setdefault(key, (plan, q1_seen.dtypes[key], path))
+        return out
+
+    def launches(self) -> dict:
+        return {p: (v["k1"], v["k2"], v["q1"]) for p, v in self.paths.items()}
+
+
 def check_fidelity_keys(path, report, family, keys, sharp, failures) -> None:
     """Every separation the harness writes (``keys``, its
     ``expected_keys``) present and finite, but the sharp instruments
@@ -4652,8 +4710,9 @@ def check_fidelity_keys(path, report, family, keys, sharp, failures) -> None:
              f"printed: {failures})")
 
 
-def check_path_shapes(attn, q1, shapes, q1_geometries, k1_cases, k2_cases, q1_checked):
-    """Phase 18's paths against the plain versions: K1 and K2 at every
+def check_path_shapes(attn, q1, shapes, q1_geometries, k1_cases, k2_cases, q1_checked,
+                      label="fidelity"):
+    """Phase 18's (and 19's) paths against the plain versions: K1 and K2 at every
     (B, N, C) and Q1 at every geometry that the paths launched and no
     earlier phase checked (check_attention_kernel, check_backward_kernel,
     check_q1, each in bf16 and f32); then each shape's plan on its path
@@ -4670,7 +4729,7 @@ def check_path_shapes(attn, q1, shapes, q1_geometries, k1_cases, k2_cases, q1_ch
             if k == kind and (B, N, C, dtype) not in seen:
                 todo.setdefault(B, set()).add((C, N))
         new[kind] = [c for B, blocks in sorted(todo.items())
-                     for c in check(attn, sorted(blocks), B, "fidelity")]
+                     for c in check(attn, sorted(blocks), B, label)]
         seen.update({(*c["shape"], c["dtype"]): c for c in new[kind]})
         for (k, *shape), (plan, path) in shapes.items():
             if k == kind and seen[tuple(shape)]["cluster_plan"] != plan:
@@ -4689,7 +4748,7 @@ def check_path_shapes(attn, q1, shapes, q1_geometries, k1_cases, k2_cases, q1_ch
         if seen[(*g, dtype)]["plan"] != plan:
             fail(f"{path}: Q1 at {g} ({dtype}) took the plan {plan}; its check took "
                  f"{seen[(*g, dtype)]['plan']}")
-    print(f"fidelity: the paths' shapes checked against the plain versions: K1 "
+    print(f"{label}: the paths' shapes checked against the plain versions: K1 "
           f"{sum(k == 'k1' for k, *_ in shapes)} ({len(new['k1'])} new cases), K2 "
           f"{sum(k == 'k2' for k, *_ in shapes)} ({len(new['k2'])} new), Q1 "
           f"{len(q1_geometries)} geometries ({len(new['q1'])} new cases); every plan as on "
@@ -4716,19 +4775,8 @@ def run_fidelity_phase(root: Path, seed, attn, q1, nn_modules, card):
     folder = root / "fidelity"
     report_path = folder / "torch_fidelity_report.json"
     common = ["--device", "cuda", "--out", str(report_path), "--workdir", str(folder)]
-    results, paths, shapes, q1_geometries = {}, {}, {}, {}
-
-    def drive(path, int8, fn, *args):
-        """``fn(*args)`` with the path's launches counted and its shapes kept."""
-        with UnetCalls(attn, q1, nn_modules) as calls, AttentionShapes(attn) as seen, \
-                Q1Launches(q1, nn_modules) as q1_seen:
-            out = fn(*args)
-        paths[path] = calls.check(path, int8=int8)
-        for key, plan in seen.plans.items():
-            shapes.setdefault(key, (plan, path))
-        for key, plan in q1_seen.plans.items():
-            q1_geometries.setdefault(key, (plan, q1_seen.dtypes[key], path))
-        return out
+    results, record = {}, PathRecord(attn, q1, nn_modules)
+    drive, paths = record.drive, record.paths
 
     for family in FIDELITY_FAMILIES:
         path = f"fidelity_{family}"
@@ -4761,8 +4809,8 @@ def run_fidelity_phase(root: Path, seed, attn, q1, nn_modules, card):
               f"under autograd, {paths[path]['unet_int8_calls']} int8)", flush=True)
 
     # the few-step harness: one candidate of each sampler family, bf16 and int8
-    argv = ([str(FIDELITY_EPOCHS), "--int8", "--seed", str(seed), "--candidates",
-             *FEWSTEP_CANDIDATES] + FIDELITY_CUT
+    argv = ([str(FIDELITY_EPOCHS), "--int8", "--seed", str(seed), "--distill",
+             str(FIDELITY_EPOCHS), "--candidates", *FEWSTEP_CANDIDATES] + FIDELITY_CUT
             + ["--device", "cuda", "--out", str(report_path), "--workdir",
                str(folder / "fewstep")])
     t0 = time.perf_counter()
@@ -4797,8 +4845,8 @@ def run_fidelity_phase(root: Path, seed, attn, q1, nn_modules, card):
         | {"ok": r["ok"], "rel_ok": r["rel_ok"], "gen_s": r["gen_s"]}
         for mode in res for t, r in res[mode].items()},
         showers_per_s={f"{m}_{speed_tag}": v for m, v in speeds.items()})
-    print(f"fewstep: torch_fewstep_check.py --int8, cut ({FIDELITY_EPOCHS} epoch teacher, 256 + "
-          f"128 events), candidates {', '.join(FEWSTEP_CANDIDATES)} (int8: "
+    print(f"fewstep: torch_fewstep_check.py --int8 --distill {FIDELITY_EPOCHS}, cut "
+          f"({FIDELITY_EPOCHS} epoch teacher and student, 256 + 128 events), candidates {', '.join(FEWSTEP_CANDIDATES)} (int8: "
           f"{', '.join(tags['int8'])}): {wall:.1f} s on {card}; {speed_tag} "
           f"{speeds['bf16']:.1f} showers/s, int8 {speeds['int8']:.1f} (candidate_speed: batch "
           f"128, best of 3, random weights); launches K1 {paths['fewstep']['k1']}, K2 "
@@ -4823,8 +4871,150 @@ def run_fidelity_phase(root: Path, seed, attn, q1, nn_modules, card):
           f"{card}; AUC {agg['layer_seed_auc_mean']} ± {agg['layer_seed_auc_ci95']}, FPD "
           f"{agg['layer_seed_fpd_mean']} ± {agg['layer_seed_fpd_ci95']}; launches K1 "
           f"{paths['cascade_seeds']['k1']}, K2 {paths['cascade_seeds']['k2']}", flush=True)
-    return (results, {p: (v["k1"], v["k2"], v["q1"]) for p, v in paths.items()}, shapes,
-            q1_geometries)
+    return results, record.launches(), record.shapes, record.q1_geometries
+
+
+SCRIPT_PATHS = ("train_smoke", "fence_regate", "cascade_ablation", "distill_extend",
+                "distill_variant")
+# the cut: the train smoke at 256 showers a file, 2 epochs (too few steps for
+# its loss check), DDim 400 -> FIDELITY_STEPS in every script; the others on
+# phase 18's few-step and cascade workdirs
+SMOKE_CUT = ["--events", "256", "--epochs", "2", "--no-loss-check"]
+SMOKE_KEYS = {"train_s", "epochs", "steps_per_epoch", "batch", "epoch_losses", "loss_ratio",
+              "loss_ok", "showers", "sample_steps", "generate_s", "showers_per_s",
+              "mean_generated_E", "showers_ok", "card"}
+# the separations of compute_seps without matplotlib (as on this machine); the
+# sharp ones go missing only with a "classifier/FPD metrics failed" line
+SEPS_KEYS = {"Etot", "ERatio", "layer_profile_L1", "sparsity"}
+SHARP_SEPS = {"classifier_auc", "classifier_jsd", "fpd", "fpd_err"}
+DISTILL_STEPS = "1,2,4"
+
+
+def check_rows(path, report, tags, keys, sharp=SHARP_SEPS) -> None:
+    """``report``'s rows exactly ``tags`` in order, each with the separations
+    ``keys`` (and ``sharp`` where they were computed; a row's "source" text
+    aside), every number finite."""
+    if list(report) != list(tags):
+        fail(f"{path}: rows {list(report)}, expected {list(tags)}")
+    for tag, row in report.items():
+        have = set(row) - {"source"}
+        if not keys <= have <= keys | sharp:
+            fail(f"{path}: row {tag} keys {sorted(row)}; expected {sorted(keys)} (+ "
+                 f"{sorted(sharp)})")
+        bad = [k for k in have if not math.isfinite(row[k])]
+        if bad:
+            fail(f"{path}: row {tag} not finite: {bad}")
+
+
+def run_scripts_phase(root: Path, attn, q1, nn_modules, card):
+    """Phase 19: the last five JAX scripts' counterparts (scripts/), cut:
+    torch_train_smoke.py (its own data and the full-size U-Net), then on
+    phase 18's few-step workdir torch_int8_fence_regate.py,
+    torch_distill_extend.py (the 1-epoch student to 2, Consistency@1,2,4) and
+    torch_distill_variant.py (1 epoch), and on its cascade workdir
+    torch_int8_cascade_ablation.py (every coarse group), DDim 400 ->
+    FIDELITY_STEPS.  Each report's keys as the JAX script writes them, every
+    number finite; each path's K1, K2 and Q1 launches against its U-Net calls
+    (UnetCalls), no int8 conv of the fence on the fence's calls, and each
+    ablation row's int8 convs its table's alone (an excluded group launching
+    no Q1).  Returns the results, each path's launches, and the K1/K2
+    shapes and Q1 geometries the paths launched."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import torch_distill_extend as tde
+    import torch_distill_variant as tdv
+    import torch_int8_cascade_ablation as tca
+    import torch_int8_fence_regate as tfr
+    import torch_train_smoke as tsm
+    from torch_fidelity_check import int8_fence
+
+    from calodiffusion_tpu_torch.ops import quant
+
+    folder, fid = root / "scripts", root / "fidelity"
+    few, layer = fid / "fewstep", fid / "layer"
+    common = ["--device", "cuda"]
+    results, record = {}, PathRecord(attn, q1, nn_modules)
+    int8_paths = record.int8_paths
+
+    def drive(path, int8, train, fn, argv):
+        t0 = time.perf_counter()
+        out = record.drive(path, int8, fn, argv, train=train)
+        got = record.paths[path]
+        results[path] = dict(got, wall_s=time.perf_counter() - t0)
+        print(f"{path}: {results[path]['wall_s']:.1f} s on {card}; launches K1 {got['k1']}, K2 "
+              f"{got['k2']}, Q1 {got['q1']} over {got['unet_calls']} U-Net calls "
+              f"({got['unet_grad_calls']} under autograd, {got['unet_int8_calls']} int8)",
+              flush=True)
+        return out
+
+    steps = ["--sample-steps", str(FIDELITY_STEPS)]
+    smoke = drive("train_smoke", False, True, tsm.main,
+                  SMOKE_CUT + steps + common + ["--workdir", str(folder / "smoke")])
+    if set(smoke) != SMOKE_KEYS or not smoke["showers_ok"] or not all(
+            math.isfinite(v) for v in [*smoke["epoch_losses"], smoke["train_s"],
+                                       smoke["generate_s"], smoke["mean_generated_E"]]):
+        fail(f"train_smoke: report {smoke}")
+    results["train_smoke"].update(
+        epoch_losses=smoke["epoch_losses"], showers_per_s=smoke["showers_per_s"],
+        train_s=smoke["train_s"], generate_s=smoke["generate_s"])
+
+    # the fence: no conv it names runs int8 on any call
+    fence = drive("fence_regate", True, False, tfr.main,
+                  ["--workdir", str(few)] + steps + common)
+    check_rows("fence_regate", fence, ["int8_fenced"], SEPS_KEYS)
+    teacher_cfg = tfr.teacher(str(few))[1]
+    fenced = [p for p in set().union(*int8_paths["fence_regate"])
+              if any(quant.path_matches(p, e) for e in int8_fence(teacher_cfg))]
+    if fenced:
+        fail(f"fence_regate: fenced convs ran int8: {sorted(fenced)}")
+    results["fence_regate"].update(fence["int8_fenced"])
+
+    # the ablation: every row's int8 calls run its table's convs and no others
+    tables = []
+    real = tca.ablation_rows
+
+    def recorded_rows(full_table, groups):
+        rows = real(full_table, groups)
+        tables.append((rows, groups))
+        return rows
+
+    tca.ablation_rows = recorded_rows
+    try:
+        ablation = drive("cascade_ablation", True, False, tca.main,
+                         ["--workdir", str(layer)] + steps + common)
+    finally:
+        tca.ablation_rows = real
+    rows, groups = tables[0]
+    check_rows("cascade_ablation", ablation, list(rows), {"Etot", "ERatio", "layer_profile_L1"})
+    want = [frozenset(p for p, v in t.items() if v != quant.WEIGHT_ONLY)
+            for t in rows.values() if t and any(v != quant.WEIGHT_ONLY for v in t.values())]
+    seen_sets = int8_paths["cascade_ablation"]
+    per_row = len(seen_sets) // max(len(want), 1)
+    if not want or per_row * len(want) != len(seen_sets) or any(
+            set(seen_sets[i * per_row:(i + 1) * per_row]) != {w} for i, w in enumerate(want)):
+        fail(f"cascade_ablation: the int8 calls' conv sets do not follow the rows' tables "
+             f"({len(seen_sets)} int8 calls, {len(want)} int8 rows)")
+    results["cascade_ablation"].update(
+        groups={g: len(v) for g, v in groups.items()},
+        rows={t: {k: r.get(k) for k in ("classifier_auc", "fpd")} for t, r in ablation.items()})
+
+    out = folder / "distill_scaling.json"
+    extend = drive("distill_extend", False, True, tde.main,
+                   ["--workdir", str(few), "--to-epochs", str(FIDELITY_EPOCHS + 1), "--steps",
+                    DISTILL_STEPS, "--out", str(out)] + common)
+    ext_tags = [f"epochs{FIDELITY_EPOCHS + 1}_Consistency_{n}" for n in DISTILL_STEPS.split(",")]
+    check_rows("distill_extend", extend, ext_tags, SEPS_KEYS)
+    variant = drive("distill_variant", False, True, tdv.main,
+                    ["--workdir", str(few), "--epochs", str(FIDELITY_EPOCHS), "--out", str(out)]
+                    + common)
+    tag = tdv.variant_config(teacher_cfg, FIDELITY_EPOCHS, 18, 0.999)[0]
+    check_rows("distill_variant", variant,
+               ext_tags + [f"{tag}_Consistency_{n}" for n in tdv.CONSISTENCY_STEPS], SEPS_KEYS)
+    if not all(variant[f"{tag}_Consistency_{n}"].get("source") for n in tdv.CONSISTENCY_STEPS):
+        fail("distill_variant: rows without their source")
+    for path, report in (("distill_extend", extend), ("distill_variant", variant)):
+        results[path].update(rows={t: {k: r.get(k) for k in ("classifier_auc", "fpd")}
+                                   for t, r in report.items()})
+    return results, record.launches(), record.shapes, record.q1_geometries
 
 
 def main() -> None:
@@ -5024,9 +5214,22 @@ def main() -> None:
     k1_cases += fid_cases["k1"]
     k2_cases += fid_cases["k2"]
     print(f"fidelity: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 19. scripts: the last five JAX scripts' counterparts, cut, on phase 18's
+    # workdirs; then the shapes and geometries no earlier phase checked
+    t0 = time.perf_counter()
+    scripts, script_paths, scr_shapes, scr_q1 = run_scripts_phase(root, attn, q1, nn_modules,
+                                                                  card)
+    scr_cases = check_path_shapes(
+        attn, q1, scr_shapes, scr_q1, k1_cases, k2_cases,
+        q1_cases + q1_net_cases + sum(q1_family_cases.values(), []) + fid_cases["q1"],
+        label="scripts")
+    k1_cases += scr_cases["k1"]
+    k2_cases += scr_cases["k2"]
+    print(f"scripts: {time.perf_counter() - t0:.1f} s", flush=True)
     tmp.cleanup()
 
-    # 19. result
+    # 20. result
     launches = {"fused_attention_block": (gen_launches[0], train["k1"]),
                 "attention_block_backward": (gen_launches[1], train["k2"])}
     kernels = []
@@ -5071,15 +5274,18 @@ def main() -> None:
         by_path.update({p: job_paths[p][0 if key == "k1" else 1] for p in JOB_PATHS})
         # the fidelity harnesses' paths (phase 18)
         by_path.update({p: fidelity_paths[p][0 if key == "k1" else 1] for p in FIDELITY_PATHS})
+        # the last five scripts' paths (phase 19)
+        by_path.update({p: script_paths[p][0 if key == "k1" else 1] for p in SCRIPT_PATHS})
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            # launches on the last seven slices' paths: CNNCompare's sampling,
+            # launches on the last eight slices' paths: CNNCompare's sampling,
             # the optimize trial's training and sampling, the int8 paths (ds2's
             # and the other families'), the network variants', the scale-out
             # paths (distillation on the model axis among them), the job's,
-            # the fidelity harnesses'
+            # the fidelity harnesses', the last five scripts'
             launches=sum(by_path[k] for k in EVALUATE_PATHS + INT8_PATHS + INT8_FAMILY_PATHS
-                         + NETWORK_PATHS + SCALE_OUT_PATHS + JOB_PATHS + FIDELITY_PATHS),
+                         + NETWORK_PATHS + SCALE_OUT_PATHS + JOB_PATHS + FIDELITY_PATHS
+                         + SCRIPT_PATHS),
             launches_by_path=by_path,
             max_abs_err=max(c["max_abs_err"] for c in bf16),
             # times of the 7 launches of one ds2 U-Net call, B=128, bf16
@@ -5140,13 +5346,14 @@ def main() -> None:
                 "int8_transpose": int8["generate"]["transpose"]["q1"],
                 "convnext_int8": networks["convnext"]["int8"]["q1"],
                 **{p: int8["families"][p]["q1"] for p in INT8_FAMILY_PATHS},
-                **{p: fidelity_paths[p][2] for p in FIDELITY_PATHS}}
+                **{p: fidelity_paths[p][2] for p in FIDELITY_PATHS},
+                **{p: script_paths[p][2] for p in SCRIPT_PATHS}}
     kernels.append(dict(
         name="int8_conv3d", route="cuda", source=SOURCES["int8_conv3d"],
         replaces=REPLACES["int8_conv3d"], launches=sum(q1_paths.values()),
         launches_by_path=q1_paths,
         max_abs_err=max(c["max_abs_err"] for c in q1_bf16 + q1_net_cases + fid_cases["q1"]
-                        + sum(q1_family_cases.values(), [])),
+                        + scr_cases["q1"] + sum(q1_family_cases.values(), [])),
         **{name: per_denoise(q1_cases, main_calls, key) for name, key in (
             ("ms", "kernel_ms"), ("plain_ms", "plain_ms"), ("device_ms", "device_ms"),
             ("bound_ms", "bound_ms"), ("library_ms", "library_ms"))},
@@ -5165,8 +5372,8 @@ def main() -> None:
                           launches_per_call=int8["families"][p]["scales"],
                           cases=q1_family_cases[p])
                   for p in INT8_FAMILIES},
-        # and at phase 18's geometries that no earlier phase checked
-        fidelity_cases=fid_cases["q1"],
+        # and at phase 18's and 19's geometries that no earlier phase checked
+        fidelity_cases=fid_cases["q1"], scripts_cases=scr_cases["q1"],
     ))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"train": {k: v for k, v in train.items() if k != "steps"},
@@ -5177,7 +5384,7 @@ def main() -> None:
                       "cascade": cascade, "distill": distill, "ds1": ds1, "hgcal": hgcal,
                       "evaluate": evaluation, "int8": int8, "networks": networks,
                       "scale_out": scale_out, "jobs": jobs, "fidelity": fidelity,
-                      "card": card}),
+                      "scripts": scripts, "card": card}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

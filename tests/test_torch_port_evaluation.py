@@ -128,6 +128,60 @@ def test_frechet_matches_jax():
     np.testing.assert_array_equal(tfr.normalise_features(real), jfr.normalise_features(real))
 
 
+# the HGCal fidelity harness's --energy-min (scripts/torch_fidelity_families.py
+# hgcal): its readout threshold, the 0.45 quantile of the 6144 train showers'
+# cells (2.0392e-4 raw, tests/torch_hgcal_split.py draws it), x SHOWERSCALE 200
+HGCAL_EMIN = 200 * 2.0392441962478197e-4
+MASK_CASES = ("mixed", "layer_all_under", "layer_one_left", "negative", "layer_empty")
+
+
+def _mask_input(case):
+    """(3, 28, 50) generated cells around HGCAL_EMIN; ``case`` sets layer 24
+    of event 0 (and 25 of event 1) to its edge."""
+    rng = np.random.default_rng(MASK_CASES.index(case))
+    x = (HGCAL_EMIN * rng.exponential(1.5, (3, 28, 50))).astype(np.float32)
+    if case == "layer_all_under":  # every voxel just under: the layer masked away
+        x[0, 24] = HGCAL_EMIN * rng.uniform(0.5, 0.999, 50)
+        x[1, 25] = HGCAL_EMIN * 0.999
+    elif case == "layer_one_left":  # one voxel over: it takes the layer's energy
+        x[0, 24] = HGCAL_EMIN * rng.uniform(0.5, 0.999, 50)
+        x[0, 24, 7] = 1.5 * HGCAL_EMIN
+        x[1, 25] = 0.0
+        x[1, 25, 3] = 1.01 * HGCAL_EMIN
+    elif case == "negative":  # negative voxels: zeroed, their energy not conserved
+        x[0, 24] = HGCAL_EMIN * rng.normal(0.0, 2.0, 50)
+        x[1] -= HGCAL_EMIN
+    elif case == "layer_empty":  # a layer with nothing: stays 0, no NaN
+        x[0, 24] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("case", MASK_CASES)
+def test_apply_mask_conserve_e_matches_jax(case):
+    """``apply_mask_conserveE`` at the HGCal harness's threshold, bit for
+    bit against the JAX package's (port evaluation/metrics_utils.py:44, JAX
+    :41), with the edges HGCal's deep layers turn on."""
+    from calodiffusion_tpu.evaluation import metrics_utils as jmu
+    from calodiffusion_tpu_torch.evaluation import metrics_utils as tmu
+
+    x = _mask_input(case)
+    got = tmu.apply_mask_conserveE(x.copy(), x < HGCAL_EMIN)
+    want = jmu.apply_mask_conserveE(x.copy(), x < HGCAL_EMIN)
+    assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+    assert np.isfinite(got).all() and (got >= 0).all()
+    assert ((got == 0) | (got >= HGCAL_EMIN)).all()
+    kept = np.maximum(x, 0).sum(-1)  # a layer keeps its energy where a voxel is left
+    left = (x >= HGCAL_EMIN).any(-1)
+    np.testing.assert_allclose(got.sum(-1)[left], kept[left], rtol=1e-5)
+    assert (got.sum(-1)[~left] == 0).all()
+    if case == "layer_all_under":
+        assert not got[0, 24].any() and not got[1, 25].any()
+    elif case == "layer_one_left":
+        assert np.count_nonzero(got[0, 24]) == 1
+        assert got[0, 24, 7] == pytest.approx(kept[0, 24], rel=1e-5)
+        assert np.count_nonzero(got[1, 25]) == 1 and got[1, 25, 3] == x[1, 25, 3]
+
+
 @pytest.mark.parametrize("nlayers,occupancy", [(45, True), (45, False), (None, True)])
 def test_shower_features_and_aucs_match_jax(nlayers, occupancy):
     ref, ref_e = _showers(160, 6480, 3)

@@ -2,12 +2,17 @@
 chip_smoke.py, nor the port's job scripts (scripts/torch_submit_*.py and the
 Python that scripts/torch_train_h100.sh runs), nor its fidelity harnesses
 (scripts/torch_fidelity_check.py, torch_fidelity_families.py,
-torch_fewstep_check.py, torch_cascade_seeds.py), imports JAX, flax, orbax,
-the JAX package or the scripts (scripts/orbax_to_torch.py, which needs
+torch_fewstep_check.py, torch_cascade_seeds.py), nor the last five scripts'
+counterparts (torch_train_smoke.py, torch_int8_fence_regate.py,
+torch_int8_cascade_ablation.py, torch_distill_extend.py,
+torch_distill_variant.py), nor any other scripts/torch_*.py, imports JAX,
+flax, orbax, the JAX package or the scripts (scripts/orbax_to_torch.py, which needs
 orbax, and the JAX package's scripts by their bare names among them); the job scripts launch the port's modules only; and the port imports
 and runs with those (and the packages the card machine lacks: h5py, yaml,
 click, matplotlib, sklearn, pandas, optuna) blocked, its train and sample
-CLIs from npz caches too, and its classifier metrics and random study."""
+CLIs from npz caches too, and its classifier metrics and random study.
+tests/torch_hgcal_split.py, which runs both packages, stays beside the
+tests, and nothing under scripts/ imports it."""
 
 import ast
 import os
@@ -39,10 +44,29 @@ TRAIN_SH = ROOT / "scripts" / "torch_train_h100.sh"
 HARNESSES = [ROOT / "scripts" / f"{name}.py" for name in (
     "torch_fidelity_check", "torch_fidelity_families", "torch_fewstep_check",
     "torch_cascade_seeds")]
+# the last five JAX scripts' counterparts
+SCRIPTS = [ROOT / "scripts" / f"{name}.py" for name in (
+    "torch_train_smoke", "torch_int8_fence_regate", "torch_int8_cascade_ablation",
+    "torch_distill_extend", "torch_distill_variant")]
+OTHER_SCRIPTS = sorted(set((ROOT / "scripts").glob("torch_*.py"))
+                       - set(JOB_SCRIPTS + HARNESSES + SCRIPTS))
+SPLIT_HELPER = ROOT / "tests" / "torch_hgcal_split.py"
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + JOB_SCRIPTS + HARNESSES
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + JOB_SCRIPTS + HARNESSES
+            + SCRIPTS + OTHER_SCRIPTS)
+
+
+def _imported(path) -> set:
+    """Every module ``path`` imports, at any depth of its code."""
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+    return names
 
 
 def _check_imports(path, source):
@@ -61,6 +85,23 @@ def _check_imports(path, source):
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_forbidden_imports(path):
     _check_imports(path, path.read_text())
+
+
+def test_the_five_scripts_exist_and_are_checked():
+    assert all(p.exists() for p in SCRIPTS)
+    assert set(SCRIPTS) <= set(_sources())
+
+
+def test_split_helper_runs_both_packages_and_stays_in_tests():
+    """The helper imports the JAX package and the port (so it may not live
+    under scripts/); no script imports it."""
+    names = _imported(SPLIT_HELPER)
+    assert any(n == "calodiffusion_tpu" or n.startswith("calodiffusion_tpu.") for n in names)
+    assert any(n.startswith("calodiffusion_tpu_torch") for n in names)
+    assert "jax" in names
+    assert not (ROOT / "scripts" / SPLIT_HELPER.name).exists()
+    for path in sorted((ROOT / "scripts").glob("*.py")) + [ROOT / "chip_smoke.py"]:
+        assert SPLIT_HELPER.stem not in _imported(path), path
 
 
 def _launched_modules(text: str) -> list[str]:
