@@ -329,7 +329,25 @@ prints no result:
             launches no Q1); then every K1/K2 shape and Q1 geometry the five
             paths launched that no earlier phase checked, against the plain
             versions
-20. result  {"kernels": [...]} (each kernel's launches by path: generate,
+20. probes  the four TPU probe scripts' counterparts of scripts/, cut at
+            full width and batch 128 (K 60 -> 5, 200 -> 5 and 30 -> 3,
+            DDim 400 -> 10 steps), through their main:
+            torch_level_profile.py (the five U-Net ablations at ds2),
+            torch_l0_elementwise_ablation.py, torch_im2col_microbench.py
+            (the eight geometries) and torch_ds3_roofline.py --which ds2 and
+            ds3 (ten conv pairs in NCDHW and channels-last, the three
+            attention settings' sampling): every key the JAX script prints
+            or writes present and finite (its TPU-only fields replaced by
+            the card's bound), graph_ms (K iterations in one CUDA graph,
+            replayed) and eager_ms printed for each case, the full U-Net's
+            graphed output within K1's bf16 tolerance of its eager output,
+            im2col within 1e-5 of cuDNN (f32, TF32 off), K1 launched as
+            each case's attention blocks (7, 0, 4, 2, 0; roofline 7, 1, 0)
+            and Python calls imply (a replay launches nothing from Python)
+            and as each path's U-Net calls imply (UnetCalls with the
+            TruncatedUnet), none on the ablation and im2col paths; then any
+            K1 shape the paths launched that no earlier phase checked
+21. result  {"kernels": [...]} (each kernel's launches by path: generate,
             train, the cli paths, samplers, bns, variants, cascade_train,
             cascade_sample, distill_train, distill_val, distill_sample,
             ds1_photon_train, ds1_photon_sample, ds1_pion_train,
@@ -345,9 +363,9 @@ prints no result:
             hsdp_train, hsdp_distill (rank 0's), jobs_train, fidelity_hgcal,
             fidelity_ds1, fidelity_ds1pion, fidelity_ds3, fidelity_layer,
             fewstep, cascade_seeds, train_smoke, fence_regate,
-            cascade_ablation, distill_extend, distill_variant; K1's and K2's
-            "launches" sum the last thirty-seven, the last eight slices'
-            paths, Q1's its twenty;
+            cascade_ablation, distill_extend, distill_variant, level_profile,
+            roofline_ds2, roofline_ds3; K1's and K2's "launches" sum the
+            last forty, the last nine slices' paths, Q1's its twenty;
             their "ds1" and "hgcal" hold one U-Net call's times of each
             config; Q1's times are one ds2 int8 denoise's 36 launches,
             its ConvNext geometries and plans apart, its launches by plan
@@ -369,6 +387,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -4569,8 +4588,11 @@ class UnetCalls:
     convolution with an int8 scale set; K1's, K2's and Q1's counters reset
     on entry, so ``check`` holds them to those sums."""
 
-    def __init__(self, attn, q1, nn_modules):
+    def __init__(self, attn, q1, nn_modules, classes=None):
         self.attn, self.q1, self.nn = attn, q1, nn_modules
+        # the network classes whose calls count (phase 20 adds the level
+        # profile's TruncatedUnet)
+        self.classes = classes or (nn_modules.CondUnet,)
         self.want = dict(k1=0, k2=0, q1=0, calls=0, grad_calls=0, int8_calls=0)
         # each int8 call's set of int8-scaled conv paths, in call order
         self.int8_paths: list = []
@@ -4580,33 +4602,40 @@ class UnetCalls:
 
         from calodiffusion_tpu_torch.ops import quant
 
-        nn, want, forward = self.nn, self.want, self.nn.CondUnet.forward
-        blocks = {}
+        nn, want = self.nn, self.want
+        # by network, not by id(): a path may free a network and build
+        # another at its address (phase 20's cases)
+        blocks = weakref.WeakKeyDictionary()
 
         def int8_scaled(m):  # a weight-only conv runs float, not Q1
             return getattr(m, "int8_scale", None) not in (None, quant.WEIGHT_ONLY)
 
-        def counted(unet, *a, **kw):
-            if id(unet) not in blocks:
-                blocks[id(unet)] = sum(
-                    isinstance(m, nn.PreNormResidual) and isinstance(m.fn.fn, nn.LinearAttention)
-                    and m.fn.fn.heads == 1 for m in unet.modules())
-            q = sum(int8_scaled(m) for m in unet.modules())
-            if q:
-                self.int8_paths.append(frozenset(
-                    p for p, m in nn.quantizable_convs(unet).items() if int8_scaled(m)))
-            want["calls"] += 1
-            want["k1"] += blocks[id(unet)]
-            if torch.is_grad_enabled():
-                want["grad_calls"] += 1
-                want["k2"] += blocks[id(unet)]
-            want["int8_calls"] += q > 0
-            want["q1"] += q
-            return forward(unet, *a, **kw)
+        def counting(forward):
+            def counted(unet, *a, **kw):
+                if unet not in blocks:
+                    blocks[unet] = sum(
+                        isinstance(m, nn.PreNormResidual)
+                        and isinstance(m.fn.fn, nn.LinearAttention) and m.fn.fn.heads == 1
+                        for m in unet.modules())
+                q = sum(int8_scaled(m) for m in unet.modules())
+                if q:
+                    self.int8_paths.append(frozenset(
+                        p for p, m in nn.quantizable_convs(unet).items() if int8_scaled(m)))
+                want["calls"] += 1
+                want["k1"] += blocks[unet]
+                if torch.is_grad_enabled():
+                    want["grad_calls"] += 1
+                    want["k2"] += blocks[unet]
+                want["int8_calls"] += q > 0
+                want["q1"] += q
+                return forward(unet, *a, **kw)
+            return counted
 
         torch.cuda.synchronize()
-        self.patch = mock.patch.object(nn.CondUnet, "forward", counted)
-        self.patch.start()
+        self.patches = [mock.patch.object(cls, "forward", counting(cls.forward))
+                        for cls in self.classes]
+        for patch in self.patches:
+            patch.start()
         self.attn.fused_attention_block.launches = 0
         self.attn.attention_block_backward.launches = 0
         self.q1.int8_conv3d.launches = 0
@@ -4614,7 +4643,8 @@ class UnetCalls:
 
     def __exit__(self, *exc):
         torch.cuda.synchronize()
-        self.patch.stop()
+        for patch in self.patches:
+            patch.stop()
 
     def check(self, path: str, int8: bool, train: bool = True) -> dict:
         """The launches against the calls' sums; K1 launched, K2 too where
@@ -4674,14 +4704,14 @@ class PathRecord:
     plan and the first path that launched it (``shapes``,
     ``q1_geometries``, for check_path_shapes)."""
 
-    def __init__(self, attn, q1, nn_modules):
-        self.attn, self.q1, self.nn = attn, q1, nn_modules
+    def __init__(self, attn, q1, nn_modules, classes=None):
+        self.attn, self.q1, self.nn, self.classes = attn, q1, nn_modules, classes
         self.paths, self.int8_paths, self.shapes, self.q1_geometries = {}, {}, {}, {}
 
     def drive(self, path, int8, fn, *args, train=True):
         """``fn(*args)`` with the path's launches counted and its shapes kept."""
-        with UnetCalls(self.attn, self.q1, self.nn) as calls, AttentionShapes(self.attn) as seen, \
-                Q1Launches(self.q1, self.nn) as q1_seen:
+        with UnetCalls(self.attn, self.q1, self.nn, self.classes) as calls, \
+                AttentionShapes(self.attn) as seen, Q1Launches(self.q1, self.nn) as q1_seen:
             out = fn(*args)
         self.paths[path] = calls.check(path, int8=int8, train=train)
         self.int8_paths[path] = calls.int8_paths
@@ -5017,6 +5047,160 @@ def run_scripts_phase(root: Path, attn, q1, nn_modules, card):
     return results, record.launches(), record.shapes, record.q1_geometries
 
 
+PROBE_PATHS = ("level_profile", "roofline_ds2", "roofline_ds3")
+# the cut: the JAX defaults K 60 -> 5 (level profile, L0 ablation), 200 -> 5
+# (im2col) and 30 -> 3 (roofline convs), DDim 400 -> 10 steps (roofline
+# models); full width, batch 128
+PROBE_ITERS = {"level_profile": 5, "l0_ablation": 5, "im2col": 5, "roofline": 3}
+PROBE_STEPS = 10
+# the fused attention blocks (K1 launches a call) of each case
+LEVEL_PROFILE_BLOCKS = {"full": 7, "no_attn": 0, "l01_only": 4, "l0_only": 2,
+                        "l0_only_no_attn": 0}
+ROOFLINE_BLOCKS = {"full": 7, "no_block_attn": 1, "no_attn": 0}
+# what the JAX scripts print or write, under the port's report keys
+# (ds3_roofline's TPU fields padded_ideal_frac_pct and pct_of_padded_ideal
+# dropped, the card's bound in their place)
+IM2COL_KEYS = ("rel_err", "native_ms", "native_tflops", "im2col_ms", "im2col_tflops", "speedup")
+CONV_CASE_KEYS = ("batch", "cin", "cout", "time_per_conv_ms", "achieved_tflops",
+                  "useful_mfu_pct", "bound_ms", "pct_of_bound", "graph_ms", "eager_ms")
+MODEL_KEYS = ("showers_per_sec", "flops_per_run", "achieved_tflops", "useful_mfu_pct",
+              "graph_showers_per_sec", "graph_ms", "eager_ms")
+
+
+def finite_keys(path, row, keys) -> None:
+    """Every key of ``keys`` in ``row``, a finite number."""
+    bad = [k for k in keys if not isinstance(row.get(k), (int, float))
+           or not math.isfinite(row[k])]
+    if bad:
+        fail(f"{path}: keys missing or not finite: {bad} in {row}")
+
+
+def check_timed_cases(path, report, blocks, card) -> None:
+    """Each case of a level-profile-like report: graph_ms and eager_ms
+    finite and printed, K1 launched k1_blocks times each Python call
+    (warm-up, eager runs, capture; a replay launches nothing from Python),
+    k1_blocks as the case implies (``blocks``)."""
+    for key, case in report["cases"].items():
+        finite_keys(f"{path}/{key}", case, ("graph_ms", "eager_ms", "host_ms"))
+        if case["k1_blocks"] != blocks[key] or (
+                case["k1_launches"] != case["k1_blocks"] * case["calls"]):
+            fail(f"{path}/{key}: {case['k1_blocks']} attention blocks (expected {blocks[key]}),"
+                 f" K1 launched {case['k1_launches']} times over {case['calls']} calls")
+        print(f"{path}/{key}: graph {case['graph_ms']:.3f} ms, eager {case['eager_ms']:.3f} ms "
+              f"a denoise (host {case['host_ms']:.3f}); graph vs eager after "
+              f"{report['iters']} iterations {case['graph_vs_eager_max_abs_err']:.3g}; K1 "
+              f"{case['k1_launches']} over {case['calls']} calls on {card}", flush=True)
+
+
+def run_probes_phase(root: Path, attn, q1, nn_modules, card):
+    """Phase 20: the four TPU probe scripts' counterparts (scripts/), cut
+    (PROBE_ITERS, PROBE_STEPS) at full width and batch 128, through their
+    ``main``: torch_level_profile.py, torch_l0_elementwise_ablation.py,
+    torch_im2col_microbench.py, torch_ds3_roofline.py --which ds2 and
+    --which ds3.  Every key the JAX script prints or writes present and
+    finite, graph_ms and eager_ms printed for each case; the full U-Net's
+    graphed output after K iterations within K1's bf16 tolerance of its
+    eager output; im2col's rel_err at most 1e-5; K1 launched as each
+    case's attention blocks and Python calls imply (a replay launches
+    nothing from Python) and as the paths' U-Net calls imply (UnetCalls,
+    the level profile's TruncatedUnet counted too), none on the ablation
+    and the im2col paths.  Returns the results, the three K1 paths'
+    launches and the K1 shapes they launched (for check_path_shapes)."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import torch_ds3_roofline as trl
+    import torch_im2col_microbench as tim
+    import torch_l0_elementwise_ablation as tl0
+    import torch_level_profile as tlp
+
+    folder = root / "probes"
+    results = {}
+    record = PathRecord(attn, q1, nn_modules, classes=(nn_modules.CondUnet, tlp.TruncatedUnet))
+
+    def drive(path, k1, fn, argv):
+        t0 = time.perf_counter()
+        if k1:
+            report = record.drive(path, False, fn, argv, train=False)
+        else:
+            torch.cuda.synchronize()
+            attn.fused_attention_block.launches = 0
+            report = fn(argv)
+            torch.cuda.synchronize()
+            if attn.fused_attention_block.launches:
+                fail(f"{path}: K1 launched {attn.fused_attention_block.launches} times; its "
+                     "cases hold no attention")
+        wall = time.perf_counter() - t0
+        results[path] = dict(record.paths.get(path, {}), wall_s=wall)
+        print(f"{path}: {wall:.1f} s on {card}; K1 launches "
+              f"{record.paths[path]['k1'] if k1 else 0}", flush=True)
+        return report
+
+    def argv(name, *extra):
+        return ["--device", "cuda", "--out", str(folder / f"{name}.json"), *extra]
+
+    lp = drive("level_profile", True, tlp.main,
+               argv("level_profile", "--iters", str(PROBE_ITERS["level_profile"])))
+    check_timed_cases("level_profile", lp, LEVEL_PROFILE_BLOCKS, card)
+    finite_keys("level_profile", lp, [f"{k}_ms" for k, *_ in tlp.DERIVED]
+                + [f"{k}_eager_ms" for k, *_ in tlp.DERIVED])
+    full = lp["cases"]["full"]
+    if full["graph_vs_eager_ok"] is not True:
+        fail(f"level_profile: the full U-Net's graphed output differs from its eager output by "
+             f"{full['graph_vs_eager_max_abs_err']}, past K1's bf16 tolerance")
+    results["level_profile"].update(
+        {k: {f: c[f] for f in ("graph_ms", "eager_ms", "host_ms", "graph_vs_eager_max_abs_err")}
+         for k, c in lp["cases"].items()},
+        **{f"{k}_ms": lp[f"{k}_ms"] for k, *_ in tlp.DERIVED})
+
+    l0 = drive("l0_ablation", False, tl0.main,
+               argv("l0_ablation", "--iters", str(PROBE_ITERS["l0_ablation"])))
+    check_timed_cases("l0_ablation", l0, {k: 0 for k, *_ in tl0.CASES}, card)
+    finite_keys("l0_ablation", l0, [f"{k}_ms" for k, *_ in tl0.DERIVED])
+    if tl0.M.F is not F:
+        fail("l0_ablation: models/nn_modules.F was not restored")
+    results["l0_ablation"].update(
+        {k: {f: c[f] for f in ("graph_ms", "eager_ms")} for k, c in l0["cases"].items()},
+        **{f"{k}_ms": l0[f"{k}_ms"] for k, *_ in tl0.DERIVED})
+
+    im = drive("im2col", False, tim.main, argv("im2col", "--iters", str(PROBE_ITERS["im2col"])))
+    for row in im["cases"]:
+        finite_keys(f"im2col/{row['name']}", row, IM2COL_KEYS)
+        for form in ("native", "im2col"):
+            finite_keys(f"im2col/{row['name']}/{form}", row[form], ("graph_ms", "eager_ms"))
+        if not row["rel_err"] <= tim.REL_ERR_MAX:
+            fail(f"im2col/{row['name']}: rel_err {row['rel_err']} > {tim.REL_ERR_MAX}")
+    results["im2col"].update(cases={r["name"]: {k: r[k] for k in IM2COL_KEYS}
+                                    for r in im["cases"]})
+
+    for ds in ("ds2", "ds3"):
+        path = f"roofline_{ds}"
+        rep = drive(path, True, trl.main,
+                    argv(path, "--which", ds, "--iters", str(PROBE_ITERS["roofline"]),
+                         "--steps", str(PROBE_STEPS)))
+        if len(rep["conv_cases"]) != 2 * len(trl.CONV_CASES[ds]):
+            fail(f"{path}: {len(rep['conv_cases'])} conv cases")
+        for c in rep["conv_cases"]:
+            finite_keys(f"{path}/conv {c['spatial']} {c['cin']}->{c['cout']} {c['layout']}", c,
+                        CONV_CASE_KEYS)
+            print(f"{path}: conv {tuple(c['spatial'])} {c['cin']}->{c['cout']} {c['layout']}: "
+                  f"graph {c['graph_ms']:.4f} ms, eager {c['eager_ms']:.4f} ms a pair; "
+                  f"{c['pct_of_bound']:.1f} % of the bound", flush=True)
+        for tag, row in rep[ds].items():
+            finite_keys(f"{path}/{tag}", row, MODEL_KEYS)
+            if row["k1_blocks"] != ROOFLINE_BLOCKS[tag]:
+                fail(f"{path}/{tag}: {row['k1_blocks']} attention blocks, expected "
+                     f"{ROOFLINE_BLOCKS[tag]}")
+            print(f"{path}/{tag}: {row['showers_per_sec']:.2f} showers/s eager, "
+                  f"{row['graph_showers_per_sec']:.2f} graphed ({PROBE_STEPS}-step DDim); "
+                  f"graph {row['graph_ms']:.3f} ms, eager {row['eager_ms']:.3f} ms a step; "
+                  f"MFU {row['useful_mfu_pct']:.2f} %", flush=True)
+        results[path].update(
+            conv_cases=[{k: c[k] for k in ("spatial", "cin", "cout", "layout", "graph_ms",
+                                           "eager_ms", "pct_of_bound")}
+                        for c in rep["conv_cases"]],
+            **{tag: {k: row[k] for k in MODEL_KEYS} for tag, row in rep[ds].items()})
+    return results, record.launches(), record.shapes
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batches", type=int, default=2)
@@ -5227,9 +5411,18 @@ def main() -> None:
     k1_cases += scr_cases["k1"]
     k2_cases += scr_cases["k2"]
     print(f"scripts: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 20. probes: the four TPU probe scripts' counterparts, cut; then any K1
+    # shape no earlier phase checked
+    t0 = time.perf_counter()
+    probes, probe_paths, probe_shapes = run_probes_phase(root, attn, q1, nn_modules, card)
+    probe_cases = check_path_shapes(attn, q1, probe_shapes, {}, k1_cases, k2_cases, [],
+                                    label="probes")
+    k1_cases += probe_cases["k1"]
+    print(f"probes: {time.perf_counter() - t0:.1f} s", flush=True)
     tmp.cleanup()
 
-    # 20. result
+    # 21. result
     launches = {"fused_attention_block": (gen_launches[0], train["k1"]),
                 "attention_block_backward": (gen_launches[1], train["k2"])}
     kernels = []
@@ -5276,16 +5469,18 @@ def main() -> None:
         by_path.update({p: fidelity_paths[p][0 if key == "k1" else 1] for p in FIDELITY_PATHS})
         # the last five scripts' paths (phase 19)
         by_path.update({p: script_paths[p][0 if key == "k1" else 1] for p in SCRIPT_PATHS})
+        # the probes' paths (phase 20)
+        by_path.update({p: probe_paths[p][0 if key == "k1" else 1] for p in PROBE_PATHS})
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            # launches on the last eight slices' paths: CNNCompare's sampling,
+            # launches on the last nine slices' paths: CNNCompare's sampling,
             # the optimize trial's training and sampling, the int8 paths (ds2's
             # and the other families'), the network variants', the scale-out
             # paths (distillation on the model axis among them), the job's,
-            # the fidelity harnesses', the last five scripts'
+            # the fidelity harnesses', the last five scripts', the probes'
             launches=sum(by_path[k] for k in EVALUATE_PATHS + INT8_PATHS + INT8_FAMILY_PATHS
                          + NETWORK_PATHS + SCALE_OUT_PATHS + JOB_PATHS + FIDELITY_PATHS
-                         + SCRIPT_PATHS),
+                         + SCRIPT_PATHS + PROBE_PATHS),
             launches_by_path=by_path,
             max_abs_err=max(c["max_abs_err"] for c in bf16),
             # times of the 7 launches of one ds2 U-Net call, B=128, bf16
@@ -5384,7 +5579,7 @@ def main() -> None:
                       "cascade": cascade, "distill": distill, "ds1": ds1, "hgcal": hgcal,
                       "evaluate": evaluation, "int8": int8, "networks": networks,
                       "scale_out": scale_out, "jobs": jobs, "fidelity": fidelity,
-                      "scripts": scripts, "card": card}),
+                      "scripts": scripts, "probes": probes, "card": card}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

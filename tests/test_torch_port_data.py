@@ -9,12 +9,26 @@ import shutil
 import h5py
 import numpy as np
 import pytest
+import torch
 
 from calodiffusion_tpu.data import loader as jloader
 from calodiffusion_tpu_torch.data import loader as tloader
 from calodiffusion_tpu_torch.utils.config import default_flags
 from tests.test_torch_port_ds3 import ds3_config
 from tests.utils_test import tiny_ds2_config
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Two torch and two BLAS threads: the Tier-1 run shares the cores
+    between six workers."""
+    from threadpoolctl import threadpool_limits
+
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    with threadpool_limits(limits=2):
+        yield
+    torch.set_num_threads(prev)
 
 
 def make_h5(path, n, voxels, seed):

@@ -929,3 +929,44 @@ def test_int8_denoise_on_card_runs_q1_and_each_conv_matches_cpu():
         want = int8_conv.int8_conv3d_reference(inp.cpu(), wq, scale, bias, quant.inv_scale(sx),
                                                mod.stride, mod.padding, mod.cylindrical)
         assert torch.equal(out.cpu(), want), path
+
+
+# the probe scripts (scripts/torch_level_profile.py and its siblings): the
+# CUDA graph of K iterations against the same iterations launched eagerly,
+# K1's launches from Python, im2col against cuDNN
+def _probe(name):
+    import importlib
+    import sys
+
+    scripts = str(CONFIG.parent.parent / "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    return importlib.import_module(name)
+
+
+@pytest.mark.parametrize("keep,blocks", [(None, 7), (2, 4), (1, 2)], ids=["full", "l01", "l0"])
+def test_probe_unet_graph_matches_eager(keep, blocks):
+    tlp = _probe("torch_level_profile")
+    model = tlp.make_model(dict(block_attn=True, mid_attn=keep is None), keep, device="cuda")
+    res = tlp.timed("probe", model, iters=2, batch=4, device="cuda")
+    assert res["graph_vs_eager_ok"] and res["graph_ms"] > 0 and res["eager_ms"] > 0
+    assert res["k1_blocks"] == blocks
+    assert res["k1_launches"] == blocks * res["calls"]
+
+
+@pytest.mark.parametrize("spatial,cin,cout", [((23, 8, 5), 32, 32), ((12, 4, 3), 64, 32)])
+def test_probe_im2col_matches_cudnn(spatial, cin, cout):
+    tim = _probe("torch_im2col_microbench")
+    row = tim.case("probe", 4, spatial, cin, cout, iters=2, device="cuda")
+    assert row["rel_err"] <= tim.REL_ERR_MAX
+    assert row["native"]["graph_ms"] > 0 and row["im2col"]["graph_ms"] > 0
+
+
+def test_probe_sampling_graph_matches_eager():
+    """The roofline's sampling: the whole DDim loop captured once, against
+    the same loop run eagerly from the same start."""
+    trl = _probe("torch_ds3_roofline")
+    cfg = load_config(str(CONFIG))
+    row = trl.measure_sampling(cfg, batch=4, steps=2, device="cuda")
+    assert row["graph_vs_eager_max_abs_err"] <= K1_TOL[torch.bfloat16][0]
+    assert row["k1_blocks"] == 7 and row["graph_ms"] > 0 and row["step_flops"] > 0

@@ -26,9 +26,14 @@ from tests.test_torch_port_hgcal import NCELL, _cells, hgcal_config
 
 @pytest.fixture(autouse=True, scope="module")
 def _few_threads():
+    """Two torch and two BLAS threads: the Tier-1 run shares the cores
+    between six workers."""
+    from threadpoolctl import threadpool_limits
+
     prev = torch.get_num_threads()
     torch.set_num_threads(2)
-    yield
+    with threadpool_limits(limits=2):
+        yield
     torch.set_num_threads(prev)
 
 

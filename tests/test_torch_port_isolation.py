@@ -5,7 +5,10 @@ Python that scripts/torch_train_h100.sh runs), nor its fidelity harnesses
 torch_fewstep_check.py, torch_cascade_seeds.py), nor the last five scripts'
 counterparts (torch_train_smoke.py, torch_int8_fence_regate.py,
 torch_int8_cascade_ablation.py, torch_distill_extend.py,
-torch_distill_variant.py), nor any other scripts/torch_*.py, imports JAX,
+torch_distill_variant.py), nor the four TPU probes' counterparts
+(torch_level_profile.py, torch_l0_elementwise_ablation.py,
+torch_im2col_microbench.py, torch_ds3_roofline.py, which also run here with
+those blocked), nor any other scripts/torch_*.py, imports JAX,
 flax, orbax, the JAX package or the scripts (scripts/orbax_to_torch.py, which needs
 orbax, and the JAX package's scripts by their bare names among them); the job scripts launch the port's modules only; and the port imports
 and runs with those (and the packages the card machine lacks: h5py, yaml,
@@ -48,6 +51,10 @@ HARNESSES = [ROOT / "scripts" / f"{name}.py" for name in (
 SCRIPTS = [ROOT / "scripts" / f"{name}.py" for name in (
     "torch_train_smoke", "torch_int8_fence_regate", "torch_int8_cascade_ablation",
     "torch_distill_extend", "torch_distill_variant")]
+# the four TPU probes' counterparts
+PROBES = [ROOT / "scripts" / f"{name}.py" for name in (
+    "torch_level_profile", "torch_l0_elementwise_ablation", "torch_im2col_microbench",
+    "torch_ds3_roofline")]
 OTHER_SCRIPTS = sorted(set((ROOT / "scripts").glob("torch_*.py"))
                        - set(JOB_SCRIPTS + HARNESSES + SCRIPTS))
 SPLIT_HELPER = ROOT / "tests" / "torch_hgcal_split.py"
@@ -90,6 +97,11 @@ def test_no_forbidden_imports(path):
 def test_the_five_scripts_exist_and_are_checked():
     assert all(p.exists() for p in SCRIPTS)
     assert set(SCRIPTS) <= set(_sources())
+
+
+def test_the_four_probes_exist_and_are_checked():
+    assert all(p.exists() for p in PROBES)
+    assert set(PROBES) <= set(OTHER_SCRIPTS) <= set(_sources())
 
 
 def test_split_helper_runs_both_packages_and_stays_in_tests():
@@ -249,5 +261,39 @@ def test_cli_runs_from_npz_caches_with_h5py_click_matplotlib_blocked(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_CLI, str(tmp_path / "config.json"),
                            str(data) + "/", str(tmp_path / "ckpt")], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr
+
+
+_BLOCKED_PROBES = _BLOCKED_RUN.split("import calodiffusion_tpu_torch\n")[0] + r"""
+import sys
+sys.path.insert(0, "scripts")
+import torch_ds3_roofline as trl
+import torch_im2col_microbench as tim
+import torch_l0_elementwise_ablation as tl0
+import torch_level_profile as tlp
+
+tlp.LS = [8, 8, 16, 8]
+real = tlp.make_model
+tlp.make_model = lambda kw, keep=None, **k: real(kw, keep, **dict(k, cond_dim=16))
+cpu = ["--device", "cpu", "--batch", "1", "--iters", "1"]
+assert set(tlp.main(cpu)["cases"]) == {c[0] for c in tlp.CASES}
+assert set(tl0.main(cpu)["cases"]) == {c[0] for c in tl0.CASES}
+tim.CASES = [("tiny", 1, (5, 4, 3), 8, 16)]
+rep = tim.main(["--device", "cpu", "--iters", "1"])
+assert rep["cases"][0]["rel_err"] <= tim.REL_ERR_MAX
+trl.CONV_CASES = {"ds2": [((4, 4, 3), 8, 8)], "ds3": []}
+rep = trl.main(["--device", "cpu", "--which", "ds2", "--iters", "1", "--steps", "1",
+                "--batch", "1"])
+assert rep["ds2"]["full"]["k1_blocks"] == 7
+print("ok")
+"""
+
+
+def test_probe_scripts_run_with_jax_blocked():
+    """The four probes on the CPU at a tiny cut, jax, flax, the JAX package
+    and the packages the card machine lacks blocked."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_PROBES], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr

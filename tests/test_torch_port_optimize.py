@@ -29,6 +29,19 @@ from chip_smoke import DS2_PARTICLE, ds2_binning_xml
 from tests.test_torch_port_data import make_h5
 from tests.utils_test import tiny_ds2_config
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Two torch and two BLAS threads: the Tier-1 run shares the cores
+    between six workers."""
+    from threadpoolctl import threadpool_limits
+
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    with threadpool_limits(limits=2):
+        yield
+    torch.set_num_threads(prev)
+
 SAMPLER_SETTINGS = {
     "ETA": [0.0, 1.0], "S_NOISE": [0.5, 1.5], "ORDER": [1, 3], "R_TOL": [0.01, 0.1],
     "A_TOL": [0.001, 0.01], "H_INIT": [0.01, 0.1], "T_ERROR": [1e-5, 1e-3],

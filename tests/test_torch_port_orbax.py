@@ -29,6 +29,19 @@ from calodiffusion_tpu_torch.utils.config import default_flags
 from tests.test_torch_port_model import random_params
 from tests.utils_test import fake_batch, tiny_ds2_config
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Two torch and two BLAS threads: the Tier-1 run shares the cores
+    between six workers."""
+    from threadpoolctl import threadpool_limits
+
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    with threadpool_limits(limits=2):
+        yield
+    torch.set_num_threads(prev)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PLATEAU_LR = 5e-4  # the LR the plateau scheduler had lowered to at the save
 

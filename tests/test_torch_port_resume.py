@@ -27,6 +27,19 @@ from calodiffusion_tpu_torch.utils.config import default_flags
 from tests.test_torch_port_model import random_params
 from tests.utils_test import fake_batch, tiny_ds2_config
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Two torch and two BLAS threads: the Tier-1 run shares the cores
+    between six workers."""
+    from threadpoolctl import threadpool_limits
+
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    with threadpool_limits(limits=2):
+        yield
+    torch.set_num_threads(prev)
+
 # (EMA_DECAY of the saved run, of the resumed run) -> the JAX package's record
 CASES = {
     "ema_on_checkpoint_without": ((0.0, 0.99), dict(

@@ -16,6 +16,19 @@ from calodiffusion_tpu.samplers import get_sampler as jax_get_sampler
 from calodiffusion_tpu_torch.models.losses import hybrid_weight
 from calodiffusion_tpu_torch.samplers import SAMPLER_REGISTRY, get_sampler
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Two torch and two BLAS threads: the Tier-1 run shares the cores
+    between six workers."""
+    from threadpoolctl import threadpool_limits
+
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    with threadpool_limits(limits=2):
+        yield
+    torch.set_num_threads(prev)
+
 CFG = {
     "NOISE_SCHED": "log",
     "NSTEPS": 400,

@@ -30,9 +30,14 @@ MODULE_ATOL = 2e-4
 
 @pytest.fixture(autouse=True, scope="module")
 def _few_threads():
+    """Two torch and two BLAS threads: the Tier-1 run shares the cores
+    between six workers."""
+    from threadpoolctl import threadpool_limits
+
     prev = torch.get_num_threads()
     torch.set_num_threads(2)
-    yield
+    with threadpool_limits(limits=2):
+        yield
     torch.set_num_threads(prev)
 
 
