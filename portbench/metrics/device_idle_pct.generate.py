@@ -1,0 +1,10 @@
+"""device_idle_pct.generate: the share of the traced span of generation in
+which no kernel, copy or set ran on the device (the union of their
+intervals, not their sum)."""
+
+
+def read(run):
+    tr = run.trace
+    if run.entry != "generate" or tr is None or tr.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - tr.busy_s / tr.window_s)
